@@ -1,0 +1,94 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface and loaded with ``ctypes``.  The
+build runs at first use, from the sources in the checkout only, into
+``build/repro_torch/`` at the checkout's root, so the package runs from
+the checkout's ``src/`` (``PYTHONPATH=src`` or an editable install).  The
+library's file name carries a hash of the sources and flags, so an
+edited source is rebuilt and an unchanged one is loaded as it is.  A
+missing ``nvcc`` or a failed build raises: there is no fallback to the
+plain versions.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parents[1]
+CSRC = PKG / "kernels" / "csrc"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> Path:
+    """``build/repro_torch`` at the root of the checkout the package runs
+    from.  Raises where the package does not sit in a checkout's ``src/``
+    (a non-editable install) rather than build beside the installed
+    package, where other checkouts would meet its libraries."""
+    if PKG.parent.name != "src":
+        raise RuntimeError(
+            f"repro_torch builds its CUDA kernels into the checkout it runs "
+            f"from, but {PKG} is not in a checkout's src/; run with "
+            f"PYTHONPATH=src or an editable install")
+    return PKG.parent.parent / "build" / "repro_torch"
+
+
+def nvcc_path() -> str:
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
+                           "PATH); the CUDA kernels are built from source")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    return build_dir() / f"lib{name}-{_digest()}.so"
+
+
+def build(name: str) -> float:
+    """Compile ``csrc/<name>.cu`` unless its library is already there.
+    Returns the seconds the build took (0.0 where nothing was built)."""
+    out = library_path(name)
+    if out.exists():
+        return 0.0
+    out.parent.mkdir(parents=True, exist_ok=True)
+    # written aside and renamed, so no process loads a half-written library
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    r = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                        str(CSRC / f"{name}.cu")],
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"CUDA kernel build of {name} failed (nvcc "
+                           f"exited {r.returncode}):\n{r.stdout}{r.stderr}")
+    os.replace(tmp, out)
+    return time.perf_counter() - t0
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build(name)
+        lib = ctypes.CDLL(str(library_path(name)))
+        _loaded[name] = lib
+    return lib

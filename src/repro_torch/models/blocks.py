@@ -1,0 +1,117 @@
+"""Layer / block composition: an unrolled prologue, then the repeated
+pattern ``num_blocks`` times (port of ``repro/models/blocks.py``).
+
+The reference stacks each pattern position's parameters along a leading
+``num_blocks`` axis and runs the blocks as a ``lax.scan``; the port keeps
+one module per block (``stack.blocks.<block>.<position>``) and loops.
+Attention + dense-FFN layers only: mamba, MLA, MoE, cross-attention and
+QKV-bias layers raise ``NotImplementedError`` until they are ported.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.common import ArchConfig, LayerSpec
+
+from .attention import Attention
+from .layers import MLP, RMSNorm
+
+
+def _check_ported(cfg: ArchConfig, spec: LayerSpec) -> None:
+    why = None
+    if spec.kind != "attn":
+        why = f"{spec.kind} layers"
+    elif cfg.mla is not None:
+        why = "MLA attention"
+    elif spec.ffn == "moe":
+        why = "MoE feed-forward layers"
+    elif spec.cross_attn:
+        why = "cross-attention layers"
+    elif cfg.qkv_bias:
+        why = "QKV-bias projections"
+    if why is not None:
+        raise NotImplementedError(f"{why} are not ported to repro_torch yet "
+                                  f"({cfg.name}); see ROADMAP.md")
+
+
+class Layer(nn.Module):
+    """One pre-norm residual layer (``layer_init`` / ``layer_apply``):
+    attention, then a gated MLP, each with gemma's sandwich post-norm when
+    ``cfg.post_norm``."""
+
+    def __init__(self, cfg: ArchConfig, spec: LayerSpec, *, dtype, device):
+        super().__init__()
+        _check_ported(cfg, spec)
+        self.cfg, self.spec = cfg, spec
+        kw = dict(dtype=dtype, device=device)
+        d = cfg.d_model
+        self.ln1 = RMSNorm(d, **kw)
+        self.attn = Attention(d, cfg.num_heads, cfg.num_kv_heads,
+                              cfg.head_dim, qk_norm=cfg.qk_norm, **kw)
+        self.ln1_post = RMSNorm(d, **kw) if cfg.post_norm else None
+        ffn = spec.ffn != "none"
+        self.ln2 = RMSNorm(d, **kw) if ffn else None
+        self.mlp = MLP(d, cfg.d_ff, act=cfg.mlp_act, **kw) if ffn else None
+        self.ln2_post = RMSNorm(d, **kw) if ffn and cfg.post_norm else None
+
+    def forward(self, x, *, cache=None, cache_index=None):
+        cfg, spec = self.cfg, self.spec
+        a = self.attn(
+            self.ln1(x), rope_theta=spec.rope_theta, window=spec.window,
+            softcap=cfg.attn_softcap, scale=cfg.attn_scale,
+            cache=None if cache is None else cache["attn"],
+            cache_index=cache_index)
+        if self.ln1_post is not None:
+            a = self.ln1_post(a)
+        x = x + a
+        if self.mlp is not None:
+            f = self.mlp(self.ln2(x))
+            if self.ln2_post is not None:
+                f = self.ln2_post(f)
+            x = x + f
+        return x
+
+
+class Stack(nn.Module):
+    """Prologue layers, then ``num_blocks`` copies of the pattern
+    (``stack_init`` / ``stack_apply``)."""
+
+    def __init__(self, cfg: ArchConfig, *, dtype, device):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.prologue = nn.ModuleList(Layer(cfg, s, **kw)
+                                      for s in cfg.prologue)
+        self.blocks = nn.ModuleList(
+            nn.ModuleList(Layer(cfg, s, **kw) for s in cfg.pattern)
+            for _ in range(cfg.num_blocks))
+
+    def forward(self, x, *, caches=None, cache_index=None):
+        """caches: ``{"prologue": [...], "blocks": [[...] per block]}``
+        (updated in place).  Returns ``(x, caches)``."""
+        for i, layer in enumerate(self.prologue):
+            c = None if caches is None else caches["prologue"][i]
+            x = layer(x, cache=c, cache_index=cache_index)
+        for b, block in enumerate(self.blocks):
+            for i, layer in enumerate(block):
+                c = None if caches is None else caches["blocks"][b][i]
+                x = layer(x, cache=c, cache_index=cache_index)
+        return x, caches
+
+
+def layer_cache_init(cfg: ArchConfig, spec: LayerSpec, batch: int,
+                     max_seq: int, dtype, device) -> dict:
+    _check_ported(cfg, spec)
+    shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    return {"attn": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                     "v": torch.zeros(shape, dtype=dtype, device=device)}}
+
+
+def stack_cache_init(cfg: ArchConfig, batch: int, max_seq: int, dtype,
+                     device) -> dict:
+    return {
+        "prologue": [layer_cache_init(cfg, s, batch, max_seq, dtype, device)
+                     for s in cfg.prologue],
+        "blocks": [[layer_cache_init(cfg, s, batch, max_seq, dtype, device)
+                    for s in cfg.pattern] for _ in range(cfg.num_blocks)],
+    }

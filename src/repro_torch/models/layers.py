@@ -1,0 +1,115 @@
+"""Primitive layers (port of ``repro/models/layers.py``).
+
+Weights keep the reference's orientation — ``Dense.w`` is
+``(d_in, d_out)`` and is applied as ``x @ w`` — so carrying weights
+across is a copy, never a transpose.  Parameter names follow the
+reference's pytree keys, so a module's ``state_dict`` keys are the
+reference's tree paths.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def normal_(t: torch.Tensor, generator: torch.Generator,
+            scale: float = 0.02) -> torch.Tensor:
+    """N(0, scale) drawn in f32, then cast (``layers.py:8-10``)."""
+    with torch.no_grad():
+        t.copy_(scale * torch.randn(t.shape, generator=generator,
+                                    device=t.device, dtype=torch.float32))
+    return t
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """Gemma-style (1 + scale) RMSNorm in f32, cast back to x's dtype."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, *, dtype, device):
+        super().__init__()
+        self.scale = nn.Parameter(torch.zeros(d, dtype=dtype, device=device),
+                                  requires_grad=False)
+
+    def forward(self, x):
+        return rmsnorm(x, self.scale)
+
+
+# ---------------------------------------------------------------------------
+# linear / embedding
+# ---------------------------------------------------------------------------
+
+class Dense(nn.Module):
+    def __init__(self, d_in: int, d_out: int, *, dtype, device):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(d_in, d_out, dtype=dtype,
+                                          device=device), requires_grad=False)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        normal_(self.w, generator)
+
+    def forward(self, x):
+        return x @ self.w
+
+
+class Embed(nn.Module):
+    def __init__(self, vocab: int, d: int, *, dtype, device):
+        super().__init__()
+        self.table = nn.Parameter(torch.empty(vocab, d, dtype=dtype,
+                                              device=device),
+                                  requires_grad=False)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        normal_(self.table, generator)
+
+    def forward(self, tokens):
+        return self.table[tokens]
+
+
+# ---------------------------------------------------------------------------
+# gated MLP (SwiGLU / GeGLU)
+# ---------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    def __init__(self, d: int, d_ff: int, *, act: str, dtype, device):
+        super().__init__()
+        self.act = act
+        self.gate = Dense(d, d_ff, dtype=dtype, device=device)
+        self.up = Dense(d, d_ff, dtype=dtype, device=device)
+        self.down = Dense(d_ff, d, dtype=dtype, device=device)
+
+    def forward(self, x):
+        g = self.gate(x)
+        g = F.silu(g) if self.act == "silu" else F.gelu(g, approximate="tanh")
+        return self.down(g * self.up(x))
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., T, H, hd) rotated by absolute positions (T,) — half-split
+    layout with f32 angles, as ``layers.py:76-88``."""
+    hd = x.shape[-1]
+    half = hd // 2
+    idx = torch.arange(0, half, dtype=torch.float32, device=x.device)
+    freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                  device=x.device), -idx / half)
+    ang = positions[..., None].float() * freq            # (T, half)
+    cos = torch.cos(ang)[..., None, :]                    # (T, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)

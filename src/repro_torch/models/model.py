@@ -1,0 +1,109 @@
+"""Decoder-only LM for serving (port of ``repro/models/model.py``).
+
+    params = init(cfg, seed, dtype, device)
+    logits, caches = prefill(cfg, params, batch, max_seq, cache_dtype)
+    logits, caches = decode_step(cfg, params, caches, tokens, index)
+
+``params`` is a :class:`Model`; its ``state_dict`` keys are the
+reference's param-tree paths, with the stacked pattern blocks split per
+block (``stack.blocks.<block>.<position>.…``) — see
+:mod:`repro_torch.convert`.  Caches are updated in place.  Training
+(``loss_fn``), encoder-decoder, frontend, multi-token-prediction and
+untied-head models are not ported yet, nor are the ``"append_free"`` and
+``"paged"`` decode modes.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.common import ArchConfig
+from repro_torch.device import resolve_device
+
+from .blocks import Stack, stack_cache_init
+from .layers import Dense, Embed, RMSNorm
+
+DECODE_MODES = ("dus",)
+
+
+class Model(nn.Module):
+    def __init__(self, cfg: ArchConfig, *, dtype=torch.float32, device=None):
+        super().__init__()
+        if (cfg.encoder is not None or cfg.frontend is not None or cfg.mtp
+                or not cfg.tie_embeddings):
+            raise NotImplementedError(
+                f"{cfg.name}: encoder, frontend, multi-token-prediction and "
+                f"untied-head models are not ported to repro_torch yet; see "
+                f"ROADMAP.md")
+        kw = dict(dtype=dtype, device=resolve_device(device))
+        self.cfg = cfg
+        self.embed = Embed(cfg.vocab_size, cfg.d_model, **kw)
+        self.stack = Stack(cfg, **kw)
+        self.final_norm = RMSNorm(cfg.d_model, **kw)
+
+
+def init(cfg: ArchConfig, seed: int = 0, dtype=torch.float32,
+         device=None) -> Model:
+    """Random weights, N(0, 0.02) from a seeded ``torch.Generator`` on the
+    target device (norm scales zero, as the reference).  The
+    numbers differ from the reference's ``jax.random`` draws; parity runs
+    carry the reference's weights across with ``convert.params_from_jax``.
+    """
+    model = Model(cfg, dtype=dtype, device=device)
+    gen = torch.Generator(device=model.embed.table.device)
+    gen.manual_seed(seed)
+    for module in model.modules():
+        if isinstance(module, (Dense, Embed)):
+            module.reset_parameters(gen)
+    return model.eval()
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
+               dtype=torch.bfloat16, device=None) -> dict:
+    return stack_cache_init(cfg, batch, max_seq, dtype,
+                            resolve_device(device))
+
+
+def backbone(cfg: ArchConfig, params: Model, tokens, *, caches=None,
+             cache_index=None):
+    """Returns ``(hidden, caches)``."""
+    x = params.embed(tokens)
+    if cfg.embed_scale:
+        # the constant is rounded to x's dtype before the multiply, as the
+        # reference does: in bf16, sqrt(1152) = 33.94 becomes 34.0
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
+                             device=x.device)
+    x, caches = params.stack(x, caches=caches, cache_index=cache_index)
+    return params.final_norm(x), caches
+
+
+def _logits(cfg: ArchConfig, params: Model, h):
+    logits = h @ params.embed.table.T           # tied output projection
+    if cfg.final_softcap is not None:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    return logits
+
+
+def prefill(cfg: ArchConfig, params: Model, batch, max_seq: int,
+            cache_dtype=torch.bfloat16):
+    """Run the prompt through the model, filling a fresh KV cache of
+    ``max_seq`` positions.  Returns (last-position logits (B, 1, V),
+    caches)."""
+    tokens = batch["tokens"]
+    caches = init_cache(cfg, tokens.shape[0], max_seq, cache_dtype,
+                        tokens.device)
+    h, caches = backbone(cfg, params, tokens, caches=caches, cache_index=0)
+    return _logits(cfg, params, h[:, -1:]), caches
+
+
+def decode_step(cfg: ArchConfig, params: Model, caches, tokens, index: int,
+                *, decode_mode="dus"):
+    """tokens: (B, T) at positions ``index .. index + T - 1`` (the cache
+    holds [0, index)).  Returns (logits (B, T, V), caches)."""
+    if decode_mode not in DECODE_MODES:
+        raise NotImplementedError(
+            f"decode_mode {decode_mode!r} is not ported to repro_torch yet "
+            f"(ported: {DECODE_MODES}); see ROADMAP.md")
+    h, caches = backbone(cfg, params, tokens, caches=caches,
+                         cache_index=index)
+    return _logits(cfg, params, h), caches

@@ -1,0 +1,81 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Needs a CUDA device and ``nvcc``; every test here carries the
+``cuda`` marker and skips without a card.  Imports no JAX, so it runs
+where the port runs:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerance, element by element: |kernel - plain| <= 1e-4 (f32 FMAs summed
+in another order), plus in bf16 2**-7 * |plain|, one bf16 rounding step
+of the element, since the plain version rounds its f32 result to bf16
+once and the kernel once.
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import (SUPPORTED_DIMS,
+                                                 flash_attention_fwd)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _assert_close(got, want):
+    diff = (got.float() - want.float()).abs()
+    tol = 1e-4 + (2.0 ** -7 * want.float().abs()
+                  if got.dtype == torch.bfloat16 else 0.0)
+    assert bool((diff <= tol).all()), float((diff / tol).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,Dv", SUPPORTED_DIMS)
+@pytest.mark.parametrize("H,KV,Tq,S,q0,valid,window,softcap", [
+    (4, 1, 37, 60, 10, 47, None, None),   # prefill continuation, NaN tail
+    (4, 2, 70, 70, 0, 70, 16, None),      # square prefill with a window
+    (8, 8, 1, 90, 52, 53, 24, 30.0),      # decode with window and softcap
+    (4, 1, 1, 130, 129, 130, None, None),
+])
+def test_kernel_matches_plain(card, dtype, D, Dv, H, KV, Tq, S, q0, valid,
+                              window, softcap):
+    g = torch.Generator(device=card).manual_seed(0)
+    B = 2
+    q = torch.randn(B, Tq, H, D, generator=g, device=card).to(dtype)
+    k = torch.randn(B, S, KV, D, generator=g, device=card).to(dtype)
+    v = torch.randn(B, S, KV, Dv, generator=g, device=card).to(dtype)
+    k[:, valid:] = float("nan")
+    v[:, valid:] = float("nan")
+    kw = dict(window=window, softcap=softcap, q_pos0=q0, k_valid_len=valid)
+    want = ref.grouped_sdpa_ref(q, k, v, **kw)
+    before = flash_attention_fwd.launches
+    got = flash_attention_fwd(q, k, v, window=window, softcap=softcap,
+                              q_start=q0, k_valid_len=valid)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    _assert_close(got, want)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_kernel_reads_strided_views_and_per_batch_positions(card, causal):
+    g = torch.Generator(device=card).manual_seed(1)
+    B, H, KV, Tq, S, D = 3, 4, 1, 2, 40, 128
+    q = torch.randn(B, H, Tq, D, generator=g, device=card).transpose(1, 2)
+    k = torch.randn(B, KV, S, D, generator=g, device=card).transpose(1, 2)
+    v = torch.randn(B, KV, S, D, generator=g, device=card).transpose(1, 2)
+    starts = torch.tensor([0, 7, 38], device=card, dtype=torch.int32)
+    valid = starts + Tq
+    want = ref.grouped_sdpa_ref(q, k, v, causal=causal, window=8,
+                                q_pos0=starts, k_valid_len=valid)
+    got = flash_attention_fwd(q, k, v, causal=causal, window=8,
+                              q_start=starts, k_valid_len=valid)
+    torch.cuda.synchronize()
+    _assert_close(got, want)

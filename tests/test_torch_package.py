@@ -1,0 +1,122 @@
+"""Package rules of the port: no JAX and nothing of ``repro`` inside
+``repro_torch`` or ``chip_smoke.py``; CUDA by default, the CPU only when
+asked; the kernel counter moves only where the kernel launches."""
+import pkgutil
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.configs import get_config
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import flash_attention_fwd
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+FORBIDDEN = re.compile(r"^\s*(?:from|import)\s+(?:jax|repro)(?:[.\s,]|$)",
+                       re.MULTILINE)
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, "repro_torch."))
+
+
+def test_importing_every_module_leaves_jax_and_repro_out():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       env={"PYTHONPATH": str(ROOT / "src"),
+                            "PATH": "/usr/bin:/bin"},
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "repro_torch.launch.serve" in _modules()
+
+
+def test_sources_import_no_jax_and_no_repro():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    offenders = [str(f) for f in files if FORBIDDEN.search(f.read_text())]
+    assert not offenders
+    assert FORBIDDEN.search("from repro.kernels import ops\n")
+    assert FORBIDDEN.search("import jax.numpy as jnp\n")
+    assert not FORBIDDEN.search("from repro_torch.kernels import ops\n")
+
+
+def test_serve_launcher_without_card_exits_with_message():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "gemma3-1b", "--reduced"], cwd=ROOT,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert "CUDA device" in r.stderr and "--device cpu" in r.stderr
+
+
+def test_entry_points_default_to_cuda():
+    from repro_torch.models import model as M
+    from repro_torch.serve import make_engine
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = get_config("gemma3-1b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        M.init(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        M.Model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        M.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_engine(cfg, batch=1, prompt_len=8, max_new=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.resolve_device()
+    assert repro_torch.resolve_device("cpu").type == "cpu"
+
+
+def test_cpu_attention_does_not_touch_the_kernel_counter():
+    q = torch.randn(1, 3, 4, 16)
+    k = torch.randn(1, 5, 2, 16)
+    before = flash_attention_fwd.launches
+    ops.sdpa(q, k, k)
+    ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                        k.transpose(1, 2))
+    assert flash_attention_fwd.launches == before
+
+
+def test_kernel_wrapper_takes_cuda_tensors_only():
+    q = torch.randn(1, 3, 4, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_fwd(q, q, q)
+
+
+def test_kernels_build_into_the_checkout_only(tmp_path):
+    from repro_torch.kernels import _build
+    assert _build.build_dir() == ROOT / "build" / "repro_torch"
+    # a copy outside a checkout's src/ (as a non-editable install is)
+    # refuses to build rather than write beside the installed package
+    shutil.copytree(PKG, tmp_path / "site" / "repro_torch")
+    code = ("from repro_torch.kernels import _build\n"
+            "_build.library_path('flash_attention')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                       env={"PYTHONPATH": str(tmp_path / "site"),
+                            "PATH": "/usr/bin:/bin"},
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert "checkout" in r.stderr
+    assert not (tmp_path / "build").exists()
+
+
+def test_unported_architectures_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_config("granite-8b")
+    assert get_config("gemma3_1b").name == "gemma3-1b"
