@@ -5,26 +5,46 @@
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. Card and build: the card's name and power limit, then the CUDA
-   kernel of the serving path built from the sources in this checkout.
+1. Card and build: the card's name and power limit, then every CUDA
+   kernel of the ported paths built from the sources in this checkout,
+   one ``nvcc`` per source, all started together, each build timed.
 2. Each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it (full-width gemma3-1b: B=4, prompt 1024,
-   64 new tokens), in bf16 and f32, plus a ragged and a softcap case,
-   element by element: |kernel - plain| <= 1e-4, plus 2^-7 |plain| in
-   bf16 (one bf16 rounding step, as each side rounds its f32 result).
-   Times are CUDA-event medians of 25 launches after warm-up, with the
-   50 MB L2 flushed before each launch.  ``library_ms`` times PyTorch's
-   ``scaled_dot_product_attention`` on the same inputs as a yardstick;
-   the port never calls it.
-3. The main path: full-width gemma3-1b in bf16 (random weights from a
-   seed), ``make_engine(batch=4, prompt_len=1024, max_new=64)``, one
-   warm-up generation, then one timed greedy generation whose kernel
-   launches are counted (26 layers x 64 model passes); then prefill and
-   the 63 decode steps each alone, timed, their launches counted apart.
-4. The port on the card against the port on the CPU: reduced gemma3-1b
-   in f32, greedy tokens equal and prefill logits within 1e-4.
-5. ``--profile`` only: a profiler trace of one decode step, kernel time
-   by name (what bounds a step).
+   shapes the main paths give it.  Times are CUDA-event medians of 25
+   launches after warm-up, with the 50 MB L2 flushed before each launch.
+   - Flash attention, at serving (full-width gemma3-1b: B=4, prompt
+     1024, 64 new tokens) and training (B=2, Tq=S=1024) shapes, in bf16
+     and f32, plus a ragged and a softcap case, element by element:
+     |kernel - plain| <= 1e-4, plus 2^-7 |plain| in bf16 (one bf16
+     rounding step, as each side rounds its f32 result).
+     ``library_ms`` times PyTorch's ``scaled_dot_product_attention`` on
+     the same inputs as a yardstick; the port never calls it.
+   - Fused DSGD-momentum, at the training path's leaf shapes (the
+     node-stacked embedding, MLP gate, ``wq`` and a norm scale), in
+     bf16 and f32, with per-row and scalar pre-scales, plus a ragged
+     case and a bf16 case above 2^31 elements: bit for bit.  No single
+     PyTorch call computes the same function (``torch._fused_sgd_`` has
+     no per-row pre-scale), so its ``library_ms`` is null.
+3. Serving: full-width gemma3-1b in bf16 (random weights from a seed),
+   ``make_engine(batch=4, prompt_len=1024, max_new=64)``, one warm-up
+   generation, then one timed greedy generation whose kernel launches
+   are counted (26 layers x 64 model passes); then prefill and the 63
+   decode steps each alone, timed, their launches counted apart.
+4. Training: full-width gemma3-1b in bf16 as n = 3 nodes on the Base-2
+   graph, DSGD-momentum (0.9, eta 0.01) through ``simulate_decentralized``,
+   2 sequences of 1024 tokens per node; one warm-up step, then 6 timed
+   steps (two periods of the schedule) whose launches are counted (one
+   fused update per parameter tensor and 26 x 3 flash forwards per
+   step) and whose steps are split by CUDA events into forward+backward,
+   update and mix.
+5. The port on the card against the port on the CPU: reduced gemma3-1b
+   serving in f32 (greedy tokens equal, prefill logits within 1e-4); the
+   five methods on the paper MLP (losses within 1e-5) and reduced
+   gemma3-1b DSGD-momentum training (losses within 1e-4).
+6. Consensus on the card: ``optim.mix`` over one period of Base-2 at
+   n = 3 and Base-3 at n = 21 reaches a relative consensus error
+   <= 1e-10; the ring's after as many rounds is printed beside it.
+7. ``--profile`` only: profiler traces of one decode step and one
+   training step, kernel time by name (what bounds a step).
 
 The line before the last is a JSON object with one entry per kernel
 and main-path shape; the last line is
@@ -45,10 +65,22 @@ H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,   # dense tensor-core bf16
               "float32": 67e12}     # f32 outside the tensor cores
 
-# gemma3-1b main path (src/repro_torch/configs/gemma3_1b.py)
+# gemma3-1b serving path (src/repro_torch/configs/gemma3_1b.py)
 BATCH, PROMPT, NEW = 4, 1024, 64
 SEQ = PROMPT + NEW
 HEADS, KV_HEADS, HEAD_DIM, LOCAL_WINDOW = 4, 1, 256, 512
+# gemma3-1b training path: n nodes x B sequences of T tokens per step
+TRAIN_N, TRAIN_B, TRAIN_SEQ, TRAIN_STEPS = 3, 2, 1024, 6
+TRAIN_ETA, TRAIN_MOMENTUM = 0.01, 0.9
+# the training path's (R, C) views of its leaves, R = nodes
+# (embed 262144 x 1152, MLP gate 1152 x 6912, wq 1152 x 1024, a norm scale)
+DSGD_SHAPES = (("embed", (TRAIN_N, 262144 * 1152)),
+               ("mlp.gate", (TRAIN_N, 1152 * 6912)),
+               ("attn.wq", (TRAIN_N, 1152 * 1024)),
+               ("norm", (TRAIN_N, 1152)))
+DSGD_RAGGED = (257, 513)
+DSGD_ABOVE_2_31 = (2, (1 << 30) + 3)     # bf16, ~21 GB over five tensors
+DSGD_SLICE = 1 << 27                     # columns per plain-version slice
 
 
 def card_line() -> str:
@@ -114,17 +146,25 @@ def time_ms(torch, fn, flush, runs=25, warmup=3):
 
 
 def phase_build(torch):
+    """One nvcc per source, all started together; each build timed."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.kernels import _build
-    print(f"[build] flash_attention.cu in "
-          f"{_build.build('flash_attention'):.1f}s")
+    names = ("flash_attention", "fused_dsgd")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        secs = dict(zip(names, pool.map(_build.build, names)))
+    for name in names:
+        print(f"[build] {name}.cu in {secs[name]:.1f}s")
+    print(f"[build] all in {time.perf_counter() - t0:.1f}s")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
 
-def phase_kernels(torch, dev):
-    """Kernel vs plain on the card; returns (phase, JSON entry) for each
-    timed bf16 main-path shape, the phase ("prefill" or "decode") whose
-    launches the entry reports."""
+def phase_flash_kernels(torch, dev):
+    """Flash attention vs plain on the card; returns (phase, JSON entry)
+    for each timed bf16 main-path shape, the phase ("prefill", "decode"
+    or "train-flash") whose launches the entry reports."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -133,10 +173,10 @@ def phase_kernels(torch, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
 
-    def inputs(dtype, Tq, S, D, Dv, k_valid, poison):
-        q = torch.randn(BATCH, Tq, HEADS, D, generator=gen, device=dev)
-        k = torch.randn(BATCH, S, KV_HEADS, D, generator=gen, device=dev)
-        v = torch.randn(BATCH, S, KV_HEADS, Dv, generator=gen, device=dev)
+    def inputs(dtype, B, Tq, S, D, Dv, k_valid, poison):
+        q = torch.randn(B, Tq, HEADS, D, generator=gen, device=dev)
+        k = torch.randn(B, S, KV_HEADS, D, generator=gen, device=dev)
+        v = torch.randn(B, S, KV_HEADS, Dv, generator=gen, device=dev)
         fill = float("nan") if poison else 0.0     # the cache's empty tail
         k[:, k_valid:] = fill
         v[:, k_valid:] = fill
@@ -160,24 +200,29 @@ def phase_kernels(torch, dev):
         return lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True)
 
+    # (name, phase, B, Tq, S, q0, k_valid, window, softcap, poison); a
+    # phase of None marks a correctness-only case
     cases = []
     for layer, window in (("local", LOCAL_WINDOW), ("global", None)):
-        cases.append((f"prefill,{layer}", PROMPT, 0, PROMPT, window, None,
-                      HEAD_DIM, HEAD_DIM, False, True))
+        cases.append((f"prefill,{layer}", "prefill", BATCH, PROMPT, SEQ, 0,
+                      PROMPT, window, None, False))
         for q0 in (PROMPT, SEQ - 2):
-            cases.append((f"decode@{q0},{layer}", 1, q0, q0 + 1, window,
-                          None, HEAD_DIM, HEAD_DIM, False, True))
-    cases.append(("ragged,local", 77, 900, 977, LOCAL_WINDOW, None,
-                  HEAD_DIM, HEAD_DIM, True, False))
-    cases.append(("softcap,global", 77, 900, 977, None, 50.0,
-                  HEAD_DIM, HEAD_DIM, True, False))
+            cases.append((f"decode@{q0},{layer}", "decode", BATCH, 1, SEQ,
+                          q0, q0 + 1, window, None, False))
+        cases.append((f"train,{layer}", "train-flash", TRAIN_B, TRAIN_SEQ,
+                      TRAIN_SEQ, 0, TRAIN_SEQ, window, None, False))
+    cases.append(("ragged,local", None, BATCH, 77, SEQ, 900, 977,
+                  LOCAL_WINDOW, None, True))
+    cases.append(("softcap,global", None, BATCH, 77, SEQ, 900, 977, None,
+                  50.0, True))
 
+    D = Dv = HEAD_DIM
     entries = []
     print("[kernels] case dtype max_abs_err worst_err/tol")
-    for (name, Tq, q0, k_valid, window, softcap, D, Dv, poison,
-         main_path) in cases:
+    for (name, phase, B, Tq, S, q0, k_valid, window, softcap,
+         poison) in cases:
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = inputs(dtype, Tq, SEQ, D, Dv, k_valid, poison)
+            q, k, v = inputs(dtype, B, Tq, S, D, Dv, k_valid, poison)
             kw = dict(window=window, softcap=softcap)
             want = ref.grouped_sdpa_ref(q, k, v, q_pos0=q0,
                                         k_valid_len=k_valid, **kw)
@@ -190,7 +235,7 @@ def phase_kernels(torch, dev):
             if not ok:
                 raise SystemExit(f"flash attention {name} {dname}: max abs "
                                  f"err {err}, {worst} x its tolerance")
-            if not (main_path and dtype == torch.bfloat16):
+            if not (phase and dtype == torch.bfloat16):
                 continue
             fa = lambda: flash_attention_fwd(  # noqa: E731
                 q, k, v, q_start=q0, k_valid_len=k_valid, **kw)
@@ -199,7 +244,7 @@ def phase_kernels(torch, dev):
             lib = library(q, k, v, q0=q0, k_valid=k_valid, scale=D ** -0.5,
                           **kw)
             nbytes, flops = attention_work(
-                B=BATCH, Tq=Tq, H=HEADS, KV=KV_HEADS, D=D, Dv=Dv, q0=q0,
+                B=B, Tq=Tq, H=HEADS, KV=KV_HEADS, D=D, Dv=Dv, q0=q0,
                 k_valid=k_valid, window=window, elt=q.element_size())
             b_ms, b_by = bound_ms(nbytes, flops, dname)
             entry = {
@@ -220,8 +265,102 @@ def phase_kernels(torch, dev):
                   f"(bound {b_ms:.4f} ms by {b_by}; plain "
                   f"{entry['plain_ms']:.4f} ms; sdpa "
                   f"{entry['library_ms']} ms)")
-            entries.append((name.split("@")[0].split(",")[0], entry))
+            entries.append((phase, entry))
     del flush
+    return entries
+
+
+def _bits(torch, t):
+    """The bit pattern of an f32 / bf16 tensor, for exact comparison."""
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def phase_dsgd_kernels(torch, dev):
+    """Fused DSGD-momentum vs plain on the card, bit for bit; returns
+    ("train-fused_dsgd", JSON entry) for each training-path shape in
+    bf16 with per-row pre-scales (the main path's mode)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_dsgd import fused_dsgd
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    beta, eta = TRAIN_MOMENTUM, TRAIN_ETA
+
+    def check(name, x, u, g, pre, dname, mode):
+        got = fused_dsgd(x, u, g, beta, eta, pre)
+        bp = pre[:, None] if isinstance(pre, torch.Tensor) else pre
+        want = ref.fused_dsgd_ref(x, u, g, beta, eta, bp)
+        torch.cuda.synchronize()
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, want))
+        same = all(torch.equal(_bits(torch, a), _bits(torch, b))
+                   for a, b in zip(got, want))
+        print(f"[dsgd] {name} {tuple(x.shape)} {dname} pre={mode}: "
+              f"bitwise {same}, max abs err {err:.3e}")
+        if not same:
+            raise SystemExit(f"fused DSGD {name} {dname} pre={mode} differs "
+                             f"from its plain version (max abs err {err})")
+        del got, want
+        return err
+
+    entries = []
+    cases = DSGD_SHAPES + (("ragged", DSGD_RAGGED),)
+    for name, shape in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            x, u, g = (torch.randn(shape, generator=gen, device=dev,
+                                   dtype=dtype) for _ in range(3))
+            row = torch.rand(shape[0], generator=gen, device=dev) + 0.2
+            err = check(name, x, u, g, row, dname, "row")
+            check(name, x, u, g, 0.37, dname, "scalar")
+            if dtype == torch.bfloat16 and name != "ragged":
+                numel = x.numel()
+                b_ms, b_by = bound_ms(5 * numel * x.element_size()
+                                      + 4 * shape[0], 6 * numel, "float32")
+                entry = {
+                    "name": f"fused_dsgd[{name},{dname}]",
+                    "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/fused_dsgd.cu",
+                    "replaces": "src/repro/kernels/fused_dsgd.py:50",
+                    "launches": None,
+                    "max_abs_err": err,
+                    "ms": time_ms(torch, lambda: fused_dsgd(
+                        x, u, g, beta, eta, row), flush),
+                    "plain_ms": time_ms(torch, lambda: ref.fused_dsgd_ref(
+                        x, u, g, beta, eta, row[:, None]), flush),
+                    "bound_ms": b_ms,
+                    "bound_by": b_by,
+                    "library_ms": None,
+                }
+                print(f"[dsgd] {entry['name']}: {entry['ms']:.4f} ms (bound "
+                      f"{b_ms:.4f} ms by {b_by}; plain "
+                      f"{entry['plain_ms']:.4f} ms)")
+                entries.append(("train-fused_dsgd", entry))
+            del x, u, g
+            torch.cuda.empty_cache()
+
+    # above 2^31 elements: 64-bit indices.  The plain version's f32
+    # temporaries over the whole tensor would not fit, so it is held
+    # against the kernel one column slice at a time (the op is
+    # elementwise, so a slice gives the same bits).
+    shape = DSGD_ABOVE_2_31
+    x, u, g = (torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    row = torch.rand(shape[0], generator=gen, device=dev) + 0.2
+    gx, gu = fused_dsgd(x, u, g, beta, eta, row)
+    torch.cuda.synchronize()
+    for c0 in range(0, shape[1], DSGD_SLICE):
+        s = slice(c0, c0 + DSGD_SLICE)
+        wx, wu = ref.fused_dsgd_ref(x[:, s], u[:, s], g[:, s], beta, eta,
+                                    row[:, None])
+        if not (torch.equal(_bits(torch, gx[:, s]), _bits(torch, wx))
+                and torch.equal(_bits(torch, gu[:, s]), _bits(torch, wu))):
+            raise SystemExit(f"fused DSGD above 2^31 elements differs from "
+                             f"its plain version in columns {c0}+")
+    print(f"[dsgd] {shape} bfloat16 pre=row ({x.numel()} elements, 2^31 = "
+          f"{1 << 31}): bitwise True")
+    del x, u, g, gx, gu, flush
+    torch.cuda.empty_cache()
     return entries
 
 
@@ -345,6 +484,205 @@ def phase_cpu_vs_card(torch, dev):
                          f"card {out['card'].tolist()}")
 
 
+def phase_train(torch, dev, card, profile=False):
+    """Full-width gemma3-1b DSGD-momentum training on the card, through
+    ``simulate_decentralized``; returns the launch counts of the timed
+    run by phase.  With ``profile``, one more step runs under the
+    profiler (kernel time by name)."""
+    from repro_torch import trace
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.fused_dsgd import fused_dsgd
+    from repro_torch.models import model as M
+    from repro_torch.optim.decentralized import make_method
+    from repro_torch.sim.engine import (_consensus_error,
+                                        simulate_decentralized)
+    from repro_torch.topology import TopologySpec
+
+    cfg = get_config("gemma3-1b")
+    params = M.init(cfg, seed=0, dtype=torch.bfloat16,
+                    device=dev).state_dict()
+    n_params = sum(p.numel() for p in params.values())
+    tokens = TRAIN_N * TRAIN_B * TRAIN_SEQ
+
+    def batches(step):
+        b = token_batches(step, batch=TRAIN_N * TRAIN_B, seq=TRAIN_SEQ,
+                          vocab=cfg.vocab_size)
+        return {k: v.reshape(TRAIN_N, TRAIN_B, TRAIN_SEQ)
+                for k, v in b.items()}
+
+    kw = dict(loss_fn=lambda p, b: M.loss_fn(cfg, p, b)[0], params=params,
+              method=make_method("dsgdm", momentum=TRAIN_MOMENTUM),
+              schedule=TopologySpec(name="base", n=TRAIN_N, k=1),
+              batches=batches, eta=TRAIN_ETA, device=dev)
+    print(f"[train] gemma3-1b full width: {cfg.num_layers} layers, "
+          f"{len(params)} parameter tensors, {n_params / 1e9:.3f} B params "
+          f"in bf16; n={TRAIN_N} nodes on base k=1, dsgdm "
+          f"{TRAIN_MOMENTUM}, eta {TRAIN_ETA}, {TRAIN_B} x {TRAIN_SEQ} "
+          f"tokens per node")
+    t0 = time.perf_counter()
+    simulate_decentralized(steps=1, **kw)                # warm-up
+    torch.cuda.synchronize()
+    print(f"[train] warm-up step (with node_stack): "
+          f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    fused_dsgd.launches = 0
+    flash_attention_fwd.launches = 0
+    t0 = time.perf_counter()
+    with trace.cuda_marks() as marks:
+        res = simulate_decentralized(steps=TRAIN_STEPS, **kw)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"train-fused_dsgd": fused_dsgd.launches,
+                "train-flash": flash_attention_fwd.launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    want = {"train-fused_dsgd": TRAIN_STEPS * len(params),
+            "train-flash": TRAIN_STEPS * cfg.num_layers * TRAIN_N}
+    for phase, n in want.items():
+        if launches[phase] != n:
+            raise SystemExit(f"{phase} launched {launches[phase]} times in "
+                             f"{TRAIN_STEPS} training steps, expected {n}")
+    losses = res.losses
+    if losses.shape != (TRAIN_STEPS,) or not bool(
+            torch.isfinite(torch.from_numpy(losses)).all()):
+        raise SystemExit(f"training losses not finite: {losses}")
+
+    names = [name for name, _ in marks]
+    if names != ["step", "update", "mix", "end"] * TRAIN_STEPS:
+        raise SystemExit(f"unexpected training step marks: {names[:8]}")
+    split = {"forward+backward": [], "update": [], "mix": [], "step": []}
+    for i in range(TRAIN_STEPS):
+        ev = [e for _, e in marks[4 * i:4 * i + 4]]
+        split["forward+backward"].append(ev[0].elapsed_time(ev[1]))
+        split["update"].append(ev[1].elapsed_time(ev[2]))
+        split["mix"].append(ev[2].elapsed_time(ev[3]))
+        split["step"].append(ev[0].elapsed_time(ev[3]))
+    med = {k: statistics.median(v) for k, v in split.items()}
+    cons = float(_consensus_error(res.params))
+    print(f"[train] {card}: {med['step']:.2f} ms/step (median of "
+          f"{TRAIN_STEPS}, CUDA events; min {min(split['step']):.2f}, max "
+          f"{max(split['step']):.2f}), {tokens / med['step'] * 1e3:.1f} "
+          f"tokens/s ({tokens} tokens per step); host clock "
+          f"{wall / TRAIN_STEPS * 1e3:.2f} ms/step over the whole run")
+    print(f"[train] split per step (medians): forward+backward "
+          f"{med['forward+backward']:.2f} ms, update (fused kernels) "
+          f"{med['update']:.2f} ms, mix {med['mix']:.2f} ms")
+    print(f"[train] losses {[round(float(x), 4) for x in losses]}; "
+          f"consensus error after {TRAIN_STEPS} steps {cons:.3e}; peak "
+          f"memory {peak / 2**30:.2f} GiB (max_memory_allocated)")
+    compute_floor = 6.0 * n_params * tokens / PEAK_FLOPS["bfloat16"] * 1e3
+    update_bytes = 5 * TRAIN_N * n_params * 2
+    update_floor = update_bytes / H100_BYTES_PER_S * 1e3
+    print(f"[train] floors: compute >= {compute_floor:.2f} ms/step (6 x "
+          f"{n_params / 1e9:.3f} B params x {tokens} tokens at 989 TFLOP/s "
+          f"bf16); update >= {update_floor:.2f} ms/step "
+          f"({update_bytes / 1e9:.1f} GB at 3.35 TB/s)")
+    print(f"[train] launches in {TRAIN_STEPS} steps: fused_dsgd "
+          f"{launches['train-fused_dsgd']} (= {len(params)} tensors x "
+          f"{TRAIN_STEPS}), flash {launches['train-flash']} (= "
+          f"{cfg.num_layers} layers x {TRAIN_N} nodes x {TRAIN_STEPS})")
+    del res
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as trace_run
+        with trace_run(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            simulate_decentralized(steps=1, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        print_kernel_times(prof, "training step (with node_stack)", wall, 1)
+    del params, kw
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_cpu_vs_card(torch, dev):
+    """The training path on the card against the same on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.paper_mlp import MLPConfig
+    from repro_torch.data.synthetic import (dirichlet_classification,
+                                            token_batches)
+    from repro_torch.models import mlp
+    from repro_torch.models import model as M
+    from repro_torch.optim.decentralized import METHOD_NAMES, make_method
+    from repro_torch.sim.engine import simulate_decentralized
+    from repro_torch.topology import TopologySpec
+
+    n, k, steps, bs = 21, 2, 20, 32
+    data = dirichlet_classification(n, steps * bs, alpha=0.1, seed=0)
+    params = mlp.init(MLPConfig(), seed=0, device="cpu")
+
+    def batches(step):
+        s = slice(step * bs, (step + 1) * bs)
+        return data.node_x[:, s], data.node_y[:, s]
+
+    for name in METHOD_NAMES:
+        losses = {d: simulate_decentralized(
+            loss_fn=mlp.loss_fn, params=params, method=make_method(name),
+            schedule=TopologySpec(name="base", n=n, k=k), batches=batches,
+            steps=steps, eta=0.03, device=d).losses for d in ("cpu", dev)}
+        err = float(abs(losses["cpu"] - losses[dev]).max())
+        print(f"[train-cpu-vs-card] paper MLP {name}, n={n} base k={k}, "
+              f"{steps} steps f32: losses max abs err {err:.3e} (tol 1e-5); "
+              f"last loss {losses[dev][-1]:.4f}")
+        if not err <= 1e-5:
+            raise SystemExit(f"card vs cpu {name} losses differ by {err}")
+
+    cfg = get_config("gemma3-1b").reduced()
+    params = M.init(cfg, seed=3, dtype=torch.float32,
+                    device="cpu").state_dict()
+
+    def token_batch(step):
+        b = token_batches(step, batch=3 * 2, seq=16, vocab=cfg.vocab_size)
+        return {key: v.reshape(3, 2, 16) for key, v in b.items()}
+
+    losses = {d: simulate_decentralized(
+        loss_fn=lambda p, b: M.loss_fn(cfg, p, b)[0], params=params,
+        method=make_method("dsgdm"), schedule=TopologySpec(name="base", n=3,
+                                                           k=1),
+        batches=token_batch, steps=3, eta=0.01, device=d).losses
+        for d in ("cpu", dev)}
+    err = float(abs(losses["cpu"] - losses[dev]).max())
+    print(f"[train-cpu-vs-card] reduced gemma3-1b dsgdm, n=3, 3 steps f32: "
+          f"losses {losses[dev].tolist()}, max abs err {err:.3e} (tol 1e-4)")
+    if not err <= 1e-4:
+        raise SystemExit(f"card vs cpu gemma training losses differ by {err}")
+
+
+def phase_consensus(torch, dev):
+    """``optim.mix`` over one period of Base-(k+1) on the card reaches
+    exact consensus (to f32 rounding); the ring after as many rounds
+    does not."""
+    from repro_torch.optim.decentralized import mix
+    from repro_torch.sim.engine import _consensus_error
+    from repro_torch.topology import TopologySpec, build_schedule
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for n, k in ((3, 1), (21, 2)):
+        base = build_schedule(TopologySpec(name="base", n=n, k=k))
+        rounds = len(base)
+        x0 = {"x": torch.randn(n, 1 << 20, generator=gen, device=dev)}
+        rel = {}
+        for name, sched in (("base", base), ("ring", build_schedule(
+                TopologySpec(name="ring", n=n)))):
+            Ws, _ = sched.as_dense_stack(rounds, device=dev)
+            x = x0
+            for r in range(rounds):
+                x = mix(Ws[r % Ws.shape[0]], x)
+            rel[name] = float(_consensus_error(x) / _consensus_error(x0))
+        print(f"[consensus] Base-{k + 1} at n={n}: {rounds} rounds (max "
+              f"degree {base.max_degree}), relative consensus error "
+              f"{rel['base']:.3e} (limit 1e-10); ring after {rounds} "
+              f"rounds: {rel['ring']:.3e}")
+        if not rel["base"] <= 1e-10:
+            raise SystemExit(f"Base-{k + 1} at n={n} did not reach "
+                             f"consensus: {rel['base']}")
+
+
 def phase_profile(torch, dev, params, engine, tokens):
     from torch.profiler import ProfilerActivity, profile
 
@@ -364,25 +702,39 @@ def phase_profile(torch, dev, params, engine, tokens):
                 M.decode_step(cfg, params, caches, tok, PROMPT + 1 + i)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) / 4
+    print_kernel_times(prof, "decode step", wall, 4)
+
+
+def print_kernel_times(prof, what, wall, steps):
+    """Device busy time per step and the twelve busiest kernel names of
+    a profiler trace over ``steps`` steps of ``wall`` seconds each."""
     from torch.autograd import DeviceType
     per_kernel = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             t, n = per_kernel.get(e.name, (0.0, 0))
             per_kernel[e.name] = (t + e.time_range.elapsed_us(), n + 1)
-    busy = sum(t for t, _ in per_kernel.values()) / 4 / 1e3
-    print(f"[profile] decode step: wall {wall * 1e3:.3f} ms, device busy "
-          f"{busy:.3f} ms ({100 * busy / (wall * 1e3):.1f}%)")
+    busy = sum(t for t, _ in per_kernel.values()) / steps / 1e3
+    print(f"[profile] {what}: wall {wall * 1e3:.3f} ms, device busy "
+          f"{busy:.3f} ms ({100 * busy / (wall * 1e3):.1f}%), "
+          f"{sum(n for _, n in per_kernel.values()) // steps} kernels")
     for name, (us, n) in sorted(per_kernel.items(),
                                 key=lambda kv: -kv[1][0])[:12]:
-        print(f"[profile] {us / 4 / 1e3:9.4f} ms/step {n // 4:5d}x "
+        print(f"[profile] {us / steps / 1e3:9.4f} ms/step {n // steps:5d}x "
               f"{name[:90]}")
+    for key in ("flash_fwd_kernel", "fused_dsgd_kernel"):   # the port's own
+        mine = [v for name, v in per_kernel.items() if key in name]
+        if mine:
+            ms = sum(t for t, _ in mine) / steps / 1e3
+            print(f"[profile] {key}: {ms:.4f} ms/step in "
+                  f"{sum(n for _, n in mine) // steps} launches")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one decode step with torch.profiler")
+                    help="also trace one decode step and one training "
+                         "step with torch.profiler")
     args = ap.parse_args()
 
     import torch
@@ -398,13 +750,19 @@ def main() -> None:
     print(f"[card] {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
     phase_build(torch)
-    entries = phase_kernels(torch, dev)
+    entries = phase_flash_kernels(torch, dev)
+    entries += phase_dsgd_kernels(torch, dev)
     launches, params, engine, tokens = phase_main_path(torch, dev, card)
+    if args.profile:
+        phase_profile(torch, dev, params, engine, tokens)
+    del params, engine, tokens
+    torch.cuda.empty_cache()
+    launches.update(phase_train(torch, dev, card, profile=args.profile))
     for phase, e in entries:
         e["launches"] = launches[phase]
     phase_cpu_vs_card(torch, dev)
-    if args.profile:
-        phase_profile(torch, dev, params, engine, tokens)
+    phase_train_cpu_vs_card(torch, dev)
+    phase_consensus(torch, dev)
     print(card)
     print(json.dumps({"kernels": [e for _, e in entries]}))
     print(json.dumps({"ok": True, "device": {

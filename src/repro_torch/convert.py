@@ -1,4 +1,4 @@
-"""Carry the reference's parameters into the port.
+"""Carry the reference's parameters (and method state) into the port.
 
 The JAX model's params are a pytree of dicts and lists whose paths are
 the port's ``state_dict`` keys, with one difference: the repeated pattern
@@ -9,12 +9,16 @@ same on both sides, so each leaf is a copy.
 """
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
 from repro_torch.configs.common import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
+
+_BLOCKS = re.compile(r"^(.*?\bstack\.blocks)\.(\d+)\.(.*)$")
 
 
 def _leaves(tree, prefix=""):
@@ -35,21 +39,33 @@ def _to_torch(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def tree_from_jax(tree, *, node_axis: bool = False) -> dict:
+    """A flat dict of CPU tensors from a reference pytree of numpy leaves
+    — model params, an MLP's params, or a method's state tree (``u``,
+    ``m``, ``y``, ...).  Keys are the tree paths joined by dots; a leaf
+    under ``stack.blocks.<pos>`` is split along its ``num_blocks`` axis
+    into ``stack.blocks.<block>.<pos>.…``.  With ``node_axis=True`` the
+    leaves are node-stacked, ``(n, num_blocks, …)`` under the blocks, and
+    the split takes axis 1."""
+    axis = 1 if node_axis else 0
+    out = {}
+    for name, arr in _leaves(tree):
+        m = _BLOCKS.match(name)
+        if m is None:
+            out[name] = _to_torch(arr)
+            continue
+        head, pos, rest = m.groups()
+        for b in range(arr.shape[axis]):
+            out[f"{head}.{b}.{pos}.{rest}"] = _to_torch(
+                np.take(arr, b, axis=axis))
+    return out
+
+
 def params_from_jax(tree, cfg: ArchConfig, *, device=None,
                     dtype=torch.float32) -> Model:
     """A :class:`Model` holding the reference's parameter pytree ``tree``
-    (leaves as numpy arrays), cast to ``dtype`` on ``device``."""
-    state = {}
-    for name, arr in _leaves(tree):
-        if name.startswith("stack.blocks."):
-            _, _, pos, rest = name.split(".", 3)
-            if arr.shape[0] != cfg.num_blocks:
-                raise ValueError(f"{name}: leading axis {arr.shape[0]} != "
-                                 f"num_blocks {cfg.num_blocks}")
-            for b in range(cfg.num_blocks):
-                state[f"stack.blocks.{b}.{pos}.{rest}"] = _to_torch(arr[b])
-        else:
-            state[name] = _to_torch(arr)
+    (leaves as numpy arrays), cast to ``dtype`` on ``device``.  A tree
+    with another block count than ``cfg`` fails the strict load."""
     model = Model(cfg, dtype=dtype, device=resolve_device(device))
-    model.load_state_dict(state, strict=True)
+    model.load_state_dict(tree_from_jax(tree), strict=True)
     return model.eval()

@@ -4,11 +4,12 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``.  The
 build runs at first use, from the sources in the checkout only, into
 ``build/repro_torch/`` at the checkout's root, so the package runs from
-the checkout's ``src/`` (``PYTHONPATH=src`` or an editable install).  The
-library's file name carries a hash of the sources and flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is.  A
-missing ``nvcc`` or a failed build raises: there is no fallback to the
-plain versions.
+the checkout's ``src/`` (``PYTHONPATH=src`` or an editable install).
+Each library's file name carries a hash of its own source and the
+flags, so an edited source is rebuilt, alone, and an unchanged one is
+loaded as it is.  The sources include no shared header; one that does
+must add the header to its hash.  A missing ``nvcc`` or a failed build
+raises: there is no fallback to the plain versions.
 """
 from __future__ import annotations
 
@@ -52,16 +53,14 @@ def nvcc_path() -> str:
     return found
 
 
-def _digest() -> str:
+def _digest(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(CSRC.glob("*.cu*")):
-        h.update(f.name.encode())
-        h.update(f.read_bytes())
+    h.update((CSRC / f"{name}.cu").read_bytes())
     return h.hexdigest()[:16]
 
 
 def library_path(name: str) -> Path:
-    return build_dir() / f"lib{name}-{_digest()}.so"
+    return build_dir() / f"lib{name}-{_digest(name)}.so"
 
 
 def build(name: str) -> float:

@@ -4,26 +4,110 @@ A CUDA tensor goes to the hand-written kernel, which launches or raises;
 a CPU tensor goes to the kernel's plain PyTorch version in :mod:`.ref`.
 There is no configuration object and no fallback between the two: the
 reference's ``KernelConfig(auto)`` and Pallas' ``interpret`` flag have no
-counterpart here.  Launches are counted on the kernel wrapper
-(``flash_attention.flash_attention_fwd.launches``).
+counterpart here.  Launches are counted on the kernel wrappers
+(``flash_attention.flash_attention_fwd.launches``,
+``fused_dsgd.fused_dsgd.launches``).
 """
 from __future__ import annotations
 
+import torch
+
 from . import ref
 from .flash_attention import flash_attention_fwd
+from .fused_dsgd import fused_dsgd
+
+
+def _as_2d(a: torch.Tensor, *, lead_rows: bool = False):
+    """Normalise an arbitrary-rank leaf to the (R, C) layout the fused
+    kernels take (``ops.py:131-145``).  ``lead_rows=True`` keeps axis 0
+    as the row axis (so a per-leading-axis scale vector maps onto rows);
+    otherwise the last axis becomes columns and everything before it
+    folds into rows.  Returns (view, original shape)."""
+    shape = a.shape
+    if a.ndim == 2 and not lead_rows:
+        return a, shape
+    if a.ndim == 0:
+        return a.reshape(1, 1), shape
+    if lead_rows:   # before the 1-D case: an (n,) leaf maps to (n, 1)
+        return a.reshape(shape[0], -1), shape
+    if a.ndim == 1:
+        return a.reshape(1, -1), shape
+    return a.reshape(-1, shape[-1]), shape
+
+
+# ---------------------------------------------------------------------------
+# fused DSGD(-momentum) update
+# ---------------------------------------------------------------------------
+
+def fused_dsgd_step(x, u, g, beta, eta, pre_scale=1.0):
+    """``u' = beta*u + g;  x' = pre_scale * (x - eta*u')`` in one pass
+    (the reference's ``ops.fused_dsgd_step``, ``ops.py:249-270``).
+
+    Accepts leaves of any rank.  ``pre_scale`` is a scalar, or a vector
+    over the leaf's leading axis (the simulation engine folds the
+    per-node gossip self-weight ``diag(W)`` through it — see
+    ``repro_torch.optim.decentralized.DSGD``)."""
+    per_row = isinstance(pre_scale, torch.Tensor) and pre_scale.ndim >= 1
+    if x.device.type == "cuda":
+        x2, shape = _as_2d(x, lead_rows=per_row)
+        u2, _ = _as_2d(u, lead_rows=per_row)
+        g2, _ = _as_2d(g, lead_rows=per_row)
+        x_new, u_new = fused_dsgd(x2, u2, g2, beta, eta, pre_scale)
+        return x_new.reshape(shape), u_new.reshape(shape)
+    if x.device.type == "cpu":
+        if per_row:
+            pre_scale = pre_scale.reshape((-1,) + (1,) * (x.ndim - 1))
+        return ref.fused_dsgd_ref(x, u, g, beta, eta, pre_scale)
+    raise NotImplementedError(f"no fused DSGD kernel for device {x.device}")
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+class _FlashSdpa(torch.autograd.Function):
+    """The flash kernel's forward with the reference's backward
+    (``ops.py:426-449``): the kernel has no backward, so the gradient
+    recomputes the plain version under autograd from the saved q, k, v
+    with the same positions and window."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale, q_pos0,
+                k_valid_len):
+        ctx.save_for_backward(q, k, v)
+        ctx.attrs = dict(causal=causal, window=window, softcap=softcap,
+                         scale=scale, q_pos0=q_pos0,
+                         k_valid_len=k_valid_len)
+        return flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, scale=scale,
+                                   q_start=q_pos0, k_valid_len=k_valid_len)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = ref.grouped_sdpa_ref(q, k, v, **ctx.attrs)
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v),
+                                         grad_out.to(out.dtype))
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def sdpa(q, k, v, *, causal: bool = True, window=None, softcap=None,
          scale=None, q_pos0=None, k_valid_len=None):
     """Grouped-query attention in the model stack's layout — the entry
-    point ``models.attention`` sends prefill and decode attention through
-    (the reference's ``ops.sdpa``, ``ops.py:295``).
+    point ``models.attention`` sends prefill, decode and training
+    attention through (the reference's ``ops.sdpa``, ``ops.py:295``).
 
     q: (B, Tq, H, hd);  k, v: (B, S, KV, hd[, hd_v]) with H % KV == 0.
     Query i sits at absolute position ``q_pos0 + i`` (default ``S - Tq``;
     an int or a (B,) tensor); ``k_valid_len`` (int or (B,)) is the valid
-    cache prefix (default ``S``)."""
+    cache prefix (default ``S``).  On the card it is differentiable: the
+    forward is the kernel and the backward the plain version's."""
     if q.device.type == "cuda":
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return _FlashSdpa.apply(q, k, v, causal, window, softcap, scale,
+                                    q_pos0, k_valid_len)
         return flash_attention_fwd(q, k, v, causal=causal, window=window,
                                    softcap=softcap, scale=scale,
                                    q_start=q_pos0, k_valid_len=k_valid_len)

@@ -3,14 +3,34 @@
 Each is the port of the matching oracle in ``repro/kernels/ref.py`` and
 computes what its CUDA kernel computes.  ``ops`` sends CPU tensors here;
 ``chip_smoke.py`` holds each kernel against its plain version on the
-card.  They repeat the kernel's arithmetic in f32 and are no yardstick of
-speed.
+card.  They repeat the kernels' arithmetic in f32 and are no yardstick
+of speed.
 """
 from __future__ import annotations
 
 import torch
 
 _NEG_INF = -1e30
+
+
+def fused_dsgd_ref(x, u, g, beta: float, eta: float, pre_scale=1.0):
+    """Fused heavy-ball momentum + SGD step, with the gossip self-weight
+    pre-scale (``ref.py:29-46``), the plain version of the fused DSGD
+    kernel:
+
+        u' = beta * u + g
+        x' = pre_scale * (x - eta * u')
+
+    in f32, cast back to x's and u's dtypes.  ``pre_scale`` is a scalar
+    or a tensor broadcastable against ``x`` (per-node self-weights arrive
+    shaped ``(n, 1, ..., 1)``).  Each line is one PyTorch op, so nothing
+    fuses into an FMA, and the kernel's rounding steps are these."""
+    xf, uf, gf = x.float(), u.float(), g.float()
+    if isinstance(pre_scale, torch.Tensor):
+        pre_scale = pre_scale.float()
+    u_new = beta * uf + gf
+    x_new = pre_scale * (xf - eta * u_new)
+    return x_new.to(x.dtype), u_new.to(u.dtype)
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,

@@ -113,3 +113,35 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def chunked_ce_loss(h: torch.Tensor, w_out: torch.Tensor,
+                    labels: torch.Tensor, chunk: int = 512,
+                    logit_softcap: float | None = None) -> torch.Tensor:
+    """Cross-entropy without materialising the full (B, T, V) logits:
+    a loop over T-chunks, each chunk's logits in f32
+    (``layers.py:95-128``).
+
+    h: (B, T, D); w_out: (D, V); labels: (B, T) with -100 = ignore.
+    Returns the mean over the labelled positions."""
+    T = h.shape[1]
+    chunk = min(chunk, T)
+    w = w_out.float()               # one f32 copy for every chunk
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=h.device)
+    for t0 in range(0, T, chunk):
+        logits = h[:, t0:t0 + chunk].float() @ w
+        if logit_softcap is not None:
+            logits = logit_softcap * torch.tanh(logits / logit_softcap)
+        li = labels[:, t0:t0 + chunk].long()
+        valid = li != -100
+        tgt = torch.where(valid, li, 0)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, tgt[..., None])[..., 0]
+        tot = tot + torch.where(valid, lse - gold, 0.0).sum()
+        cnt = cnt + valid.sum()
+    return tot / cnt.clamp_min(1)

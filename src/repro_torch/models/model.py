@@ -1,18 +1,22 @@
-"""Decoder-only LM for serving (port of ``repro/models/model.py``).
+"""Decoder-only LM (port of ``repro/models/model.py``).
 
     params = init(cfg, seed, dtype, device)
+    loss, aux = loss_fn(cfg, params, batch)            # training
     logits, caches = prefill(cfg, params, batch, max_seq, cache_dtype)
     logits, caches = decode_step(cfg, params, caches, tokens, index)
 
-``params`` is a :class:`Model`; its ``state_dict`` keys are the
-reference's param-tree paths, with the stacked pattern blocks split per
-block (``stack.blocks.<block>.<position>.…``) — see
-:mod:`repro_torch.convert`.  Caches are updated in place.  Training
-(``loss_fn``), encoder-decoder, frontend, multi-token-prediction and
-untied-head models are not ported yet, nor are the ``"append_free"`` and
-``"paged"`` decode modes.
+``params`` is a :class:`Model`; ``loss_fn`` takes a flat dict of
+tensors keyed by its ``state_dict`` keys, which are the reference's
+param-tree paths with the stacked pattern blocks split per block
+(``stack.blocks.<block>.<position>.…``, see :mod:`repro_torch.convert`).
+The simulation engine trains through that dict, one node's slice at a
+time.  Caches are updated in place.  Encoder-decoder, frontend,
+multi-token-prediction and untied-head models are not ported yet, nor
+are the ``"append_free"`` and ``"paged"`` decode modes.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import nn
@@ -21,7 +25,7 @@ from repro_torch.configs.common import ArchConfig
 from repro_torch.device import resolve_device
 
 from .blocks import Stack, stack_cache_init
-from .layers import Dense, Embed, RMSNorm
+from .layers import Dense, Embed, RMSNorm, chunked_ce_loss
 
 DECODE_MODES = ("dus",)
 
@@ -40,6 +44,11 @@ class Model(nn.Module):
         self.embed = Embed(cfg.vocab_size, cfg.d_model, **kw)
         self.stack = Stack(cfg, **kw)
         self.final_norm = RMSNorm(cfg.d_model, **kw)
+
+    def forward(self, tokens):
+        """The final-normed hidden states (B, T, d_model) of a training
+        forward (no cache)."""
+        return backbone(self.cfg, self, tokens)[0]
 
 
 def init(cfg: ArchConfig, seed: int = 0, dtype=torch.float32,
@@ -75,6 +84,32 @@ def backbone(cfg: ArchConfig, params: Model, tokens, *, caches=None,
                              device=x.device)
     x, caches = params.stack(x, caches=caches, cache_index=cache_index)
     return params.final_norm(x), caches
+
+
+@functools.lru_cache(maxsize=8)
+def _skeleton(cfg: ArchConfig) -> Model:
+    """A parameterless :class:`Model` of ``cfg`` on the meta device, for
+    ``torch.func.functional_call`` with a flat dict of tensors."""
+    return Model(cfg, device="meta")
+
+
+def loss_fn(cfg: ArchConfig, params, batch):
+    """Next-token cross-entropy of ``batch = {"tokens", "labels"}``
+    (labels == -100 are ignored), as ``model.py:121-154``: the final
+    hidden states against the tied embedding table, chunked over
+    positions in f32.  ``params`` is a flat dict of a :class:`Model`'s
+    tensors (its ``state_dict`` keys).  Returns ``(loss, {"aux": 0})``:
+    the ported dense models have no router loss.  VLM prefix embeddings
+    raise."""
+    if batch.get("prefix_embeds") is not None:
+        raise NotImplementedError(
+            "prefix embeddings (VLM) are not ported to repro_torch yet; see "
+            "ROADMAP.md")
+    h = torch.func.functional_call(_skeleton(cfg), params,
+                                   (batch["tokens"],))
+    loss = chunked_ce_loss(h, params["embed.table"].T, batch["labels"],
+                           logit_softcap=cfg.final_softcap)
+    return loss, {"aux": torch.zeros((), device=loss.device)}
 
 
 def _logits(cfg: ArchConfig, params: Model, h):

@@ -1,0 +1,203 @@
+"""Decentralized learning methods over a topology schedule (port of
+``repro/optim/decentralized.py``).
+
+All methods share one interface and operate on *node-stacked* flat dicts
+of tensors (every tensor has a leading axis of size n, the virtual
+nodes of the simulation engine):
+
+    method = make_method("dsgdm", momentum=0.9)
+    state  = method.init(params_n)
+    params_n, state = method.step(params_n, grads_n, state, W, eta)
+
+``W`` is the round's (n, n) mixing matrix (a tensor on the params'
+device), applied as the dense ``W @ X`` by :func:`mix`; a tree -> tree
+callable is accepted too.  The state is a dict of node-stacked flat
+dicts (``{"u": {...}}``).  Each step returns new tensors; nothing is
+updated in place.
+
+Implemented (paper Sec. 6.2 & Fig. 9):
+  * DSGD (+ heavy-ball momentum)       [Lian et al. 2017, Eq. (1)]
+  * QG-DSGDm (quasi-global momentum)   [Lin et al. 2021]
+  * D^2                                 [Tang et al. 2018]
+  * Gradient Tracking                   [Nedic et al. 2017; Pu & Nedic 2021]
+
+Compressed gossip (``compression=``) is not ported yet.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from repro_torch import trace
+from repro_torch.kernels import ops
+
+
+def mix(W: torch.Tensor, tree: dict) -> dict:
+    """x_i' = sum_j W[i, j] x_j applied to every tensor's leading node
+    axis, in f32, cast back to each tensor's dtype."""
+    trace.mark("mix")
+    Wt = W.float()
+    return {k: torch.tensordot(Wt, x.float(), dims=([1], [0])).to(x.dtype)
+            for k, x in tree.items()}
+
+
+@dataclass(frozen=True)
+class Method:
+    name: str
+    init: Callable
+    # (params_n, grads_n, state, W | mixer, eta) -> (params_n, state)
+    step: Callable
+    # How many times ``step`` mixes per call (gradient tracking mixes its
+    # tracker and its parameters).
+    mixes_per_step: int = 1
+
+
+def _as_mixer(w_or_fn) -> Callable:
+    if callable(w_or_fn):
+        return w_or_fn
+    return lambda tree: mix(w_or_fn, tree)
+
+
+def _zeros_like(tree: dict) -> dict:
+    return {k: torch.zeros_like(x) for k, x in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# DSGD (+momentum): x^{r+1} = W (x^r - eta * u^r)     [paper Eq. (1)]
+#
+# DSGD-momentum has one body, the reference's fused one
+# (decentralized.py:146-162), on every device: each tensor's update is one
+# ops.fused_dsgd_step call (the CUDA kernel on the card, its plain version
+# on the CPU).  With a dense mixing matrix the per-node self-weight
+# d = diag(W) is folded into the update's per-row pre_scale and the mix
+# runs with W~[i, j] = W[i, j] / d_j (columns with d_j = 0 are left as
+# they are), so W~ @ (d * half) == W @ half up to rounding.  With a
+# mixing callable pre_scale stays 1.
+#
+# Plain DSGD (momentum == 0) keeps the elementwise axpy, as the reference
+# does: there is no momentum buffer to fuse.
+# ---------------------------------------------------------------------------
+
+def DSGD(momentum: float = 0.0) -> Method:
+    def init(params_n):
+        return {"u": _zeros_like(params_n)} if momentum else {}
+
+    def step_plain(params_n, grads_n, state, W, eta):
+        half = {k: x - eta * grads_n[k] for k, x in params_n.items()}
+        return _as_mixer(W)(half), state
+
+    def step_fused(params_n, grads_n, state, W, eta):
+        if callable(W):
+            pre, mixer = 1.0, W
+        else:
+            d = torch.diagonal(W.float())
+            safe = d != 0.0
+            pre = torch.where(safe, d, 1.0)
+            mixer = _as_mixer(W * torch.where(safe, 1.0 / pre, 1.0)[None, :])
+        half, u = {}, {}
+        for k, x in params_n.items():
+            half[k], u[k] = ops.fused_dsgd_step(x, state["u"][k], grads_n[k],
+                                                momentum, eta, pre)
+        return mixer(half), {"u": u}
+
+    return Method("dsgd" + (f"m{momentum}" if momentum else ""), init,
+                  step_fused if momentum else step_plain)
+
+
+# ---------------------------------------------------------------------------
+# QG-DSGDm [Lin et al. 2021]: the momentum buffer tracks the *global*
+# parameter displacement (x^r - x^{r+1})/eta instead of local gradients,
+# which is robust to heterogeneous data.
+# ---------------------------------------------------------------------------
+
+def QGDSGDm(momentum: float = 0.9, beta: float = 0.9) -> Method:
+    def init(params_n):
+        return {"m": _zeros_like(params_n)}
+
+    def step(params_n, grads_n, state, W, eta):
+        m = state["m"]
+        half = {k: x - eta * (grads_n[k] + momentum * m[k])
+                for k, x in params_n.items()}
+        new = _as_mixer(W)(half)
+        # quasi-global momentum: EMA of the realised displacement
+        m = {k: beta * m[k] + (1 - beta) * (params_n[k] - new[k]) / eta
+             for k in params_n}
+        return new, {"m": m}
+
+    return Method("qg-dsgdm", init, step)
+
+
+# ---------------------------------------------------------------------------
+# D^2 [Tang et al. 2018]:
+#   x^{r+1} = W (2 x^r - x^{r-1} - eta (g^r - g^{r-1}))
+#
+# As in the reference, D^2 mixes with the lazy W~ = (I + W)/2 by default:
+# the textbook update is unstable under time-varying finite-time
+# schedules (decentralized.py:241-250).
+# ---------------------------------------------------------------------------
+
+def D2(lazy_mixing: bool = True) -> Method:
+    def init(params_n):
+        # x_prev = params makes the first step plain DSGD: x - eta g
+        return {"x_prev": {k: x.clone() for k, x in params_n.items()},
+                "g_prev": _zeros_like(params_n)}
+
+    def step(params_n, grads_n, state, W, eta):
+        base = _as_mixer(W)
+        mixer = base
+        if lazy_mixing:
+            def mixer(t):
+                b = base(t)
+                return {k: 0.5 * (a + b[k]) for k, a in t.items()}
+        xp, gp = state["x_prev"], state["g_prev"]
+        corr = {k: 2.0 * x - xp[k] - eta * (grads_n[k] - gp[k])
+                for k, x in params_n.items()}
+        return mixer(corr), {"x_prev": params_n, "g_prev": grads_n}
+
+    return Method("d2", init, step)
+
+
+# ---------------------------------------------------------------------------
+# Gradient tracking [Nedic et al. 2017]:
+#   y^{r+1} = W (y^r + g^r - g^{r-1});   x^{r+1} = W (x^r - eta y^r)
+# ---------------------------------------------------------------------------
+
+def GradientTracking() -> Method:
+    def init(params_n):
+        # y, g_prev = 0 makes the first tracked direction y^1 = W g^0
+        return {"y": _zeros_like(params_n), "g_prev": _zeros_like(params_n)}
+
+    def step(params_n, grads_n, state, W, eta):
+        mixer = _as_mixer(W)
+        y, gp = state["y"], state["g_prev"]
+        y = mixer({k: y[k] + g - gp[k] for k, g in grads_n.items()})
+        new = mixer({k: x - eta * y[k] for k, x in params_n.items()})
+        return new, {"y": y, "g_prev": grads_n}
+
+    return Method("gt", init, step, mixes_per_step=2)
+
+
+METHOD_NAMES = ("dsgd", "dsgdm", "qg-dsgdm", "d2", "gt")
+
+
+def make_method(name: str, momentum: float = 0.9,
+                compression=None) -> Method:
+    """The method ``name`` (one of :data:`METHOD_NAMES`).  ``momentum``
+    is DSGD-momentum's and QG-DSGDm's beta."""
+    if compression is not None:
+        raise NotImplementedError(
+            "compressed gossip is not ported to repro_torch yet; see "
+            "ROADMAP.md")
+    if name == "dsgd":
+        return DSGD(0.0)
+    if name == "dsgdm":
+        return DSGD(momentum)
+    if name == "qg-dsgdm":
+        return QGDSGDm(momentum)
+    if name == "d2":
+        return D2()
+    if name == "gt":
+        return GradientTracking()
+    raise ValueError(f"unknown method {name!r}")

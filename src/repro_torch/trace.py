@@ -1,0 +1,43 @@
+"""Phase marks for timing a training step on the card.
+
+The simulation engine and :func:`repro_torch.optim.decentralized.mix`
+call :func:`mark` at the phase boundaries of a step:
+
+    "step"    a step begins (gradients come next)
+    "update"  the gradients are done; the method's update begins
+    "mix"     a gossip mix begins
+    "end"     the step is done
+
+Outside :func:`cuda_marks` a mark is one global lookup and does
+nothing.  Inside it, each mark records a CUDA event on the current
+stream, so the spans between marks are device time with no extra
+synchronisation; read them after the block, once the work has finished.
+"""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+_marks: list | None = None
+
+
+def mark(name: str) -> None:
+    if _marks is not None:
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        _marks.append((name, event))
+
+
+@contextlib.contextmanager
+def cuda_marks():
+    """Record a CUDA event at every :func:`mark` inside the block; yields
+    the list of ``(name, event)`` pairs, in order."""
+    global _marks
+    if _marks is not None:
+        raise RuntimeError("cuda_marks blocks do not nest")
+    _marks = []
+    try:
+        yield _marks
+    finally:
+        _marks = None

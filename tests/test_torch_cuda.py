@@ -5,17 +5,21 @@ where the port runs:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance, element by element: |kernel - plain| <= 1e-4 (f32 FMAs summed
-in another order), plus in bf16 2**-7 * |plain|, one bf16 rounding step
-of the element, since the plain version rounds its f32 result to bf16
-once and the kernel once.
+Flash attention's tolerance, element by element: |kernel - plain| <=
+1e-4 (f32 FMAs summed in another order), plus in bf16 2**-7 * |plain|,
+one bf16 rounding step of the element, since the plain version rounds
+its f32 result to bf16 once and the kernel once.  Its autograd Function's
+gradients equal plain autograd bit for bit: the backward is the same
+plain recompute.  The fused DSGD kernel equals its plain version bit for
+bit: it takes the same f32 rounding steps in the same order.
 """
 import pytest
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import (SUPPORTED_DIMS,
                                                  flash_attention_fwd)
+from repro_torch.kernels.fused_dsgd import fused_dsgd
 
 pytestmark = pytest.mark.cuda
 
@@ -79,3 +83,50 @@ def test_kernel_reads_strided_views_and_per_batch_positions(card, causal):
                               q_start=starts, k_valid_len=valid)
     torch.cuda.synchronize()
     _assert_close(got, want)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pre_mode", ["one", "scalar", "row"])
+@pytest.mark.parametrize("shape", [(1,), (7,), (3, 1152), (257, 513),
+                                   (3, 4, 65), (70000, 3)])
+def test_fused_dsgd_matches_plain_bitwise(card, dtype, pre_mode, shape):
+    g = torch.Generator(device=card).manual_seed(2)
+    x, u, gr = (torch.randn(shape, generator=g, device=card).to(dtype)
+                for _ in range(3))
+    pre = {"one": 1.0, "scalar": 0.37}.get(pre_mode)
+    if pre is None:
+        pre = torch.rand(shape[0], generator=g, device=card) + 0.2
+    before = fused_dsgd.launches
+    got = ops.fused_dsgd_step(x, u, gr, 0.9, 0.01, pre)
+    torch.cuda.synchronize()
+    assert fused_dsgd.launches == before + 1
+    bp = pre.reshape((-1,) + (1,) * (len(shape) - 1)) \
+        if isinstance(pre, torch.Tensor) else pre
+    want = ref.fused_dsgd_ref(x, u, gr, 0.9, 0.01, bp)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 16])
+def test_flash_autograd_gradients_equal_plain_autograd(card, dtype, window):
+    g = torch.Generator(device=card).manual_seed(3)
+    B, T, H, KV, D = 2, 70, 4, 1, 64
+    leaves = [torch.randn(B, T, h, D, generator=g, device=card).to(dtype)
+              for h in (H, KV, KV)]
+    go = torch.randn(B, T, H, D, generator=g, device=card).to(dtype)
+    grads = []
+    for fn in (ops.sdpa, ref.grouped_sdpa_ref):
+        q, k, v = (t.clone().requires_grad_() for t in leaves)
+        before = flash_attention_fwd.launches
+        out = fn(q, k, v, window=window, q_pos0=0)
+        assert flash_attention_fwd.launches == before + (fn is ops.sdpa)
+        grads.append(torch.autograd.grad(out, (q, k, v), go))
+    torch.cuda.synchronize()
+    for a, b in zip(*grads):
+        assert a.dtype == dtype and torch.equal(_bits(a), _bits(b))

@@ -2,8 +2,9 @@
 JAX model zoo on the reduced gemma3-1b, with the reference's weights
 carried across by ``convert.params_from_jax``.
 
-Layers are compared in f32 at max abs 1e-5 (the same f32 math summed in
-another order); the model's logits at max abs 1e-4 (seven layers of
+Layers, the chunked cross-entropy, and the training loss with its
+gradients are compared in f32 at max abs 1e-5 (the same f32 math summed
+in another order); the model's logits at max abs 1e-4 (seven layers of
 that).  The embedding scale is compared bit for bit, in f32 and bf16.
 """
 import dataclasses
@@ -20,7 +21,7 @@ from repro.kernels.ops import KernelConfig
 from repro.models import layers as jlayers
 from repro.models import model as JM
 from repro_torch.configs import get_config
-from repro_torch.convert import params_from_jax
+from repro_torch.convert import params_from_jax, tree_from_jax
 from repro_torch.models import layers as tlayers
 from repro_torch.models import model as TM
 
@@ -192,3 +193,57 @@ def test_unported_decode_paths_raise():
         TM.decode_step(cfg, params, caches, tok, torch.tensor([3]))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TM.Model(dataclasses.replace(cfg, qkv_bias=True), device="cpu")
+
+
+@pytest.mark.parametrize("softcap", [None, 30.0])
+def test_chunked_ce_loss_matches_reference(softcap):
+    """A ragged last chunk (T = 11, chunk 4) and ignored labels."""
+    rng = np.random.default_rng(7)
+    h = rng.standard_normal((2, 11, 24), dtype=np.float32)
+    w = rng.standard_normal((24, 50), dtype=np.float32)
+    labels = rng.integers(0, 50, (2, 11)).astype(np.int32)
+    labels[0, 3] = labels[1, -1] = -100
+    want = jlayers.chunked_ce_loss(jnp.asarray(h), jnp.asarray(w),
+                                   jnp.asarray(labels), chunk=4,
+                                   logit_softcap=softcap)
+    got = tlayers.chunked_ce_loss(torch.from_numpy(h), torch.from_numpy(w),
+                                  torch.from_numpy(labels), chunk=4,
+                                  logit_softcap=softcap)
+    assert _err(got, want) <= LAYER_TOL
+
+
+def test_loss_fn_and_gradients_match_reference():
+    """``loss_fn`` on a flat dict of tensors, and its gradient by
+    autograd, against the reference's ``loss_fn`` and ``jax.grad``."""
+    cfg, jcfg, jparams, tparams = _reduced_pair()
+    from repro.data.synthetic import token_batches
+    batch = token_batches(0, batch=2, seq=12, vocab=cfg.vocab_size)
+    jloss, jgrads = jax.value_and_grad(
+        lambda p: JM.loss_fn(jcfg, p, jax.tree.map(jnp.asarray, batch),
+                             kernel_config=REF)[0])(jparams)
+    params = {k: v.detach().clone().requires_grad_()
+              for k, v in tparams.state_dict().items()}
+    loss, aux = TM.loss_fn(cfg, params, {k: torch.from_numpy(v)
+                                         for k, v in batch.items()})
+    assert float(aux["aux"]) == 0.0
+    assert _err(loss.detach(), jloss) <= LAYER_TOL
+    grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    want = tree_from_jax(jax.tree.map(np.asarray, jgrads))
+    assert set(grads) == set(want)
+    for k, g in want.items():
+        assert _err(grads[k], g) <= LAYER_TOL, k
+
+
+def test_tree_from_jax_splits_node_stacked_blocks():
+    cfg, _, jparams, tparams = _reduced_pair()
+    n = 3
+    stacked = jax.tree.map(
+        lambda a: np.stack([np.asarray(a) * (i + 1) for i in range(n)]),
+        jparams)
+    got = tree_from_jax({"u": stacked}, node_axis=True)
+    state = tparams.state_dict()
+    assert set(got) == {f"u.{k}" for k in state}
+    for k, v in state.items():
+        for i in range(n):
+            assert np.array_equal(got[f"u.{k}"][i].numpy(),
+                                  v.numpy() * (i + 1)), k

@@ -83,6 +83,29 @@ def test_entry_points_default_to_cuda():
     assert repro_torch.resolve_device("cpu").type == "cpu"
 
 
+def test_training_entry_points_default_to_cuda():
+    from repro_torch.configs.paper_mlp import MLPConfig
+    from repro_torch.models import mlp
+    from repro_torch.optim.decentralized import make_method
+    from repro_torch.sim.engine import node_stack, simulate_decentralized
+    from repro_torch.topology import TopologySpec, build_schedule
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mlp.init(MLPConfig())
+    params = mlp.init(MLPConfig(), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        node_stack(params, 3)
+    sched = build_schedule(TopologySpec(name="base", n=3, k=1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sched.as_dense_stack(4)
+    assert sched.as_dense_stack(4, device="cpu")[0].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        simulate_decentralized(
+            loss_fn=mlp.loss_fn, params=params, method=make_method("dsgdm"),
+            schedule=sched, batches=lambda r: None, steps=2, eta=0.1)
+
+
 def test_cpu_attention_does_not_touch_the_kernel_counter():
     q = torch.randn(1, 3, 4, 16)
     k = torch.randn(1, 5, 2, 16)
@@ -114,6 +137,39 @@ def test_kernels_build_into_the_checkout_only(tmp_path):
     assert r.returncode != 0
     assert "checkout" in r.stderr
     assert not (tmp_path / "build").exists()
+
+
+def test_each_library_hashes_its_own_source(tmp_path):
+    """Editing one ``.cu`` renames that library only; every library path
+    stays in the checkout's ``build/repro_torch``."""
+    checkout = tmp_path / "checkout"
+    shutil.copytree(PKG, checkout / "src" / "repro_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    names = sorted(f.stem for f in (PKG / "kernels" / "csrc").glob("*.cu"))
+    assert {"flash_attention", "fused_dsgd"} <= set(names)
+    code = ("from repro_torch.kernels import _build\n"
+            f"for name in {names!r}:\n"
+            "    print(_build.library_path(name))\n")
+
+    def paths():
+        r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                           env={"PYTHONPATH": str(checkout / "src"),
+                                "PATH": "/usr/bin:/bin"},
+                           capture_output=True, text=True, timeout=120)
+        assert r.returncode == 0, r.stderr
+        return dict(zip(names, r.stdout.split()))
+
+    before = paths()
+    for name, path in before.items():
+        assert Path(path).parent == checkout / "build" / "repro_torch"
+        assert Path(path).name.startswith(f"lib{name}-")
+    src = checkout / "src" / "repro_torch" / "kernels" / "csrc" / \
+        "fused_dsgd.cu"
+    src.write_text(src.read_text() + "\n// edited\n")
+    after = paths()
+    for name in names:
+        assert (after[name] != before[name]) == (name == "fused_dsgd"), name
+    assert not (checkout / "build").exists()
 
 
 def test_unported_architectures_raise():

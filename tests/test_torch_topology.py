@@ -1,0 +1,76 @@
+"""The port's topology registry (``repro_torch.topology``, a numpy copy)
+against the reference's: for every registered topology at a few (n, k),
+the same W(r) matrices and dense stack bit for bit, the same schedule
+length, maximum degree and finite-time law, and the same canonical spec
+JSON.  Configurations the reference rejects are rejected by the port."""
+import numpy as np
+import pytest
+
+from repro.core import mixing as jmixing
+from repro.topology import TopologySpec as JSpec
+from repro.topology import build_schedule as jbuild
+from repro.topology import registered_names as jnames
+from repro_torch.core import mixing
+from repro_torch.topology import TopologySpec, build_schedule, \
+    registered_names
+
+CONFIGS = [(1, 1), (3, 1), (5, 1), (8, 1), (12, 2), (21, 2), (25, 4)]
+NAMES = jnames()
+
+
+def test_registries_hold_the_same_names():
+    assert registered_names() == NAMES
+    assert registered_names(include_aliases=True) == jnames(
+        include_aliases=True)
+
+
+@pytest.mark.parametrize("n,k", CONFIGS)
+@pytest.mark.parametrize("name", NAMES)
+def test_schedule_matches_reference(name, n, k):
+    try:
+        want = jbuild(JSpec(name=name, n=n, k=k))
+    except ValueError:
+        with pytest.raises(ValueError):
+            build_schedule(TopologySpec(name=name, n=n, k=k))
+        return
+    got = build_schedule(TopologySpec(name=name, n=n, k=k))
+    assert got.spec.to_json() == want.spec.to_json()
+    assert TopologySpec.from_json(want.spec.to_json()).to_json() \
+        == want.spec.to_json()
+    assert len(got) == len(want)
+    assert got.max_degree == want.max_degree
+    assert got.finite_time == want.finite_time
+    assert got.label == want.label
+    for r in range(len(want)):
+        assert np.array_equal(got.W(r), want.W(r))
+    steps = 2 * len(want) + 1
+    jW, jidx = want.as_dense_stack(steps)
+    tW, tidx = got.as_dense_stack(steps, device="cpu")
+    assert np.array_equal(tW.numpy().view(np.int32),
+                          np.asarray(jW).view(np.int32))
+    assert np.array_equal(tidx.numpy(), np.asarray(jidx))
+
+
+@pytest.mark.parametrize("name,n,k", [("base", 21, 2), ("base", 3, 1),
+                                      ("ring", 21, None),
+                                      ("one_peer_exp", 16, None)])
+def test_consensus_utilities_match_reference(name, n, k):
+    got = build_schedule(TopologySpec(name=name, n=n, k=k))
+    want = jbuild(JSpec(name=name, n=n, k=k))
+    np.testing.assert_array_equal(
+        mixing.consensus_error_curve(got, 2 * len(got), seed=1, d=4),
+        jmixing.consensus_error_curve(want, 2 * len(want), seed=1, d=4))
+    assert mixing.is_finite_time_convergent(got) \
+        == jmixing.is_finite_time_convergent(want)
+    assert got.effective_neighbors() == want.effective_neighbors()
+    assert got.effective_neighbors(per_round=True) \
+        == want.effective_neighbors(per_round=True)
+    assert got.degrades_gracefully == want.degrades_gracefully
+
+
+def test_unported_artifacts_raise():
+    sched = build_schedule(TopologySpec(name="base", n=5, k=1))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sched.as_ppermute_plan()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sched.as_padded(4, 8)
