@@ -24,6 +24,14 @@ Phases (any failure exits non-zero and prints no result line):
      case and a bf16 case above 2^31 elements: bit for bit.  No single
      PyTorch call computes the same function (``torch._fused_sgd_`` has
      no per-row pre-scale), so its ``library_ms`` is null.
+   - Quantize + EF21 residual (``[quantize]``), at the compressed
+     training path's chunk-row shapes (the same four tensors as (rows,
+     256) f32), int8 and fp8, with and without err, plus rows that are
+     not a multiple of a block's, C in {2, 32, 250}, all-zero rows, an
+     element index across 2^31 and one across 2^32, and fp8 entries in
+     e4m3's subnormal range: q, scale and the residual bit for bit.  No
+     PyTorch call computes hash stochastic rounding with a residual, so
+     its ``library_ms`` is null.
 3. Serving: full-width gemma3-1b in bf16 (random weights from a seed),
    ``make_engine(batch=4, prompt_len=1024, max_new=64)``, one warm-up
    generation, then one timed greedy generation whose kernel launches
@@ -36,10 +44,22 @@ Phases (any failure exits non-zero and prints no result line):
    fused update per parameter tensor and 26 x 3 flash forwards per
    step) and whose steps are split by CUDA events into forward+backward,
    update and mix.
+   ``[train-compress]``: the same with int8 compressed gossip (chunk
+   256, error feedback, seed 0), after one warm-up step, 6 timed steps
+   whose launches are counted (one quantize+EF and one fused update per
+   parameter tensor and 26 x 3 flash forwards per step), split into
+   forward+backward, update and compressed mix, with the peak memory and
+   the wire bytes per node per round against f32.
 5. The port on the card against the port on the CPU: reduced gemma3-1b
    serving in f32 (greedy tokens equal, prefill logits within 1e-4); the
    five methods on the paper MLP (losses within 1e-5) and reduced
    gemma3-1b DSGD-momentum training (losses within 1e-4).
+   ``[compress-cpu-vs-card]``: ``compressed_dense_mix`` with every codec
+   on a reduced gemma3-1b tree (n = 3): payloads and residuals bit for
+   bit, mixed values within 1e-5 (f32 products summed in another
+   order); 20 steps of compressed DSGD on the paper MLP (n = 21, Base-3)
+   with int8, fp8, int4 and top-k: losses within 1e-3, DESIGN.md Sec.
+   13's compressed end-to-end tolerance.
 6. Consensus on the card: ``optim.mix`` over one period of Base-2 at
    n = 3 and Base-3 at n = 21 reaches a relative consensus error
    <= 1e-10; the ring's after as many rounds is printed beside it.
@@ -81,6 +101,19 @@ DSGD_SHAPES = (("embed", (TRAIN_N, 262144 * 1152)),
 DSGD_RAGGED = (257, 513)
 DSGD_ABOVE_2_31 = (2, (1 << 30) + 3)     # bf16, ~21 GB over five tensors
 DSGD_SLICE = 1 << 27                     # columns per plain-version slice
+# the compressed training path: int8 payloads in (rows, 256) chunk rows,
+# rows = nodes x ceil(per-node size / 256)
+COMPRESS_CODEC, CHUNK = "int8", 256
+QUANT_SHAPES = tuple((name, (-(-cols // CHUNK) * rows, CHUNK))
+                     for name, (rows, cols) in DSGD_SHAPES)
+QUANT_EDGES = (  # (name, (R, C), row_offset, case)
+    ("ragged rows", (1001, 256), 7, None),
+    ("C=2", (13, 2), 0, None), ("C=32", (9, 32), 0, None),
+    ("C=250", (21, 250), 3, None),
+    ("zero rows", (24, 256), 0, "zero-rows"),
+    ("index across 2^31", (64, 256), (1 << 23) - 32, None),
+    ("index across 2^32", (64, 256), (1 << 24) - 32, None),
+    ("fp8 subnormal tail", (40, 256), 0, "subnormal"))
 
 
 def card_line() -> str:
@@ -150,7 +183,7 @@ def phase_build(torch):
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import _build
-    names = ("flash_attention", "fused_dsgd")
+    names = ("flash_attention", "fused_dsgd", "quantized_gossip")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         secs = dict(zip(names, pool.map(_build.build, names)))
@@ -364,6 +397,110 @@ def phase_dsgd_kernels(torch, dev):
     return entries
 
 
+def phase_quantize_kernels(torch, dev):
+    """Quantize+EF vs plain on the card, bit for bit on q, scale and the
+    residual; returns ("train-quantize_ef", JSON entry) for each
+    compressed training-path shape, int8 with err (the main path's
+    mode)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.quantized_gossip import quantize_ef
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    key = ref.sr_key(0, 3)
+
+    def inputs(R, C, case):
+        x = torch.randn(R, C, generator=gen, device=dev)
+        err = 0.1 * torch.randn(R, C, generator=gen, device=dev)
+        if case == "zero-rows":
+            x[::3] = 0.0
+            err[::3] = 0.0
+        elif case == "subnormal":
+            x[:, 0] = 3.0
+            x[:, 1:] *= 1e-5
+            err.zero_()
+        return x, err
+
+    def check(name, x, err, off, fmt):
+        got = quantize_ef(x, err, key, off, fmt=fmt)
+        want = ref.quantize_ef_ref(x, err, key, off, fmt=fmt)
+        torch.cuda.synchronize()
+        same = all(a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+            a.view(torch.uint8), b.view(torch.uint8)) for a, b in zip(got,
+                                                                      want))
+        err_abs = float((got[2] - want[2]).abs().max())
+        print(f"[quantize] {name} {tuple(x.shape)} {fmt} "
+              f"err={'yes' if err is not None else 'no'} offset={off}: "
+              f"bitwise {same}")
+        if not same:
+            raise SystemExit(f"quantize+EF {name} {fmt} differs from its "
+                             f"plain version (residual max abs err "
+                             f"{err_abs})")
+        return got, err_abs
+
+    for name, (R, C), off, case in QUANT_EDGES:
+        x, err = inputs(R, C, case)
+        for fmt in ("int8", "fp8"):
+            for e in (err, None):
+                got, _ = check(name, x, e, off, fmt)
+                if case == "subnormal" and fmt == "fp8":
+                    v = (x[:, 1:] / got[1]).abs()
+                    nz = int((got[0][:, 1:].float() != 0).sum())
+                    if not (float(v.max()) < 2.0 ** -6 and nz > 0):
+                        raise SystemExit("the fp8 subnormal case is not in "
+                                         "e4m3's subnormal range")
+                    print(f"[quantize]   max |s|/scale {float(v.max()):.3e} "
+                          f"< 2^-6; {nz} nonzero subnormal payloads")
+                if case == "zero-rows" and not bool(
+                        (got[1][::3] == 1.0).all()):
+                    raise SystemExit("all-zero rows must get scale 1")
+        idx_max = ((off + R) * C - 1) % (1 << 32)
+        if off:
+            print(f"[quantize]   global indices {off * C} .. "
+                  f"{(off + R) * C - 1} (mod 2^32 to {idx_max})")
+        del x, err
+
+    entries = []
+    for name, (R, C) in QUANT_SHAPES:
+        x, err = inputs(R, C, None)
+        for fmt in ("int8", "fp8"):
+            for e in (err, None):
+                got, err_abs = check(name, x, e, 0, fmt)
+                if fmt == COMPRESS_CODEC and e is not None:
+                    main_err = err_abs
+                del got
+                torch.cuda.empty_cache()
+        numel = R * C
+        # 13 B per element (read x and err, write q and resid) + 4 B per
+        # scale; ~10 f32 and ~13 integer (hash) operations per element,
+        # all counted at the f32 rate
+        b_ms, b_by = bound_ms(13 * numel + 4 * R, 23 * numel, "float32")
+        entry = {
+            "name": f"quantize_ef[{name},{COMPRESS_CODEC},err]",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/quantized_gossip.cu",
+            "replaces": "src/repro/kernels/quantized_gossip.py:71",
+            "launches": None,
+            "max_abs_err": main_err,
+            "ms": time_ms(torch, lambda: quantize_ef(
+                x, err, key, 0, fmt=COMPRESS_CODEC), flush),
+            "plain_ms": time_ms(torch, lambda: ref.quantize_ef_ref(
+                x, err, key, 0, fmt=COMPRESS_CODEC), flush),
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+        }
+        print(f"[quantize] {entry['name']} ({R} x {C}): {entry['ms']:.4f} "
+              f"ms (bound {b_ms:.4f} ms by {b_by}; plain "
+              f"{entry['plain_ms']:.4f} ms)")
+        entries.append(("train-quantize_ef", entry))
+        del x, err
+        torch.cuda.empty_cache()
+    del flush
+    torch.cuda.empty_cache()
+    return entries
+
+
 def phase_main_path(torch, dev, card):
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention_fwd
@@ -484,27 +621,32 @@ def phase_cpu_vs_card(torch, dev):
                          f"card {out['card'].tolist()}")
 
 
-def phase_train(torch, dev, card, profile=False):
+def phase_train(torch, dev, card, profile=False, compression=None):
     """Full-width gemma3-1b DSGD-momentum training on the card, through
-    ``simulate_decentralized``; returns the launch counts of the timed
-    run by phase.  With ``profile``, one more step runs under the
-    profiler (kernel time by name)."""
+    ``simulate_decentralized``, uncompressed (``[train]``) or with
+    ``compression`` (``[train-compress]``); returns the launch counts of
+    the timed run by phase.  With ``profile``, one more step runs under
+    the profiler (kernel time by name)."""
     from repro_torch import trace
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import token_batches
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.fused_dsgd import fused_dsgd
+    from repro_torch.kernels.quantized_gossip import quantize_ef
     from repro_torch.models import model as M
     from repro_torch.optim.decentralized import make_method
     from repro_torch.sim.engine import (_consensus_error,
                                         simulate_decentralized)
-    from repro_torch.topology import TopologySpec
+    from repro_torch.topology import TopologySpec, build_schedule
 
+    tag = "[train-compress]" if compression else "[train]"
+    pre = "train-compress-" if compression else "train-"
     cfg = get_config("gemma3-1b")
     params = M.init(cfg, seed=0, dtype=torch.bfloat16,
                     device=dev).state_dict()
     n_params = sum(p.numel() for p in params.values())
     tokens = TRAIN_N * TRAIN_B * TRAIN_SEQ
+    spec = TopologySpec(name="base", n=TRAIN_N, k=1)
 
     def batches(step):
         b = token_batches(step, batch=TRAIN_N * TRAIN_B, seq=TRAIN_SEQ,
@@ -513,39 +655,48 @@ def phase_train(torch, dev, card, profile=False):
                 for k, v in b.items()}
 
     kw = dict(loss_fn=lambda p, b: M.loss_fn(cfg, p, b)[0], params=params,
-              method=make_method("dsgdm", momentum=TRAIN_MOMENTUM),
-              schedule=TopologySpec(name="base", n=TRAIN_N, k=1),
-              batches=batches, eta=TRAIN_ETA, device=dev)
-    print(f"[train] gemma3-1b full width: {cfg.num_layers} layers, "
+              method=make_method("dsgdm", momentum=TRAIN_MOMENTUM,
+                                 compression=compression),
+              schedule=spec, batches=batches, eta=TRAIN_ETA, device=dev)
+    print(f"{tag} gemma3-1b full width: {cfg.num_layers} layers, "
           f"{len(params)} parameter tensors, {n_params / 1e9:.3f} B params "
           f"in bf16; n={TRAIN_N} nodes on base k=1, dsgdm "
           f"{TRAIN_MOMENTUM}, eta {TRAIN_ETA}, {TRAIN_B} x {TRAIN_SEQ} "
-          f"tokens per node")
+          f"tokens per node"
+          + (f"; compression {compression.to_json()}" if compression
+             else ""))
     t0 = time.perf_counter()
     simulate_decentralized(steps=1, **kw)                # warm-up
     torch.cuda.synchronize()
-    print(f"[train] warm-up step (with node_stack): "
+    print(f"{tag} warm-up step (with node_stack): "
           f"{time.perf_counter() - t0:.2f} s")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
     fused_dsgd.launches = 0
     flash_attention_fwd.launches = 0
+    quantize_ef.launches = 0
     t0 = time.perf_counter()
     with trace.cuda_marks() as marks:
         res = simulate_decentralized(steps=TRAIN_STEPS, **kw)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"train-fused_dsgd": fused_dsgd.launches,
-                "train-flash": flash_attention_fwd.launches}
+    launches = {pre + "fused_dsgd": fused_dsgd.launches,
+                pre + "flash": flash_attention_fwd.launches,
+                "train-quantize_ef": quantize_ef.launches}
     peak = torch.cuda.max_memory_allocated()
 
-    want = {"train-fused_dsgd": TRAIN_STEPS * len(params),
-            "train-flash": TRAIN_STEPS * cfg.num_layers * TRAIN_N}
+    want = {pre + "fused_dsgd": TRAIN_STEPS * len(params),
+            pre + "flash": TRAIN_STEPS * cfg.num_layers * TRAIN_N,
+            "train-quantize_ef": TRAIN_STEPS * len(params) if compression
+            else 0}
     for phase, n in want.items():
         if launches[phase] != n:
             raise SystemExit(f"{phase} launched {launches[phase]} times in "
                              f"{TRAIN_STEPS} training steps, expected {n}")
+    if compression and res.state["ct"] != TRAIN_STEPS:
+        raise SystemExit(f"compressed state ct = {res.state['ct']} after "
+                         f"{TRAIN_STEPS} steps")
     losses = res.losses
     if losses.shape != (TRAIN_STEPS,) or not bool(
             torch.isfinite(torch.from_numpy(losses)).all()):
@@ -563,28 +714,48 @@ def phase_train(torch, dev, card, profile=False):
         split["step"].append(ev[0].elapsed_time(ev[3]))
     med = {k: statistics.median(v) for k, v in split.items()}
     cons = float(_consensus_error(res.params))
-    print(f"[train] {card}: {med['step']:.2f} ms/step (median of "
+    mix_name = "compressed mix" if compression else "mix"
+    print(f"{tag} {card}: {med['step']:.2f} ms/step (median of "
           f"{TRAIN_STEPS}, CUDA events; min {min(split['step']):.2f}, max "
           f"{max(split['step']):.2f}), {tokens / med['step'] * 1e3:.1f} "
           f"tokens/s ({tokens} tokens per step); host clock "
           f"{wall / TRAIN_STEPS * 1e3:.2f} ms/step over the whole run")
-    print(f"[train] split per step (medians): forward+backward "
+    print(f"{tag} split per step (medians): forward+backward "
           f"{med['forward+backward']:.2f} ms, update (fused kernels) "
-          f"{med['update']:.2f} ms, mix {med['mix']:.2f} ms")
-    print(f"[train] losses {[round(float(x), 4) for x in losses]}; "
+          f"{med['update']:.2f} ms, {mix_name} {med['mix']:.2f} ms")
+    print(f"{tag} losses {[round(float(x), 4) for x in losses]}; "
           f"consensus error after {TRAIN_STEPS} steps {cons:.3e}; peak "
           f"memory {peak / 2**30:.2f} GiB (max_memory_allocated)")
     compute_floor = 6.0 * n_params * tokens / PEAK_FLOPS["bfloat16"] * 1e3
     update_bytes = 5 * TRAIN_N * n_params * 2
     update_floor = update_bytes / H100_BYTES_PER_S * 1e3
-    print(f"[train] floors: compute >= {compute_floor:.2f} ms/step (6 x "
+    print(f"{tag} floors: compute >= {compute_floor:.2f} ms/step (6 x "
           f"{n_params / 1e9:.3f} B params x {tokens} tokens at 989 TFLOP/s "
           f"bf16); update >= {update_floor:.2f} ms/step "
           f"({update_bytes / 1e9:.1f} GB at 3.35 TB/s)")
-    print(f"[train] launches in {TRAIN_STEPS} steps: fused_dsgd "
-          f"{launches['train-fused_dsgd']} (= {len(params)} tensors x "
-          f"{TRAIN_STEPS}), flash {launches['train-flash']} (= "
-          f"{cfg.num_layers} layers x {TRAIN_N} nodes x {TRAIN_STEPS})")
+    print(f"{tag} launches in {TRAIN_STEPS} steps: fused_dsgd "
+          f"{launches[pre + 'fused_dsgd']} (= {len(params)} tensors x "
+          f"{TRAIN_STEPS}), flash {launches[pre + 'flash']} (= "
+          f"{cfg.num_layers} layers x {TRAIN_N} nodes x {TRAIN_STEPS})"
+          + (f", quantize_ef {launches['train-quantize_ef']} (= "
+             f"{len(params)} tensors x {TRAIN_STEPS})" if compression
+             else ""))
+    if compression:
+        # each tensor is its own chunk-row payload: padded per tensor
+        sizes = [p.numel() for p in params.values()]
+        wire = sum(compression.wire_bytes(n) for n in sizes)
+        f32 = 4 * n_params
+        sched = build_schedule(spec)
+        quant_floor = (13 * TRAIN_N * sum(compression.rows(n) for n in sizes)
+                       * CHUNK / H100_BYTES_PER_S * 1e3)
+        print(f"{tag} wire bytes per node per round: "
+              f"{sched.bytes_per_node_per_round(wire):.0f} "
+              f"{compression.codec} against "
+              f"{sched.bytes_per_node_per_round(f32):.0f} f32 "
+              f"({f32 / wire:.3f}x fewer; one message of {wire} bytes, "
+              f"{sched.bytes_per_node_per_round(1):.4f} messages per node "
+              f"per round); quantize floor {quant_floor:.2f} ms/step (13 B "
+              f"per chunk-row element at 3.35 TB/s)")
     del res
     if profile:
         from torch.profiler import ProfilerActivity, profile as trace_run
@@ -594,7 +765,8 @@ def phase_train(torch, dev, card, profile=False):
             simulate_decentralized(steps=1, **kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        print_kernel_times(prof, "training step (with node_stack)", wall, 1)
+        print_kernel_times(prof, f"{tag[1:-1]} step (with node_stack)", wall,
+                           1)
     del params, kw
     torch.cuda.empty_cache()
     return launches
@@ -651,6 +823,91 @@ def phase_train_cpu_vs_card(torch, dev):
           f"losses {losses[dev].tolist()}, max abs err {err:.3e} (tol 1e-4)")
     if not err <= 1e-4:
         raise SystemExit(f"card vs cpu gemma training losses differ by {err}")
+
+
+def phase_compress_cpu_vs_card(torch, dev):
+    """Compressed gossip on the card against the same on the CPU."""
+    from repro_torch.compress import (CODEC_NAMES, CompressionConfig,
+                                      compressed_dense_mix, get_codec,
+                                      leaf_to_rows)
+    from repro_torch.configs import get_config
+    from repro_torch.configs.paper_mlp import MLPConfig
+    from repro_torch.data.synthetic import dirichlet_classification
+    from repro_torch.kernels.ref import sr_key
+    from repro_torch.models import mlp
+    from repro_torch.models import model as M
+    from repro_torch.optim.decentralized import make_method
+    from repro_torch.sim.engine import simulate_decentralized
+    from repro_torch.topology import TopologySpec, build_schedule
+
+    n = 3
+    cfg = get_config("gemma3-1b").reduced()
+    gen = torch.Generator().manual_seed(6)
+    tree = {k: torch.stack([p + 0.01 * torch.randn(p.shape, generator=gen)
+                            for _ in range(n)])
+            for k, p in M.init(cfg, seed=3, dtype=torch.float32,
+                               device="cpu").state_dict().items()}
+    ef0 = {k: 0.01 * torch.randn(x.shape, generator=gen)
+           for k, x in tree.items()}
+    W = torch.from_numpy(build_schedule(TopologySpec(
+        name="base", n=n, k=1)).W(0).astype("float32"))
+    for codec in CODEC_NAMES:
+        ccfg = CompressionConfig(codec=codec, chunk=CHUNK)
+        key = sr_key(ccfg.seed, 4)
+        same = True
+        for k, x in tree.items():       # the payloads, tensor by tensor
+            outs = []
+            for d in ("cpu", dev):
+                x2d = leaf_to_rows(x.to(d), CHUNK)
+                e2d = leaf_to_rows(ef0[k].to(d), CHUNK)
+                outs.append(get_codec(codec).compress(ccfg, x2d, e2d, key,
+                                                      0))
+            (pc, rc), (pd, rd) = outs
+            same &= torch.equal(rc.view(torch.int32),
+                                rd.cpu().view(torch.int32))
+            same &= all(torch.equal(pc[f].view(torch.uint8),
+                                    pd[f].cpu().view(torch.uint8))
+                        for f in pc)
+        mixed, efs = {}, {}
+        for d in ("cpu", dev):
+            ef = {k: v.to(d, copy=True) for k, v in ef0.items()}
+            out, ef = compressed_dense_mix(W.to(d), {k: x.to(d) for k, x
+                                                     in tree.items()}, ef,
+                                           ccfg, 4)
+            mixed[d] = {k: v.cpu() for k, v in out.items()}
+            efs[d] = {k: v.cpu() for k, v in ef.items()}
+        same &= all(torch.equal(efs["cpu"][k].view(torch.int32),
+                                efs[dev][k].view(torch.int32)) for k in tree)
+        err = max(float((mixed["cpu"][k] - mixed[dev][k]).abs().max())
+                  for k in tree)
+        print(f"[compress-cpu-vs-card] reduced gemma3-1b, n={n}, {codec}: "
+              f"{len(tree)} tensors' payloads and residuals bitwise {same}; "
+              f"mixed max abs err {err:.3e} (tol 1e-5)")
+        if not (same and err <= 1e-5):
+            raise SystemExit(f"card vs cpu compressed mix ({codec}) differs: "
+                             f"bitwise {same}, mixed max abs err {err}")
+
+    n, k, steps, bs = 21, 2, 20, 32
+    data = dirichlet_classification(n, steps * bs, alpha=0.1, seed=0)
+    params = mlp.init(MLPConfig(), seed=0, device="cpu")
+
+    def batches(step):
+        s = slice(step * bs, (step + 1) * bs)
+        return data.node_x[:, s], data.node_y[:, s]
+
+    for codec in ("int8", "fp8", "int4", "topk"):
+        method = make_method("dsgd", compression=codec)
+        losses = {d: simulate_decentralized(
+            loss_fn=mlp.loss_fn, params=params, method=method,
+            schedule=TopologySpec(name="base", n=n, k=k), batches=batches,
+            steps=steps, eta=0.03, device=d).losses for d in ("cpu", dev)}
+        err = float(abs(losses["cpu"] - losses[dev]).max())
+        print(f"[compress-cpu-vs-card] paper MLP dsgd {codec}, n={n} base "
+              f"k={k}, {steps} steps: losses max abs err {err:.3e} (tol "
+              f"1e-3); last loss {losses[dev][-1]:.4f}")
+        if not err <= 1e-3:
+            raise SystemExit(f"card vs cpu compressed {codec} losses differ "
+                             f"by {err}")
 
 
 def phase_consensus(torch, dev):
@@ -722,7 +979,8 @@ def print_kernel_times(prof, what, wall, steps):
                                 key=lambda kv: -kv[1][0])[:12]:
         print(f"[profile] {us / steps / 1e3:9.4f} ms/step {n // steps:5d}x "
               f"{name[:90]}")
-    for key in ("flash_fwd_kernel", "fused_dsgd_kernel"):   # the port's own
+    for key in ("flash_fwd_kernel", "fused_dsgd_kernel",     # the port's own
+                "quantize_ef_kernel"):
         mine = [v for name, v in per_kernel.items() if key in name]
         if mine:
             ms = sum(t for t, _ in mine) / steps / 1e3
@@ -745,6 +1003,7 @@ def main() -> None:
         raise SystemExit(f"chip_smoke: src/repro_torch not found beside "
                          f"{Path(__file__).name}; run it from a checkout")
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.compress import CompressionConfig
     dev = torch.device("cuda", 0)
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__}, CUDA "
@@ -752,16 +1011,22 @@ def main() -> None:
     phase_build(torch)
     entries = phase_flash_kernels(torch, dev)
     entries += phase_dsgd_kernels(torch, dev)
+    entries += phase_quantize_kernels(torch, dev)
     launches, params, engine, tokens = phase_main_path(torch, dev, card)
     if args.profile:
         phase_profile(torch, dev, params, engine, tokens)
     del params, engine, tokens
     torch.cuda.empty_cache()
     launches.update(phase_train(torch, dev, card, profile=args.profile))
+    launches.update(phase_train(
+        torch, dev, card, profile=args.profile,
+        compression=CompressionConfig(codec=COMPRESS_CODEC, chunk=CHUNK,
+                                      error_feedback=True, seed=0)))
     for phase, e in entries:
         e["launches"] = launches[phase]
     phase_cpu_vs_card(torch, dev)
     phase_train_cpu_vs_card(torch, dev)
+    phase_compress_cpu_vs_card(torch, dev)
     phase_consensus(torch, dev)
     print(card)
     print(json.dumps({"kernels": [e for _, e in entries]}))

@@ -61,6 +61,16 @@ def tree_from_jax(tree, *, node_axis: bool = False) -> dict:
     return out
 
 
+def state_from_jax(state: dict) -> dict:
+    """A decentralized method's node-stacked state from the reference, in
+    the port's form: each tree (``u``, ``m``, ``ef``, ...) a flat dict of
+    CPU tensors (:func:`tree_from_jax` with ``node_axis=True``), and the
+    0-d step counter ``ct`` of a compressed method a host int."""
+    return {k: (tree_from_jax(v, node_axis=True)
+                if isinstance(v, (dict, list, tuple)) else int(np.asarray(v)))
+            for k, v in state.items()}
+
+
 def params_from_jax(tree, cfg: ArchConfig, *, device=None,
                     dtype=torch.float32) -> Model:
     """A :class:`Model` holding the reference's parameter pytree ``tree``

@@ -6,7 +6,8 @@ There is no configuration object and no fallback between the two: the
 reference's ``KernelConfig(auto)`` and Pallas' ``interpret`` flag have no
 counterpart here.  Launches are counted on the kernel wrappers
 (``flash_attention.flash_attention_fwd.launches``,
-``fused_dsgd.fused_dsgd.launches``).
+``fused_dsgd.fused_dsgd.launches``,
+``quantized_gossip.quantize_ef.launches``).
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 from . import ref
 from .flash_attention import flash_attention_fwd
 from .fused_dsgd import fused_dsgd
+from .quantized_gossip import quantize_ef
 
 
 def _as_2d(a: torch.Tensor, *, lead_rows: bool = False):
@@ -59,6 +61,33 @@ def fused_dsgd_step(x, u, g, beta, eta, pre_scale=1.0):
             pre_scale = pre_scale.reshape((-1,) + (1,) * (x.ndim - 1))
         return ref.fused_dsgd_ref(x, u, g, beta, eta, pre_scale)
     raise NotImplementedError(f"no fused DSGD kernel for device {x.device}")
+
+
+# ---------------------------------------------------------------------------
+# quantized gossip payloads (repro_torch.compress)
+# ---------------------------------------------------------------------------
+
+QUANT_FORMATS = ("int8", "fp8")
+
+
+def quantize_payload(x, err=None, *, fmt: str, key: int, row_offset=0):
+    """One-pass payload quantization for compressed gossip: per-row amax
+    scale, hash stochastic rounding and the EF21 residual (the
+    reference's ``ops.quantize_payload``, ``ops.py:196-219``).
+
+    x: (R, C) float32 in the chunk-row layout (C = the codec's chunk);
+    ``err`` the carried residual (added to x before rounding) or None;
+    ``key`` a uint32 int from :func:`repro_torch.kernels.ref.sr_key`;
+    ``row_offset`` the global index of row 0.  Returns ``(q, scale,
+    resid)``, see :func:`repro_torch.kernels.ref.quantize_ef_ref`.  On
+    the card a shape the kernel does not take raises."""
+    if fmt not in QUANT_FORMATS:
+        raise ValueError(f"fmt must be one of {QUANT_FORMATS}, got {fmt!r}")
+    if x.device.type == "cuda":
+        return quantize_ef(x, err, key, row_offset, fmt=fmt)
+    if x.device.type == "cpu":
+        return ref.quantize_ef_ref(x, err, key, row_offset, fmt=fmt)
+    raise NotImplementedError(f"no quantize kernel for device {x.device}")
 
 
 # ---------------------------------------------------------------------------

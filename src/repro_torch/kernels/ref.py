@@ -115,3 +115,133 @@ def grouped_sdpa_ref(q, k, v, *, causal: bool = True, window=None,
     den = p.sum(dim=-1).clamp_min(1e-30)
     out = out / den[..., None]
     return out.reshape(B, Tq, H, hd_v).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# quantized gossip payloads (repro_torch.compress)
+#
+# The stochastic-rounding noise is a deterministic hash of (key, global
+# element index), as in the reference (``ref.py:273-366``): a node's rows
+# quantized alone (row_offset = node * rows_per_node) get the same bits as
+# the node-stacked array.  torch has no uint32 arithmetic, so the hash
+# runs on int64 tensors that hold values in [0, 2^32); every product is
+# split so that it stays below 2^63 (signed overflow is never relied on).
+# ---------------------------------------------------------------------------
+
+_MASK32 = 0xFFFFFFFF
+# the largest magnitude each format's per-row scale maps amax to, and its
+# reciprocal rounded to f32: the scale is ``amax * float32(1/QMAX)``, an
+# explicit multiply, never a division (``ref.py:277-288``)
+_SR_QMAX = {"int8": 127.0, "fp8": 448.0}
+_SR_INV_QMAX = {k: float(torch.tensor(1.0 / q, dtype=torch.float32))
+                for k, q in _SR_QMAX.items()}
+
+
+def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
+    """``(a * b) mod 2^32`` for an int64 tensor ``a`` in [0, 2^32) and an
+    int ``b`` in [0, 2^32), exactly: b is split into 16-bit halves, so no
+    partial product reaches 2^48."""
+    lo = a * (b & 0xFFFF)
+    hi = a * (b >> 16)
+    hi &= 0xFFFF
+    hi <<= 16
+    lo += hi
+    lo &= _MASK32
+    return lo
+
+
+def sr_key(seed, t) -> int:
+    """Fold (codec seed, step counter) into one uint32 hash key, on the
+    host (``ref.py:292-300``); the ``| 1`` keeps it nonzero.  ``seed``
+    and ``t`` are ints (reduced mod 2^32, as the reference's uint32 casts
+    do)."""
+    s, tt = int(seed) & _MASK32, int(t) & _MASK32
+    return (((s * 0x9E3779B1) & _MASK32) ^ ((tt * 0x85EBCA77) & _MASK32)) | 1
+
+
+def _sr_bits(key: int, idx: torch.Tensor) -> torch.Tensor:
+    """murmur3-finalizer uint32 hash of an element-index grid
+    (``ref.py:303-312``).  ``idx`` is int64 in [0, 2^32); so is the
+    result."""
+    h = _mul32(idx, 0x9E3779B1)
+    h ^= int(key) & _MASK32
+    h ^= h >> 16
+    h = _mul32(h, 0x85EBCA6B)
+    h ^= h >> 13
+    h = _mul32(h, 0xC2B2AE35)
+    h ^= h >> 16
+    return h
+
+
+def element_index(R: int, C: int, row_offset, device) -> torch.Tensor:
+    """The (R, C) int64 grid ``((row + row_offset) * C + col) mod 2^32``:
+    what the reference's int32 ``(rows + row_offset) * C + cols`` gives
+    once cast to uint32 (``ref.py:357-360``)."""
+    rows = (torch.arange(R, dtype=torch.int64, device=device)
+            + int(row_offset)) & _MASK32
+    base = _mul32(rows, C & _MASK32)
+    idx = base[:, None] + torch.arange(C, dtype=torch.int64, device=device)
+    idx &= _MASK32
+    return idx
+
+
+def _quantize_core(s, scale, bits, fmt: str):
+    """The payload math of ``ref.py:315-343``: returns ``(q, hat)``, with
+    ``hat = q * scale`` the dequantized f32 value.
+
+    * int8: ``floor(v + u)`` with ``u = float32(bits) * 2^-32`` (which can
+      round up to exactly 1.0), clipped to +-127;
+    * fp8 (e4m3fn): 20 hash bits injected below the 3-bit target mantissa
+      and truncated, clipped to +-448, then cast, which rounds to nearest
+      even on e4m3's subnormal tail.
+
+    Each f32 line is one PyTorch op, so nothing contracts into an FMA."""
+    v = s / scale
+    if fmt == "int8":
+        u = bits.to(torch.float32)
+        u *= 2.0 ** -32
+        v += u
+        del u
+        v.floor_()
+        v.clamp_(-127.0, 127.0)
+        q = v.to(torch.int8)
+    elif fmt == "fp8":
+        b = v.view(torch.int32).to(torch.int64)
+        b &= _MASK32
+        b += bits & 0xFFFFF
+        b &= 0xFFF00000
+        b -= (b >> 31) << 32                    # back to int32's range
+        w = b.to(torch.int32).view(torch.float32)
+        del b
+        w = w.clamp(-448.0, 448.0)
+        q = w.to(torch.float8_e4m3fn)
+    else:
+        raise ValueError(f"unknown quantize format {fmt!r}")
+    del v
+    hat = q.to(torch.float32)
+    hat *= scale
+    return q, hat
+
+
+def quantize_ef_ref(x, err, key, row_offset, *, fmt: str):
+    """Quantize one (R, C) chunk-row buffer with per-row scales and
+    produce the EF21 residual (``ref.py:346-366``), the plain version of
+    the quantize+EF kernel.
+
+    x: (R, C); err: (R, C) or None, the carried residual added first
+    (``s = x + err``); key: a uint32 int from :func:`sr_key`;
+    row_offset: the global index of row 0.  Returns ``(q, scale,
+    resid)``: q (R, C) int8 or float8_e4m3fn, scale (R, 1) f32, resid
+    (R, C) f32 = s - q * scale."""
+    if fmt not in _SR_QMAX:
+        raise ValueError(f"unknown quantize format {fmt!r}")
+    s = x.to(torch.float32)
+    if err is not None:
+        s = s + err.to(torch.float32)
+    amax = s.abs().amax(dim=1, keepdim=True)
+    scale = torch.where(amax > 0.0, amax * _SR_INV_QMAX[fmt], 1.0)
+    R, C = s.shape
+    bits = _sr_bits(key, element_index(R, C, row_offset, s.device))
+    q, hat = _quantize_core(s, scale, bits, fmt)
+    del bits
+    return q, scale, s - hat

@@ -13,15 +13,25 @@ nodes of the simulation engine):
 device), applied as the dense ``W @ X`` by :func:`mix`; a tree -> tree
 callable is accepted too.  The state is a dict of node-stacked flat
 dicts (``{"u": {...}}``).  Each step returns new tensors; nothing is
-updated in place.
+updated in place, with one exception: a compressed step writes the new
+EF21 residual into the state's ``ef`` tensors (see below).
+
+Compressed gossip (``repro_torch.compress``, DESIGN.md Sec. 13): pass a
+``CompressionConfig`` (or a CLI string such as ``"int8"``) to
+:func:`make_method` and the DSGD / DSGD-momentum step mixes quantized
+payloads instead, through
+:func:`repro_torch.compress.compressed_dense_mix`.  Its state carries
+``ct``, the step counter (a host int) that keys the stochastic rounding,
+and with error feedback ``ef``, the f32 residuals, updated in place: at
+full width the old and the new residual would not fit on the card
+together.  A mixing callable takes the 3-argument form
+``mixer(tree, ef, ct) -> (mixed, ef')``.
 
 Implemented (paper Sec. 6.2 & Fig. 9):
   * DSGD (+ heavy-ball momentum)       [Lian et al. 2017, Eq. (1)]
   * QG-DSGDm (quasi-global momentum)   [Lin et al. 2021]
   * D^2                                 [Tang et al. 2018]
   * Gradient Tracking                   [Nedic et al. 2017; Pu & Nedic 2021]
-
-Compressed gossip (``compression=``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -31,6 +41,9 @@ from typing import Callable
 import torch
 
 from repro_torch import trace
+from repro_torch.compress import (CompressionConfig, compressed_dense_mix,
+                                  init_ef)
+from repro_torch.compress import resolve as resolve_compression
 from repro_torch.kernels import ops
 
 
@@ -52,6 +65,10 @@ class Method:
     # How many times ``step`` mixes per call (gradient tracking mixes its
     # tracker and its parameters).
     mixes_per_step: int = 1
+    # Gossip payload compression, always the resolved value: None is the
+    # uncompressed method (the identity codec resolves to None).  A
+    # compressed method carries "ct" (and "ef") in its state.
+    compression: CompressionConfig | None = None
 
 
 def _as_mixer(w_or_fn) -> Callable:
@@ -78,11 +95,31 @@ def _zeros_like(tree: dict) -> dict:
 #
 # Plain DSGD (momentum == 0) keeps the elementwise axpy, as the reference
 # does: there is no momentum buffer to fuse.
+#
+# The compressed step (decentralized.py:177-199) takes the momentum
+# half-step through the fused kernel with pre_scale 1 (:164-175): the
+# diag(W) fold must not reach the payload, whose bits are those of the
+# true half-step values.
 # ---------------------------------------------------------------------------
 
-def DSGD(momentum: float = 0.0) -> Method:
+def DSGD(momentum: float = 0.0,
+         compression: CompressionConfig | None = None) -> Method:
+    ccfg = compression    # resolved by make_method; None == uncompressed
+
     def init(params_n):
-        return {"u": _zeros_like(params_n)} if momentum else {}
+        state = {"u": _zeros_like(params_n)} if momentum else {}
+        if ccfg is not None:
+            state["ct"] = 0
+            if ccfg.error_feedback:
+                state["ef"] = init_ef(params_n, ccfg)
+        return state
+
+    def half_fused(params_n, grads_n, u_old, eta, pre):
+        half, u = {}, {}
+        for k, x in params_n.items():
+            half[k], u[k] = ops.fused_dsgd_step(x, u_old[k], grads_n[k],
+                                                momentum, eta, pre)
+        return half, u
 
     def step_plain(params_n, grads_n, state, W, eta):
         half = {k: x - eta * grads_n[k] for k, x in params_n.items()}
@@ -96,14 +133,32 @@ def DSGD(momentum: float = 0.0) -> Method:
             safe = d != 0.0
             pre = torch.where(safe, d, 1.0)
             mixer = _as_mixer(W * torch.where(safe, 1.0 / pre, 1.0)[None, :])
-        half, u = {}, {}
-        for k, x in params_n.items():
-            half[k], u[k] = ops.fused_dsgd_step(x, state["u"][k], grads_n[k],
-                                                momentum, eta, pre)
+        half, u = half_fused(params_n, grads_n, state["u"], eta, pre)
         return mixer(half), {"u": u}
 
-    return Method("dsgd" + (f"m{momentum}" if momentum else ""), init,
-                  step_fused if momentum else step_plain)
+    def step_compressed(params_n, grads_n, state, W, eta):
+        if momentum:
+            half, u = half_fused(params_n, grads_n, state["u"], eta, 1.0)
+            new_state = {"u": u}
+        else:
+            half = {k: x - eta * grads_n[k] for k, x in params_n.items()}
+            new_state = {}
+        ef, ct = state.get("ef"), state["ct"]
+        if callable(W):
+            mixed, ef = W(half, ef, ct)
+        else:
+            mixed, ef = compressed_dense_mix(W, half, ef, ccfg, ct)
+        new_state["ct"] = ct + 1
+        if ccfg.error_feedback:
+            new_state["ef"] = ef
+        return mixed, new_state
+
+    if ccfg is not None:
+        step = step_compressed
+    else:
+        step = step_fused if momentum else step_plain
+    return Method("dsgd" + (f"m{momentum}" if momentum else ""), init, step,
+                  compression=ccfg)
 
 
 # ---------------------------------------------------------------------------
@@ -185,15 +240,22 @@ METHOD_NAMES = ("dsgd", "dsgdm", "qg-dsgdm", "d2", "gt")
 def make_method(name: str, momentum: float = 0.9,
                 compression=None) -> Method:
     """The method ``name`` (one of :data:`METHOD_NAMES`).  ``momentum``
-    is DSGD-momentum's and QG-DSGDm's beta."""
-    if compression is not None:
-        raise NotImplementedError(
-            "compressed gossip is not ported to repro_torch yet; see "
-            "ROADMAP.md")
+    is DSGD-momentum's and QG-DSGDm's beta.
+
+    ``compression`` (a ``CompressionConfig``, a CLI string such as
+    ``"int8"``, or None) selects quantized, error-feedback gossip for
+    DSGD and DSGD-momentum.  It is resolved first: None, ``"none"``,
+    ``""`` and the identity codec all give the uncompressed method."""
+    compression = resolve_compression(compression)
+    if compression is not None and name not in ("dsgd", "dsgdm"):
+        raise ValueError(
+            f"gossip compression is implemented for dsgd/dsgdm only; "
+            f"{name!r} mixes auxiliary state (momentum/tracker trees) "
+            f"whose quantization semantics are not part of this repro")
     if name == "dsgd":
-        return DSGD(0.0)
+        return DSGD(0.0, compression)
     if name == "dsgdm":
-        return DSGD(momentum)
+        return DSGD(momentum, compression)
     if name == "qg-dsgdm":
         return QGDSGDm(momentum)
     if name == "d2":

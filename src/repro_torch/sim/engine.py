@@ -16,7 +16,8 @@ each node's slice of the stacked parameters is a leaf of its own, and
 ``loss_fn(params, batch)`` at it.  The step's loss is the mean over
 nodes, as the reference's ``_make_train_step`` (:121-129) gives it.
 Losses stay on the device until the run ends, so a step does not wait
-for the host.
+for the host.  A compressed method's state (the step counter ``ct`` and
+the EF21 residuals ``ef``) rides through the loop like any other state.
 
 The failure-realistic backend (``failure=``) is not ported yet.
 """
@@ -40,9 +41,11 @@ class SimResult:
     test_acc: np.ndarray        # (evals,) accuracy of the averaged model
     consensus: np.ndarray       # (evals,) mean param variance across nodes
     eval_steps: np.ndarray
-    # the final node-stacked parameters (the reference's engine does not
-    # return them; the port's parity tests and chip check read them)
+    # the final node-stacked parameters and method state (the reference's
+    # engine does not return them; the port's parity tests and chip check
+    # read them)
     params: dict | None = None
+    state: dict | None = None
 
 
 def _consensus_error(params_n: dict) -> torch.Tensor:
@@ -152,4 +155,4 @@ def simulate_decentralized(
     return SimResult(torch.stack(losses).float().cpu().numpy(),
                      np.asarray(accs, np.float32),
                      np.asarray(cons, np.float32), np.asarray(evs, np.int64),
-                     params_n)
+                     params_n, state)

@@ -71,6 +71,11 @@ class Schedule:
     def __len__(self) -> int:
         return len(self._mats)
 
+    def bytes_per_node_per_round(self, param_bytes: int) -> float:
+        """Average send-side bytes per node per round for messages of
+        ``param_bytes`` (a ``CompressionConfig.wire_bytes`` value)."""
+        return self._mats.bytes_per_node_per_round(param_bytes)
+
     # -- robustness metadata ----------------------------------------------
 
     def effective_neighbors(self, *, per_round: bool = False) -> float:

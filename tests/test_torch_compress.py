@@ -1,0 +1,380 @@
+"""The port's compressed gossip (``repro_torch.compress`` and the plain
+quantize+EF version in ``repro_torch.kernels.ref``) against the
+reference's ``repro.compress`` and ``repro.kernels.ref``, on the CPU.
+
+Inputs come from numpy seeds and go through both sides.  Tolerances:
+- payload bits (int8 / fp8 q and scale, int4's packed nibbles and
+  scales, top-k's indices and values) and the hash are compared bit for
+  bit: they are the wire contract (DESIGN.md Sec. 13);
+- the EF residual of the plain versions is compared bit for bit too (the
+  same f32 steps on both sides); the reference's interpret-mode Pallas
+  kernel is held at its own test's tolerance, 1e-6 on the residual
+  (``tests/test_compress.py:184``);
+- ``compressed_dense_mix``'s mixed values within 1e-6 (max abs): the
+  (n x n) product sums in another order; its new residual bit for bit.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import compress as J
+from repro.kernels import ref as jref
+from repro.kernels.quantized_gossip import quantize_ef_pallas
+from repro.optim.decentralized import mix as jmix
+from repro.topology import TopologySpec as JSpec
+from repro.topology import build_schedule as jbuild
+from repro_torch import compress as T
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
+from repro_torch.optim.decentralized import mix
+
+LOSSY = ("int8", "fp8", "int4", "topk")
+
+
+def _rows(r, c, seed, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return (scale * rng.standard_normal((r, c))).astype(np.float32)
+
+
+def _bits(a):
+    """The raw bytes of a numpy or torch array, for exact comparison."""
+    if isinstance(a, torch.Tensor):
+        a = a.contiguous().view(torch.uint8).numpy()
+    else:
+        a = np.ascontiguousarray(np.asarray(a)).view(np.uint8)
+    return a
+
+
+def _same_bits(got, want):
+    g, w = _bits(got), _bits(want)
+    return g.shape == w.shape and np.array_equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# CompressionConfig
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("codec", J.CODEC_NAMES)
+def test_config_matches_reference(codec):
+    assert T.CODEC_NAMES == J.CODEC_NAMES
+    assert T.UNCOMPRESSED_BYTES_PER_PARAM == J.UNCOMPRESSED_BYTES_PER_PARAM
+    for kw in ({}, {"chunk": 32}, {"chunk": 128, "topk_frac": 0.1,
+                                   "error_feedback": False, "seed": 3}):
+        want = J.CompressionConfig(codec=codec, **kw)
+        got = T.CompressionConfig(codec=codec, **kw)
+        assert got.to_json() == want.to_json()
+        assert got.to_dict() == want.to_dict()
+        assert T.CompressionConfig.from_json(want.to_json()) == got
+        assert hash(got) == hash(T.CompressionConfig.from_dict(
+            got.to_dict()))
+        assert got.is_identity == want.is_identity
+        assert got.topk_m == want.topk_m
+        for p in (1, 255, 256, 257, 1000, 1152, 10 ** 6):
+            assert got.rows(p) == want.rows(p)
+            assert got.wire_bytes(p) == want.wire_bytes(p)
+            assert got.compression_ratio(p) == want.compression_ratio(p)
+        assert (T.resolve(got) is None) == (J.resolve(want) is None)
+    cli = T.CompressionConfig.from_cli(codec)
+    assert cli.to_json() == J.CompressionConfig.from_cli(codec).to_json()
+    with pytest.raises(Exception):
+        cli.chunk = 64          # frozen
+
+
+@pytest.mark.parametrize("form", [None, "", "none", "NONE ", "int8",
+                                  '{"codec": "topk", "topk_frac": 0.1}',
+                                  "identity"])
+def test_cli_forms_and_resolve_match_reference(form):
+    got, want = T.CompressionConfig.from_cli(form), \
+        J.CompressionConfig.from_cli(form)
+    assert (got is None) == (want is None)
+    if want is not None:
+        assert got.to_json() == want.to_json()
+    rg, rw = T.resolve(form), J.resolve(form)
+    assert (rg is None) == (rw is None)
+    if rw is not None:
+        assert rg.to_json() == rw.to_json()
+    cfg = T.CompressionConfig(codec="fp8")
+    assert T.CompressionConfig.from_cli(cfg) is cfg and T.resolve(cfg) is cfg
+
+
+@pytest.mark.parametrize("kw", [dict(codec="int2"), dict(chunk=1),
+                                dict(codec="int4", chunk=255),
+                                dict(codec="topk", topk_frac=0.0),
+                                dict(codec="topk", topk_frac=1.5)])
+def test_config_validation_matches_reference(kw):
+    with pytest.raises(ValueError) as want:
+        J.CompressionConfig(**kw)
+    with pytest.raises(ValueError) as got:
+        T.CompressionConfig(**kw)
+    assert str(got.value) == str(want.value)
+
+
+def test_registry_covers_config_names():
+    assert set(T.CODECS) == set(T.CODEC_NAMES)
+    with pytest.raises(ValueError, match="unknown codec"):
+        T.get_codec("int2")
+
+
+# ---------------------------------------------------------------------------
+# the stochastic-rounding hash
+# ---------------------------------------------------------------------------
+
+_IDX = np.array([0, 1, 2, 255, 256, 2 ** 31 - 2, 2 ** 31 - 1, 2 ** 31,
+                 2 ** 31 + 1, 2 ** 32 - 257, 2 ** 32 - 2, 2 ** 32 - 1,
+                 123456789, 3000000000], np.uint64)
+
+
+@pytest.mark.parametrize("seed,t", [(0, 0), (0, 1), (3, 9), (7, 3),
+                                    (12345, 2 ** 31 - 1), (2 ** 32 - 1, 5)])
+def test_sr_key_and_bits_bitwise(seed, t):
+    key = tref.sr_key(seed, t)
+    want_key = jref.sr_key(np.uint32(seed), np.uint32(t))
+    assert key == int(want_key) and key & 1
+    want = np.asarray(jref._sr_bits(want_key,
+                                    jnp.asarray(_IDX.astype(np.uint32))))
+    got = tref._sr_bits(key, torch.from_numpy(_IDX.astype(np.int64)))
+    assert got.dtype == torch.int64
+    assert np.array_equal(got.numpy(), want.astype(np.int64))
+
+
+@pytest.mark.parametrize("R,C,off", [(3, 32, 0), (4, 256, 2 ** 23 - 2),
+                                     (5, 250, 17179868), (2, 7, -3)])
+def test_element_index_wraps_as_the_references_int32(R, C, off):
+    """((row + row_offset) * C + col) mod 2^32, across 2^31 and 2^32."""
+    rows = np.arange(R, dtype=np.int64)[:, None] + off
+    want = (rows * C + np.arange(C)[None, :]) % (1 << 32)
+    got = tref.element_index(R, C, off, "cpu").numpy()
+    assert np.array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# quantize_ef_ref against the reference (and its interpret-mode kernel)
+# ---------------------------------------------------------------------------
+
+def _quant_inputs(shape, with_err, case):
+    R, C = shape
+    x = _rows(R, C, 11 + R * C)
+    if case == "zero-rows":
+        x[::2] = 0.0
+    if case == "subnormal":
+        # entries far below amax * 2^-6 / 448: e4m3's subnormal range
+        x[:, 0] = 3.0
+        x[:, 1:] *= 1e-5
+    err = 0.1 * _rows(R, C, 12 + R * C) if with_err else None
+    if with_err and case == "zero-rows":
+        err[::2] = 0.0
+    return x, err
+
+
+def _ref_both(x, err, key, off, fmt):
+    want = jref.quantize_ef_ref(jnp.asarray(x),
+                                None if err is None else jnp.asarray(err),
+                                jnp.uint32(key), off, fmt=fmt)
+    got = tref.quantize_ef_ref(torch.from_numpy(x),
+                               None if err is None else torch.from_numpy(err),
+                               key, off, fmt=fmt)
+    return got, want
+
+
+@pytest.mark.parametrize("with_err", [False, True])
+@pytest.mark.parametrize("off", [0, 5, 2 ** 24 - 2])
+@pytest.mark.parametrize("shape", [(1, 8), (3, 32), (7, 128), (5, 256)])
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_quantize_ef_ref_bitwise(fmt, shape, off, with_err):
+    x, err = _quant_inputs(shape, with_err, None)
+    key = tref.sr_key(3, 9)
+    (q, s, r), (jq, js, jr) = _ref_both(x, err, key, off, fmt)
+    assert q.dtype == {"int8": torch.int8, "fp8": torch.float8_e4m3fn}[fmt]
+    assert s.shape == (shape[0], 1) and s.dtype == torch.float32
+    assert _same_bits(q, jq) and _same_bits(s, js) and _same_bits(r, jr)
+
+
+@pytest.mark.parametrize("case", ["zero-rows", "subnormal"])
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_quantize_ef_ref_edges_bitwise(fmt, case):
+    x, err = _quant_inputs((6, 64), True, case)
+    if case == "subnormal":
+        err = None
+    key = tref.sr_key(1, 4)
+    (q, s, r), (jq, js, jr) = _ref_both(x, err, key, 0, fmt)
+    assert _same_bits(q, jq) and _same_bits(s, js) and _same_bits(r, jr)
+    if case == "zero-rows":
+        assert bool((s[::2] == 1.0).all()) and not bool(q[::2].float().any())
+    elif fmt == "fp8":
+        v = np.abs(x[:, 1:] / s.numpy())
+        assert v.max() < 2.0 ** -6          # all in e4m3's subnormal range
+        assert bool(q[:, 1:].float().any())  # and not all flushed to zero
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("shape", [(1, 8), (3, 32), (7, 128), (5, 256)])
+def test_quantize_ef_ref_matches_interpret_kernel(fmt, shape):
+    x, err = _quant_inputs(shape, True, None)
+    key = tref.sr_key(3, 9)
+    jq, js, jr = quantize_ef_pallas(jnp.asarray(x), jnp.asarray(err),
+                                    jnp.uint32(key), jnp.int32(5), fmt=fmt,
+                                    interpret=True)
+    q, s, r = tref.quantize_ef_ref(torch.from_numpy(x),
+                                   torch.from_numpy(err), key, 5, fmt=fmt)
+    assert _same_bits(q, jq) and _same_bits(s, js)
+    np.testing.assert_allclose(r.numpy(), np.asarray(jr), rtol=0, atol=1e-6)
+
+
+def test_quantize_payload_dispatches_by_device():
+    x = torch.from_numpy(_rows(3, 16, 0))
+    got = ops.quantize_payload(x, None, fmt="fp8", key=7, row_offset=2)
+    want = tref.quantize_ef_ref(x, None, 7, 2, fmt="fp8")
+    assert all(_same_bits(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="fmt"):
+        ops.quantize_payload(x, fmt="int4", key=7)
+
+
+# ---------------------------------------------------------------------------
+# codecs: payload bits, decode, the EF law
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("with_err", [False, True])
+@pytest.mark.parametrize("name", J.CODEC_NAMES)
+def test_codec_payload_and_decode_match_reference(name, with_err):
+    cfg_kw = dict(codec=name, chunk=32, topk_frac=0.2)
+    jcfg, cfg = J.CompressionConfig(**cfg_kw), T.CompressionConfig(**cfg_kw)
+    x = _rows(6, 32, 1)
+    x[1, 20:] = 0.0                                # ties in the tail
+    x[2, :4] = x[2, 4:8]                           # equal magnitudes
+    err = 0.01 * _rows(6, 32, 2) if with_err else None
+    key = tref.sr_key(7, 3)
+    jpay, jres = J.get_codec(name).compress(
+        jcfg, jnp.asarray(x), None if err is None else jnp.asarray(err),
+        jnp.uint32(key), 3, None)
+    pay, res = T.get_codec(name).compress(
+        cfg, torch.from_numpy(x), None if err is None
+        else torch.from_numpy(err), key, 3)
+    assert set(pay) == set(jpay)
+    for k in jpay:
+        assert _same_bits(pay[k], jpay[k]), k
+    assert _same_bits(res, jres)
+    hat = T.get_codec(name).decode(cfg, pay)
+    assert _same_bits(hat, J.get_codec(name).decode(jcfg, jpay))
+    want = x if err is None else x + err
+    np.testing.assert_allclose((hat + res).numpy(), want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", LOSSY)
+def test_wire_bytes_match_payload_and_padding_is_lossless(name):
+    P, chunk = 1000, 256
+    cfg = T.CompressionConfig(codec=name, chunk=chunk)
+    x = torch.from_numpy(_rows(1, P, 4).reshape(-1))
+    x2d = T.flat_to_rows(x, chunk)
+    codec = T.get_codec(name)
+    payload, resid = codec.compress(cfg, x2d, None, tref.sr_key(0, 0), 0)
+    assert sum(v.numel() * v.element_size() for v in payload.values()) \
+        == cfg.wire_bytes(P)
+    hat = codec.decode(cfg, payload).reshape(-1)
+    assert not bool(hat[P:].any()) and not bool(resid.reshape(-1)[P:].any())
+
+
+# ---------------------------------------------------------------------------
+# chunk-row plumbing
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,chunk", [((4, 7, 13), 32), ((3, 5), 32),
+                                         ((2, 64), 32), ((3, 1152), 256),
+                                         ((1, 300), 32)])
+def test_leaf_rows_roundtrip_matches_reference(shape, chunk):
+    x = np.random.default_rng(0).standard_normal(shape).astype(np.float32)
+    want = np.asarray(J.leaf_to_rows(jnp.asarray(x), chunk))
+    got = T.leaf_to_rows(torch.from_numpy(x), chunk)
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(T.rows_to_leaf(got, shape).numpy(), x)
+    bf = torch.from_numpy(x).to(torch.bfloat16)
+    assert torch.equal(T.rows_to_leaf(T.leaf_to_rows(bf, chunk), shape),
+                       bf.float())
+    flat = x.reshape(-1)
+    f2d = T.flat_to_rows(torch.from_numpy(flat), chunk)
+    assert np.array_equal(f2d.numpy(),
+                          np.asarray(J.flat_to_rows(jnp.asarray(flat),
+                                                    chunk)))
+    assert np.array_equal(T.rows_to_flat(f2d, flat.size).numpy(), flat)
+
+
+def test_init_ef_shapes_and_gating():
+    params = {"w": torch.ones(4, 3, dtype=torch.bfloat16),
+              "n": torch.tensor(2)}
+    ef = T.init_ef(params, T.CompressionConfig(codec="int8"))
+    assert ef["w"].dtype == torch.float32 and ef["w"].shape == (4, 3)
+    assert not bool(ef["w"].any()) and ef["n"] is params["n"]
+    assert T.init_ef(params, None) is None
+    assert T.init_ef(params, T.CompressionConfig(
+        codec="int8", error_feedback=False)) is None
+
+
+# ---------------------------------------------------------------------------
+# compressed_dense_mix against the reference
+# ---------------------------------------------------------------------------
+
+def _tree(n, seed):
+    rng = np.random.default_rng(seed)
+    return {"w": rng.standard_normal((n, 7, 13)).astype(np.float32),
+            "b": rng.standard_normal((n, 40)).astype(np.float32),
+            "e": rng.standard_normal((n, 2, 128)).astype(np.float32)}
+
+
+@pytest.mark.parametrize("ef_on", [True, False])
+@pytest.mark.parametrize("n,k,t", [(3, 1, 0), (5, 1, 4), (5, 2, 9)])
+@pytest.mark.parametrize("name", J.CODEC_NAMES)
+def test_compressed_dense_mix_matches_reference(name, n, k, t, ef_on):
+    kw = dict(codec=name, chunk=32, error_feedback=ef_on)
+    jcfg, cfg = J.CompressionConfig(**kw), T.CompressionConfig(**kw)
+    tree = _tree(n, 10 * n + t)
+    ef0 = {key: 0.05 * v for key, v in _tree(n, 99).items()} \
+        if ef_on else None
+    sched = jbuild(JSpec(name="base", n=n, k=k))
+    W = np.asarray(sched.W(t), np.float32)
+    jout, jef = J.compressed_dense_mix(
+        jnp.asarray(W), jax.tree.map(jnp.asarray, tree),
+        None if ef0 is None else jax.tree.map(jnp.asarray, ef0), jcfg, t)
+    ef = None if ef0 is None else {key: torch.from_numpy(v.copy())
+                                   for key, v in ef0.items()}
+    out, ef2 = T.compressed_dense_mix(
+        torch.from_numpy(W), {key: torch.from_numpy(v)
+                              for key, v in tree.items()}, ef, cfg, t)
+    for key in tree:
+        np.testing.assert_allclose(out[key].numpy(), np.asarray(jout[key]),
+                                   rtol=0, atol=1e-6)
+        if ef_on:
+            assert ef2[key] is ef[key]        # updated in place
+            assert _same_bits(ef2[key], jef[key]), key
+    assert (ef2 is None) == (jef is None)
+
+
+def test_identity_mix_is_the_plain_mix():
+    tree = {key: torch.from_numpy(v) for key, v in _tree(5, 0).items()}
+    W = torch.from_numpy(np.asarray(jbuild(JSpec(name="base", n=5,
+                                                 k=1)).W(0), np.float32))
+    cfg = T.CompressionConfig(chunk=32)
+    out, ef = T.compressed_dense_mix(W, tree, T.init_ef(tree, cfg), cfg, 0)
+    plain = mix(W, tree)
+    jplain = jmix(jnp.asarray(W.numpy()),
+                  jax.tree.map(lambda v: jnp.asarray(v.numpy()), tree))
+    for key in tree:
+        torch.testing.assert_close(out[key], plain[key], rtol=0, atol=1e-6)
+        np.testing.assert_allclose(plain[key].numpy(),
+                                   np.asarray(jplain[key]), rtol=0,
+                                   atol=1e-6)
+        assert not bool(ef[key].any())
+
+
+def test_mix_passes_non_float_tensors_and_is_deterministic_in_t():
+    tree = {"a": torch.from_numpy(_rows(5, 64, 3)),
+            "step": torch.tensor([1, 2, 3, 4, 5])}
+    W = torch.from_numpy(np.asarray(jbuild(JSpec(name="base", n=5,
+                                                 k=1)).W(0), np.float32))
+    cfg = T.CompressionConfig(codec="int8", chunk=32, error_feedback=False)
+    o1, _ = T.compressed_dense_mix(W, tree, None, cfg, 5)
+    o2, _ = T.compressed_dense_mix(W, tree, None, cfg, 5)
+    o3, _ = T.compressed_dense_mix(W, tree, None, cfg, 6)
+    assert o1["step"] is tree["step"]
+    assert torch.equal(o1["a"], o2["a"]) and not torch.equal(o1["a"],
+                                                             o3["a"])

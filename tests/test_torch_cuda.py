@@ -11,7 +11,9 @@ one bf16 rounding step of the element, since the plain version rounds
 its f32 result to bf16 once and the kernel once.  Its autograd Function's
 gradients equal plain autograd bit for bit: the backward is the same
 plain recompute.  The fused DSGD kernel equals its plain version bit for
-bit: it takes the same f32 rounding steps in the same order.
+bit: it takes the same f32 rounding steps in the same order.  So does
+the quantize+EF kernel, on q, scale and the residual, in int8 and fp8,
+with and without err: its payload is a bitwise contract.
 """
 import pytest
 import torch
@@ -20,6 +22,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import (SUPPORTED_DIMS,
                                                  flash_attention_fwd)
 from repro_torch.kernels.fused_dsgd import fused_dsgd
+from repro_torch.kernels.quantized_gossip import quantize_ef
 
 pytestmark = pytest.mark.cuda
 
@@ -130,3 +133,90 @@ def test_flash_autograd_gradients_equal_plain_autograd(card, dtype, window):
     torch.cuda.synchronize()
     for a, b in zip(*grads):
         assert a.dtype == dtype and torch.equal(_bits(a), _bits(b))
+
+
+def _quant_case(card, R, C, seed, case):
+    g = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn(R, C, generator=g, device=card)
+    err = 0.1 * torch.randn(R, C, generator=g, device=card)
+    if case == "zero-rows":
+        x[::3] = 0.0
+        err[::3] = 0.0
+    elif case == "subnormal":
+        # |s| < amax * 2^-6 / 448: e4m3's subnormal range after scaling
+        x[:, 0] = 3.0
+        x[:, 1:] *= 1e-5
+        err.zero_()
+    return x, err
+
+
+@pytest.mark.parametrize("with_err", [False, True])
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("R,C,off,case", [
+    (15, 256, 0, None), (1001, 256, 7, None), (13, 2, 0, None),
+    (9, 32, 0, None), (21, 250, 3, None), (24, 64, 0, "zero-rows"),
+    (40, 256, 0, "subnormal"),
+    (64, 256, (1 << 23) - 32, None),     # index crosses 2^31
+    (64, 256, (1 << 24) - 32, None),     # index crosses 2^32
+])
+def test_quantize_ef_matches_plain_bitwise(card, fmt, with_err, R, C, off,
+                                           case):
+    x, err = _quant_case(card, R, C, R * C, case)
+    if not with_err:
+        err = None
+    before = quantize_ef.launches
+    got = ops.quantize_payload(x, err, fmt=fmt, key=ref.sr_key(3, 9),
+                               row_offset=off)
+    torch.cuda.synchronize()
+    assert quantize_ef.launches == before + 1
+    want = ref.quantize_ef_ref(x, err, ref.sr_key(3, 9), off, fmt=fmt)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def test_quantize_ef_rejects_what_it_does_not_take(card):
+    x = torch.randn(4, 32, device=card)
+    with pytest.raises(TypeError, match="float32"):
+        quantize_ef(x.to(torch.bfloat16), None, 1, fmt="int8")
+    with pytest.raises(ValueError, match="shape"):
+        quantize_ef(x, torch.randn(4, 16, device=card), 1, fmt="int8")
+    with pytest.raises(ValueError, match="C >= 2"):
+        quantize_ef(x[:, :1].contiguous(), None, 1, fmt="int8")
+    with pytest.raises(ValueError, match="shape"):
+        quantize_ef(x.reshape(2, 2, 32), None, 1, fmt="int8")
+    with pytest.raises(ValueError, match="contiguous"):
+        quantize_ef(x.t(), None, 1, fmt="fp8")
+    with pytest.raises(ValueError, match="CUDA"):
+        quantize_ef(x, x.cpu(), 1, fmt="fp8")
+    with pytest.raises(ValueError, match="fmt"):
+        quantize_ef(x, None, 1, fmt="int4")
+
+
+def test_compressed_mix_on_the_card_launches_once_per_tensor(card):
+    from repro_torch.compress import CompressionConfig, compressed_dense_mix
+    g = torch.Generator(device=card).manual_seed(4)
+    tree = {"a": torch.randn(3, 5, 70, generator=g, device=card),
+            "b": torch.randn(3, 300, generator=g,
+                             device=card).to(torch.bfloat16)}
+    W = torch.tensor([[0.5, 0.5, 0.0], [0.5, 0.25, 0.25],
+                      [0.0, 0.25, 0.75]], device=card)
+    cfg = CompressionConfig(codec="int8", chunk=64)
+    ef = {k: torch.zeros_like(v, dtype=torch.float32)
+          for k, v in tree.items()}
+    ef_cpu = {k: v.cpu() for k, v in ef.items()}
+    before = quantize_ef.launches
+    out, _ = compressed_dense_mix(W, tree, ef, cfg, 3)
+    torch.cuda.synchronize()
+    assert quantize_ef.launches == before + 2
+    want, _ = compressed_dense_mix(W.cpu(), {k: v.cpu()
+                                             for k, v in tree.items()},
+                                   ef_cpu, cfg, 3)
+    for k in tree:
+        assert torch.equal(ef[k].cpu().view(torch.int32),
+                           ef_cpu[k].view(torch.int32))
+        diff = (out[k].float().cpu() - want[k].float()).abs()
+        assert out[k].dtype == tree[k].dtype
+        tol = 1e-6 + (2.0 ** -7 * want[k].float().abs()
+                      if out[k].dtype == torch.bfloat16 else 0.0)
+        assert bool((diff <= tol).all())

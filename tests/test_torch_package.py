@@ -15,6 +15,7 @@ import repro_torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.quantized_gossip import quantize_ef
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -40,7 +41,9 @@ def test_importing_every_module_leaves_jax_and_repro_out():
                             "PATH": "/usr/bin:/bin"},
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert "repro_torch.launch.serve" in _modules()
+    assert {"repro_torch.launch.serve", "repro_torch.compress.codecs",
+            "repro_torch.compress.config", "repro_torch.compress.mixing",
+            "repro_torch.kernels.quantized_gossip"} <= set(_modules())
 
 
 def test_sources_import_no_jax_and_no_repro():
@@ -116,10 +119,25 @@ def test_cpu_attention_does_not_touch_the_kernel_counter():
     assert flash_attention_fwd.launches == before
 
 
+def test_cpu_quantize_does_not_touch_the_kernel_counter():
+    from repro_torch.compress import CompressionConfig, compressed_dense_mix
+    x = {"w": torch.randn(3, 40)}
+    before = quantize_ef.launches
+    ops.quantize_payload(torch.randn(4, 32), torch.randn(4, 32), fmt="int8",
+                         key=3)
+    for codec in ("int8", "fp8"):
+        compressed_dense_mix(torch.eye(3), x, None,
+                             CompressionConfig(codec=codec, chunk=32), 0)
+    assert quantize_ef.launches == before
+
+
 def test_kernel_wrapper_takes_cuda_tensors_only():
     q = torch.randn(1, 3, 4, 16)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_fwd(q, q, q)
+    x = torch.randn(4, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        quantize_ef(x, None, 3, fmt="int8")
 
 
 def test_kernels_build_into_the_checkout_only(tmp_path):
@@ -146,7 +164,8 @@ def test_each_library_hashes_its_own_source(tmp_path):
     shutil.copytree(PKG, checkout / "src" / "repro_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
     names = sorted(f.stem for f in (PKG / "kernels" / "csrc").glob("*.cu"))
-    assert {"flash_attention", "fused_dsgd"} <= set(names)
+    assert {"flash_attention", "fused_dsgd",
+            "quantized_gossip"} <= set(names)
     code = ("from repro_torch.kernels import _build\n"
             f"for name in {names!r}:\n"
             "    print(_build.library_path(name))\n")

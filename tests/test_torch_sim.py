@@ -11,6 +11,24 @@ reference's scan and loop backends, on the CPU.
   abs), the model test's tolerance for a stack of layers.  The
   reference's final parameters come from its own train step
   (``_make_train_step``, what its loop backend runs).
+- Compressed gossip through the engine: the paper MLP (n = 9 on Base-3)
+  with int8, fp8, int4 and top-k for 30 steps, and reduced gemma3-1b
+  (n = 3 on Base-2, DSGD-momentum, int8 with error feedback) for 3
+  steps, against the reference's scan backend: losses within 1e-3, the
+  tolerance DESIGN.md Sec. 13 gives compressed end-to-end parity (an
+  ulp of difference upstream can flip a stochastic-rounding step).  fp8
+  is held to 1e-2 (1%, the reference's own int8-vs-uncompressed gate):
+  under ``jit`` the reference contracts the residual ``s - q * scale``
+  into an FMA, one ulp off the unfused residual that its eager code and
+  the port compute, and fp8's residual carries up to 1/16 of each value,
+  so flips start by step 3 (a one-ulp change of one weight moves the
+  port's own 30-step fp8 losses by 4.2e-4).  Step by step, from the same
+  state, the methods agree to 1e-6 (tests/test_torch_decentralized.py).
+  The
+  reference runs the gemma model on the port's flat layout (one tensor
+  per block, restacked inside its loss), because compression chunks and
+  indexes each tensor on its own: on the reference's stacked blocks the
+  payload bits would differ by design (``repro_torch.compress.mixing``).
 - The synthetic data of the port's numpy copy equals the reference's
   bit for bit.
 """
@@ -21,6 +39,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as jget_config
+from repro.compress import CompressionConfig as JCompressionConfig
 from repro.configs.paper_mlp import MLPConfig as JMLPConfig
 from repro.data import synthetic as jsynthetic
 from repro.models import mlp as jmlp
@@ -28,8 +47,9 @@ from repro.models import model as JM
 from repro.optim.decentralized import make_method as jmake
 from repro.sim import engine as jengine
 from repro.topology import TopologySpec as JSpec
+from repro_torch.compress import CompressionConfig
 from repro_torch.configs import get_config
-from repro_torch.convert import tree_from_jax
+from repro_torch.convert import _BLOCKS, tree_from_jax
 from repro_torch.data import synthetic
 from repro_torch.models import mlp
 from repro_torch.models import model as TM
@@ -93,10 +113,16 @@ def test_port_backends_are_one_loop_and_unported_options_raise():
     np.testing.assert_array_equal(scan.losses, loop.losses)
     assert scan.test_acc.size == 0 and scan.eval_steps.size == 0
     assert simulate_decentralized(**{**kw, "steps": 0}).losses.size == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP") as exc:
         simulate_decentralized(failure=object(), **kw)
+    assert "compress" not in str(exc.value)
     with pytest.raises(ValueError, match="backend"):
         simulate_decentralized(backend="vmap", **kw)
+    # a compressed method's state rides through the loop
+    comp = simulate_decentralized(**{**kw, "method": make_method(
+        "dsgdm", compression="int8")})
+    assert comp.state["ct"] == 4 and set(comp.state) == {"u", "ct", "ef"}
+    assert comp.state["ef"]["l0.w"].dtype == torch.float32
 
 
 def test_reduced_gemma_training_matches_reference():
@@ -141,6 +167,74 @@ def test_reduced_gemma_training_matches_reference():
     assert set(got.params) == set(want_params)
     for k, w in want_params.items():
         assert float((got.params[k] - w).abs().max()) <= 1e-4, k
+
+
+@pytest.mark.parametrize("name,codec", [("dsgdm", "int8"), ("dsgd", "fp8"),
+                                        ("dsgdm", "int4"), ("dsgd", "topk")])
+def test_compressed_mlp_simulation_matches_reference(name, codec):
+    data, jparams, batches = _mlp_setup()
+    kw = dict(codec=codec, chunk=64, topk_frac=0.1)
+    got = simulate_decentralized(
+        loss_fn=mlp.loss_fn,
+        params=tree_from_jax(jax.tree.map(np.asarray, jparams)),
+        method=make_method(name, compression=CompressionConfig(**kw)),
+        schedule=TopologySpec("base", N, K), batches=batches, steps=STEPS,
+        eta=ETA, device="cpu")
+    want = jengine.simulate_decentralized(
+        loss_fn=jmlp.loss_fn, params=jparams,
+        method=jmake(name, compression=JCompressionConfig(**kw)),
+        schedule=JSpec("base", N, K),
+        batches=lambda r: tuple(map(jnp.asarray, batches(r))),
+        steps=STEPS, eta=ETA)
+    np.testing.assert_allclose(got.losses, want.losses, rtol=0,
+                               atol=1e-2 if codec == "fp8" else 1e-3)
+    assert got.state["ct"] == STEPS
+
+
+def _restack(flat: dict, like):
+    """The reference's parameter pytree ``like`` rebuilt from the port's
+    flat layout: each ``stack.blocks.<pos>`` leaf is the stack of the
+    port's per-block tensors (the inverse of ``tree_from_jax``)."""
+    def leaf(path, x):
+        name = ".".join(str(getattr(p, "key", getattr(p, "idx", None)))
+                        for p in path)
+        m = _BLOCKS.match(name)
+        if m is None:
+            return flat[name]
+        head, pos, rest = m.groups()
+        return jnp.stack([flat[f"{head}.{b}.{pos}.{rest}"]
+                          for b in range(x.shape[0])])
+    return jax.tree_util.tree_map_with_path(leaf, like)
+
+
+def test_reduced_gemma_compressed_training_matches_reference():
+    n, steps, eta, B, T = 3, 3, 0.01, 2, 16
+    jcfg = jget_config("gemma3-1b").reduced()
+    cfg = get_config("gemma3-1b").reduced()
+    jparams = JM.init(jcfg, jax.random.PRNGKey(0), jnp.float32)
+    flat = tree_from_jax(jax.tree.map(np.asarray, jparams))
+    jflat = {k: jnp.asarray(v.numpy()) for k, v in flat.items()}
+    ccfg = dict(codec="int8", chunk=256, error_feedback=True, seed=0)
+
+    def batches(step):
+        b = synthetic.token_batches(step, batch=n * B, seq=T,
+                                    vocab=cfg.vocab_size)
+        return {k: v.reshape(n, B, T) for k, v in b.items()}
+
+    got = simulate_decentralized(
+        loss_fn=lambda p, b: TM.loss_fn(cfg, p, b)[0], params=flat,
+        method=make_method("dsgdm", compression=CompressionConfig(**ccfg)),
+        schedule=TopologySpec("base", n, 1), batches=batches, steps=steps,
+        eta=eta, device="cpu")
+    want = jengine.simulate_decentralized(
+        loss_fn=lambda p, b: JM.loss_fn(jcfg, _restack(p, jparams), b)[0],
+        params=jflat,
+        method=jmake("dsgdm", compression=JCompressionConfig(**ccfg)),
+        schedule=JSpec("base", n, 1),
+        batches=lambda r: jax.tree.map(jnp.asarray, batches(r)),
+        steps=steps, eta=eta)
+    np.testing.assert_allclose(got.losses, want.losses, rtol=0, atol=1e-3)
+    assert got.state["ct"] == steps and set(got.state["ef"]) == set(flat)
 
 
 @pytest.mark.parametrize("seed", [0, 5])

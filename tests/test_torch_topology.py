@@ -74,3 +74,17 @@ def test_unported_artifacts_raise():
         sched.as_ppermute_plan()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sched.as_padded(4, 8)
+
+
+@pytest.mark.parametrize("name,n,k", [("ring", 8, None), ("base", 3, 1),
+                                      ("base", 12, 1), ("one_peer_exp", 8,
+                                                        None),
+                                      ("one_peer_exp", 16, None)])
+def test_bytes_per_node_per_round_matches_reference(name, n, k):
+    """The send-side volume the compressed wire accounting multiplies by
+    ``CompressionConfig.wire_bytes`` (DESIGN.md Sec. 13)."""
+    got = build_schedule(TopologySpec(name=name, n=n, k=k))
+    want = jbuild(JSpec(name=name, n=n, k=k))
+    for param_bytes in (1, 100, 4 * 10 ** 6, 1_003_622_400):
+        assert got.bytes_per_node_per_round(param_bytes) \
+            == want.bytes_per_node_per_round(param_bytes)
