@@ -25,18 +25,35 @@ Phases (any failure exits non-zero and prints no result line):
      PyTorch call computes the same function (``torch._fused_sgd_`` has
      no per-row pre-scale), so its ``library_ms`` is null.
    - Quantize + EF21 residual (``[quantize]``), at the compressed
-     training path's chunk-row shapes (the same four tensors as (rows,
+     training path's chunk-row shapes (the embedding and three stacked
+     reference leaves, each node's four blocks back to back, as (rows,
      256) f32), int8 and fp8, with and without err, plus rows that are
      not a multiple of a block's, C in {2, 32, 250}, all-zero rows, an
      element index across 2^31 and one across 2^32, and fp8 entries in
      e4m3's subnormal range: q, scale and the residual bit for bit.  No
      PyTorch call computes hash stochastic rounding with a residual, so
      its ``library_ms`` is null.
+   - Paged flash attention (``[paged]``), at the continuous serving
+     path's shapes (8 slots with ragged positions, page size 16, 553
+     pages of one kv head of 256, block table 8 x 69), decode (Tq = 1)
+     and verify (Tq = 5) rows, local and global layers, plus page sizes
+     8, 32 and 64, in bf16 and f32, with NaN in scratch page 0 and in
+     every page no slot names: within flash attention's tolerance of the
+     plain version.  The verify window equals five one-row calls bit for
+     bit.  ``library_ms`` times ``scaled_dot_product_attention`` on the
+     already-gathered dense view (no PyTorch call takes a block table).
 3. Serving: full-width gemma3-1b in bf16 (random weights from a seed),
    ``make_engine(batch=4, prompt_len=1024, max_new=64)``, one warm-up
    generation, then one timed greedy generation whose kernel launches
    are counted (26 layers x 64 model passes); then prefill and the 63
    decode steps each alone, timed, their launches counted apart.
+   ``[continuous]``: the continuous-batching engine over a paged cache,
+   the same weights: a seeded Poisson trace of 32 requests (rate 0.5,
+   prompts 64-1024 tokens) through 8 slots, page size 16, 64 greedy
+   tokens each; the paged kernel's launches counted (26 per decode
+   step), decode and prefill timed by CUDA events.
+   ``[continuous-spec]``: its first 16 requests with self-speculative
+   decoding (k = 4, a draft of 2 of 4 pattern blocks, prefill batch 2).
 4. Training: full-width gemma3-1b in bf16 as n = 3 nodes on the Base-2
    graph, DSGD-momentum (0.9, eta 0.01) through ``simulate_decentralized``,
    2 sequences of 1024 tokens per node; one warm-up step, then 6 timed
@@ -46,8 +63,9 @@ Phases (any failure exits non-zero and prints no result line):
    update and mix.
    ``[train-compress]``: the same with int8 compressed gossip (chunk
    256, error feedback, seed 0), after one warm-up step, 6 timed steps
-   whose launches are counted (one quantize+EF and one fused update per
-   parameter tensor and 26 x 3 flash forwards per step), split into
+   whose launches are counted (one quantize+EF per reference leaf, one
+   fused update per parameter tensor and 26 x 3 flash forwards per
+   step), split into
    forward+backward, update and compressed mix, with the peak memory and
    the wire bytes per node per round against f32.
 5. The port on the card against the port on the CPU: reduced gemma3-1b
@@ -60,11 +78,15 @@ Phases (any failure exits non-zero and prints no result line):
    order); 20 steps of compressed DSGD on the paper MLP (n = 21, Base-3)
    with int8, fp8, int4 and top-k: losses within 1e-3, DESIGN.md Sec.
    13's compressed end-to-end tolerance.
+   ``[continuous-cpu-vs-card]``: the continuous engine on reduced
+   gemma3-1b in f32 over a short trace, plain and with speculate_k = 2:
+   greedy tokens and statistics equal on the CPU and the card.
 6. Consensus on the card: ``optim.mix`` over one period of Base-2 at
    n = 3 and Base-3 at n = 21 reaches a relative consensus error
    <= 1e-10; the ring's after as many rounds is printed beside it.
-7. ``--profile`` only: profiler traces of one decode step and one
-   training step, kernel time by name (what bounds a step).
+7. ``--profile`` only: profiler traces of one decode step, one
+   continuous (paged) decode step and one training step, kernel time by
+   name (what bounds a step).
 
 The line before the last is a JSON object with one entry per kernel
 and main-path shape; the last line is
@@ -102,10 +124,19 @@ DSGD_RAGGED = (257, 513)
 DSGD_ABOVE_2_31 = (2, (1 << 30) + 3)     # bf16, ~21 GB over five tensors
 DSGD_SLICE = 1 << 27                     # columns per plain-version slice
 # the compressed training path: int8 payloads in (rows, 256) chunk rows,
-# rows = nodes x ceil(per-node size / 256)
+# one payload per reference leaf (the embedding, or one pattern
+# position's tensor stacked over the 4 blocks), rows = nodes x
+# ceil(per-node leaf size / 256)
 COMPRESS_CODEC, CHUNK = "int8", 256
-QUANT_SHAPES = tuple((name, (-(-cols // CHUNK) * rows, CHUNK))
-                     for name, (rows, cols) in DSGD_SHAPES)
+QUANT_SHAPES = tuple(
+    (name, (-(-blocks * cols // CHUNK) * rows, CHUNK))
+    for (name, (rows, cols)), blocks in zip(DSGD_SHAPES, (1, 4, 4, 4)))
+# the continuous serving path: 8 slots, pages of 16 positions, prompts up
+# to 1024 tokens, 64 new tokens, room for a 4-token speculative window
+CONT_SLOTS, CONT_PAGE, CONT_NEW, CONT_K, CONT_DRAFT = 8, 16, 64, 4, 2
+CONT_REQUESTS, CONT_RATE, CONT_SPEC_REQUESTS = 32, 0.5, 16
+CONT_MIN_PROMPT = 64
+CONT_MAXP = -(-(PROMPT + CONT_NEW + CONT_K) // CONT_PAGE)      # 69 pages
 QUANT_EDGES = (  # (name, (R, C), row_offset, case)
     ("ragged rows", (1001, 256), 7, None),
     ("C=2", (13, 2), 0, None), ("C=32", (9, 32), 0, None),
@@ -183,7 +214,8 @@ def phase_build(torch):
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import _build
-    names = ("flash_attention", "fused_dsgd", "quantized_gossip")
+    names = ("flash_attention", "fused_dsgd", "paged_flash_attention",
+             "quantized_gossip")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         secs = dict(zip(names, pool.map(_build.build, names)))
@@ -501,6 +533,304 @@ def phase_quantize_kernels(torch, dev):
     return entries
 
 
+def paged_inputs(torch, dev, dtype, gen, *, ps, Tq, q0):
+    """The continuous path's paged attention operands for slot positions
+    ``q0`` (a list): q (B, Tq, 4, 256), pools of 8 x maxp + 1 pages
+    (maxp = ceil(1092 / ps)), each slot's pages distinct, and NaN in
+    scratch page 0 and in every page no slot names."""
+    B, maxp = len(q0), -(-(PROMPT + CONT_NEW + CONT_K) // ps)
+    P = CONT_SLOTS * maxp + 1
+    q = torch.randn(B, Tq, HEADS, HEAD_DIM, generator=gen, device=dev)
+    kp = torch.randn(P, ps, KV_HEADS, HEAD_DIM, generator=gen, device=dev)
+    vp = torch.randn(P, ps, KV_HEADS, HEAD_DIM, generator=gen, device=dev)
+    table = torch.zeros(B, maxp, dtype=torch.int32)
+    used = torch.zeros(P, dtype=torch.bool)
+    perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(ps))
+    for b, start in enumerate(q0):
+        n = -(-(start + Tq) // ps)           # pages the slot has written
+        table[b, :n] = perm[b * maxp:b * maxp + n] + 1
+        used[table[b, :n].long()] = True
+    kp[~used.to(dev)] = float("nan")
+    vp[~used.to(dev)] = float("nan")
+    q_start = torch.tensor(q0, dtype=torch.int32, device=dev)
+    return (q.to(dtype), kp.to(dtype), vp.to(dtype), table.to(dev),
+            q_start)
+
+
+def phase_paged_kernels(torch, dev):
+    """Paged flash attention vs plain on the card (``check_close``) at the
+    continuous path's shapes and page sizes 8, 16, 32, 64; the verify
+    window bitwise equal to one-row calls; returns (phase, JSON entry)
+    for each timed bf16 path shape (page size 16)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_flash_attention import \
+        paged_flash_attention_fwd as paged
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    # ragged slot positions, as mid-trace: fresh, page-boundary, past the
+    # local window, near the end of the cache
+    q0 = [64, 207, 351, 512, 640, 801, 1000, PROMPT + CONT_NEW - 2]
+    entries = []
+    print("[paged] case dtype max_abs_err worst_err/tol")
+    for ps in (CONT_PAGE, 8, 32, 64):
+        for Tq in (1, CONT_K + 1):
+            for layer, window in (("local", LOCAL_WINDOW), ("global", None)):
+                for dtype in (torch.bfloat16, torch.float32):
+                    dname = str(dtype).split(".")[1]
+                    q, kp, vp, table, qs = paged_inputs(
+                        torch, dev, dtype, gen, ps=ps, Tq=Tq, q0=q0)
+                    kw = dict(q_start=qs, k_valid_len=qs + Tq,
+                              window=window)
+                    want = ref.paged_sdpa_ref(q, kp, vp, table, **kw)
+                    got = paged(q, kp, vp, table, **kw)
+                    torch.cuda.synchronize()
+                    err, worst, ok = check_close(torch, got, want)
+                    kind = "decode" if Tq == 1 else "verify"
+                    name = f"{kind},{layer},ps={ps}"
+                    print(f"[paged] {name} {dname} {err:.3e} {worst:.3f}")
+                    if not ok or bool(got.isnan().any()):
+                        raise SystemExit(f"paged attention {name} {dname}: "
+                                         f"max abs err {err}, {worst} x "
+                                         f"its tolerance")
+                    if Tq > 1:      # the row contract, bit for bit
+                        for i in range(Tq):
+                            one = paged(q[:, i:i + 1], kp, vp, table,
+                                        q_start=qs + i,
+                                        k_valid_len=qs + i + 1,
+                                        window=window)
+                            if not torch.equal(_bits(torch, one), _bits(
+                                    torch, got[:, i:i + 1])):
+                                raise SystemExit(
+                                    f"paged attention {name} {dname}: "
+                                    f"verify row {i} differs from its "
+                                    f"one-row call")
+                        print(f"[paged]   verify window == {Tq} one-row "
+                              f"calls bitwise")
+                    if not (ps == CONT_PAGE and dtype == torch.bfloat16):
+                        continue
+                    entries.append(paged_entry(torch, dev, flush, F, ref,
+                                               paged, kind, layer, window,
+                                               q, kp, vp, table, qs, err))
+    del flush
+    torch.cuda.empty_cache()
+    return entries
+
+
+def paged_entry(torch, dev, flush, F, ref, paged, kind, layer, window, q,
+                kp, vp, table, qs, err):
+    """The timed JSON entry of one bf16 path shape."""
+    B, Tq = q.shape[:2]
+    kw = dict(q_start=qs, k_valid_len=qs + Tq, window=window)
+    # the yardstick: SDPA on the dense view gathered beforehand (no
+    # PyTorch call takes a block table), keys past k_valid zeroed
+    S = table.shape[1] * kp.shape[1]
+    kpos = torch.arange(S, device=dev)
+    valid = kpos[None, :] < (qs + Tq)[:, None].long()             # (B, S)
+    kd = torch.where(valid[..., None, None],
+                     kp[table.long()].reshape(B, S, KV_HEADS, -1), 0)
+    vd = torch.where(valid[..., None, None],
+                     vp[table.long()].reshape(B, S, KV_HEADS, -1), 0)
+    qpos = qs[:, None].long() + torch.arange(Tq, device=dev)       # (B, Tq)
+    mask = (kpos[None, None, :] <= qpos[..., None]) & valid[:, None, :]
+    if window:
+        mask &= kpos[None, None, :] > qpos[..., None] - window
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, kd, vd))
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask[:, None], scale=HEAD_DIM ** -0.5,
+        enable_gqa=True)
+    nbytes = flops = 0
+    for start in qs.tolist():
+        nb, fl = attention_work(B=1, Tq=Tq, H=HEADS, KV=KV_HEADS,
+                                D=HEAD_DIM, Dv=HEAD_DIM, q0=start,
+                                k_valid=start + Tq, window=window,
+                                elt=q.element_size())
+        nbytes += nb + 4 * -(-(start + Tq) // kp.shape[1])   # table reads
+        flops += fl
+    b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+    entry = {
+        "name": f"paged_flash_attention[{kind},{layer},bfloat16]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:216",
+        "launches": None,
+        "max_abs_err": err,
+        "ms": time_ms(torch, lambda: paged(q, kp, vp, table, **kw), flush),
+        "plain_ms": time_ms(torch, lambda: ref.paged_sdpa_ref(
+            q, kp, vp, table, **kw), flush),
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": time_ms(torch, lib, flush),
+    }
+    print(f"[paged] {entry['name']}: {entry['ms']:.4f} ms (bound "
+          f"{b_ms:.5f} ms by {b_by}, {nbytes} B; plain "
+          f"{entry['plain_ms']:.4f} ms; sdpa on the gathered view "
+          f"{entry['library_ms']:.4f} ms)")
+    phase = "continuous-paged" if kind == "decode" else \
+        "continuous-spec-paged"
+    return phase, entry
+
+
+def continuous_engine(torch, dev, cfg, **kw):
+    from repro_torch.models.model import PagedCacheLayout
+    from repro_torch.serve import ContinuousEngine, prompt_buckets
+    layout = PagedCacheLayout(page_size=CONT_PAGE,
+                              num_pages=CONT_SLOTS * CONT_MAXP + 1,
+                              max_pages_per_slot=CONT_MAXP)
+    return ContinuousEngine(
+        cfg, slots=CONT_SLOTS, layout=layout, max_new=CONT_NEW,
+        buckets=prompt_buckets(PROMPT, min_bucket=CONT_PAGE),
+        param_dtype=torch.bfloat16, cache_dtype=torch.bfloat16, device=dev,
+        **kw)
+
+
+def phase_continuous(torch, dev, card, params, spec=False):
+    """``[continuous]`` (or ``[continuous-spec]``): the full-width trace
+    through the continuous engine, the paged kernel's launches counted
+    from zero; returns its launches by phase."""
+    from repro_torch import trace
+    from repro_torch.kernels.paged_flash_attention import \
+        paged_flash_attention_fwd
+    from repro_torch.models.blocks import layer_caches
+    from repro_torch.serve import poisson_trace
+
+    cfg = params.cfg
+    tag = "[continuous-spec]" if spec else "[continuous]"
+    reqs = poisson_trace(CONT_REQUESTS, rate=CONT_RATE, seed=0,
+                         min_prompt=CONT_MIN_PROMPT, max_prompt=PROMPT,
+                         vocab_size=cfg.vocab_size)
+    kw = {}
+    if spec:
+        reqs = reqs[:CONT_SPEC_REQUESTS]
+        kw = dict(speculate_k=CONT_K, draft_layers=CONT_DRAFT,
+                  prefill_batch=2)
+    eng = continuous_engine(torch, dev, cfg, **kw)
+    pool_bytes = sum(t.numel() * t.element_size()
+                     for c in layer_caches(eng.pools) for t in c.values())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    paged_flash_attention_fwd.launches = 0
+    t0 = time.perf_counter()
+    with trace.cuda_marks() as marks:
+        out = eng.run(params, reqs)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = paged_flash_attention_fwd.launches
+    peak = torch.cuda.max_memory_allocated()
+    st = out["stats"]
+    n_tok = st["generated_tokens"]
+    if st["requests"] != len(reqs) or n_tok != len(reqs) * CONT_NEW or any(
+            len(r.tokens) != CONT_NEW or not all(0 <= t < cfg.vocab_size
+                                                 for t in r.tokens)
+            for r in out["results"].values()):
+        raise SystemExit(f"{tag} the trace did not drain: {st}")
+    steps = st["dispatches"]["decode"]
+    prologue, per_block = len(cfg.prologue), len(cfg.pattern)
+    per_step = cfg.num_layers + (
+        CONT_K * (prologue + CONT_DRAFT * per_block) if spec else 0)
+    if launches != steps * per_step:
+        raise SystemExit(f"{tag} paged attention launched {launches} times "
+                         f"in {steps} decode steps, expected "
+                         f"{steps * per_step}")
+    spans = {}
+    for (name, a), (end, b) in zip(marks[::2], marks[1::2]):
+        if end != "end":
+            raise SystemExit(f"{tag} unexpected marks {name}, {end}")
+        spans.setdefault(name, []).append(a.elapsed_time(b))
+    dec = spans.pop("decode")
+    print(f"{tag} {card}: {len(reqs)} requests, {n_tok} tokens in {steps} "
+          f"decode steps; wall {wall:.3f} s, {n_tok / wall:.1f} generated "
+          f"tokens/s")
+    print(f"{tag} decode {statistics.median(dec):.3f} ms/step (median of "
+          f"{len(dec)}, CUDA events; min {min(dec):.3f}, max "
+          f"{max(dec):.3f}); {launches} paged attention launches (= "
+          f"{per_step} per step x {steps})")
+    for name in sorted(spans, key=lambda n: int(n.split("_")[1]
+                                                .split("x")[0])):
+        print(f"{tag} {name}: {len(spans[name])} calls, median "
+              f"{statistics.median(spans[name]):.3f} ms")
+    print(f"{tag} slot utilization {st['slot_utilization']:.4f}, waits "
+          f"p50 {st['wait_p50_steps']:.3f} / p99 {st['wait_p99_steps']:.3f} "
+          f"steps, executables {st['executables']} (buckets "
+          f"{st['buckets_used']}); pools {pool_bytes / 1e6:.1f} MB; peak "
+          f"memory {peak / 2**30:.2f} GiB (max_memory_allocated)")
+    if spec:
+        sp = st["speculative"]
+        print(f"{tag} k={CONT_K}, draft {CONT_DRAFT} of {cfg.num_blocks} "
+              f"blocks: {sp['rounds']} slot rounds, acceptance "
+              f"{sp['acceptance_rate']:.4f} ({sp['accepted']} of "
+              f"{sp['drafted']}), {sp['tokens_per_round']:.4f} tokens per "
+              f"round")
+    del eng
+    torch.cuda.empty_cache()
+    return {"continuous-spec-paged" if spec else "continuous-paged":
+            launches}
+
+
+def phase_continuous_cpu_vs_card(torch, dev):
+    """The continuous engine on the card against the CPU, plain and
+    speculative; and a verify pass's logits against one-row passes' on
+    the card (what the kernel's row contract does not cover)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.model import PagedCacheLayout
+    from repro_torch.serve import ContinuousEngine, poisson_trace
+
+    cfg = get_config("gemma3-1b").reduced()
+    cpu = M.init(cfg, seed=3, dtype=torch.float32, device="cpu")
+    card = M.Model(cfg, dtype=torch.float32, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    reqs = poisson_trace(10, rate=0.8, seed=4, min_prompt=3, max_prompt=30,
+                         vocab_size=cfg.vocab_size)
+    layout = PagedCacheLayout(page_size=8, num_pages=4 * 6 + 1,
+                              max_pages_per_slot=6)
+    toks = {}
+    for kw in ({}, dict(speculate_k=2, draft_layers=0)):
+        out = {}
+        for name, params, d in (("cpu", cpu, "cpu"), ("card", card, dev)):
+            eng = ContinuousEngine(cfg, slots=4, layout=layout, max_new=8,
+                                   buckets=(8, 16, 32),
+                                   param_dtype=torch.float32,
+                                   cache_dtype=torch.float32, device=d, **kw)
+            out[name] = eng.run(params, reqs)
+        mode = "speculate_k=2" if kw else "plain"
+        same = all(out["card"]["results"][r].tokens == res.tokens
+                   for r, res in out["cpu"]["results"].items())
+        stats = out["card"]["stats"] == out["cpu"]["stats"]
+        print(f"[continuous-cpu-vs-card] reduced gemma3-1b f32, {mode}: "
+              f"tokens equal {same}, stats equal {stats}")
+        if not (same and stats):
+            raise SystemExit(f"continuous engine {mode}: card and cpu differ")
+        toks[mode] = out["card"]["results"]
+    spec_same = all(toks["plain"][r].tokens == toks["speculate_k=2"][r]
+                    .tokens for r in toks["plain"])
+    # a 3-row verify pass against 3 one-row passes from the same state
+    lay = PagedCacheLayout(page_size=8, num_pages=7, max_pages_per_slot=3)
+    table = torch.arange(1, 7, dtype=torch.int32, device=dev).reshape(2, 3)
+    tok = torch.randint(0, cfg.vocab_size, (2, 12),
+                        generator=torch.Generator().manual_seed(9)).to(dev)
+    logits = []
+    with torch.inference_mode():
+        for rows in (3, 1):
+            pools = M.init_paged_cache(cfg, lay, torch.float32, dev)
+            pos = torch.zeros(2, dtype=torch.int64, device=dev)
+            M.decode_step(cfg, card, pools, tok[:, :9], pos,
+                          decode_mode="paged", block_table=table)
+            lg = [M.decode_step(cfg, card, pools, tok[:, 9 + i:9 + i + rows],
+                                pos + 9 + i, decode_mode="paged",
+                                block_table=table)[0]
+                  for i in range(0, 3, rows)]
+            logits.append(torch.cat(lg, dim=1))
+    diff = float((logits[0] - logits[1]).abs().max())
+    print(f"[continuous-cpu-vs-card] on the card, speculative tokens equal "
+          f"plain tokens: {spec_same}; a 3-row verify pass vs 3 one-row "
+          f"passes from the same state: logits max abs diff {diff:.3e} "
+          f"(the paged kernel's rows are bitwise; cuBLAS rounds a 6-row "
+          f"and a 2-row product differently where this is nonzero)")
+
+
 def phase_main_path(torch, dev, card):
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention_fwd
@@ -628,6 +958,7 @@ def phase_train(torch, dev, card, profile=False, compression=None):
     the timed run by phase.  With ``profile``, one more step runs under
     the profiler (kernel time by name)."""
     from repro_torch import trace
+    from repro_torch.compress import reference_leaves
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import token_batches
     from repro_torch.kernels.flash_attention import flash_attention_fwd
@@ -686,9 +1017,10 @@ def phase_train(torch, dev, card, profile=False, compression=None):
                 "train-quantize_ef": quantize_ef.launches}
     peak = torch.cuda.max_memory_allocated()
 
+    leaves = reference_leaves(params)
     want = {pre + "fused_dsgd": TRAIN_STEPS * len(params),
             pre + "flash": TRAIN_STEPS * cfg.num_layers * TRAIN_N,
-            "train-quantize_ef": TRAIN_STEPS * len(params) if compression
+            "train-quantize_ef": TRAIN_STEPS * len(leaves) if compression
             else 0}
     for phase, n in want.items():
         if launches[phase] != n:
@@ -738,11 +1070,11 @@ def phase_train(torch, dev, card, profile=False, compression=None):
           f"{TRAIN_STEPS}), flash {launches[pre + 'flash']} (= "
           f"{cfg.num_layers} layers x {TRAIN_N} nodes x {TRAIN_STEPS})"
           + (f", quantize_ef {launches['train-quantize_ef']} (= "
-             f"{len(params)} tensors x {TRAIN_STEPS})" if compression
-             else ""))
+             f"{len(leaves)} reference leaves x {TRAIN_STEPS})"
+             if compression else ""))
     if compression:
-        # each tensor is its own chunk-row payload: padded per tensor
-        sizes = [p.numel() for p in params.values()]
+        # each reference leaf is one chunk-row payload, padded once
+        sizes = [sum(params[k].numel() for k in g) for g in leaves]
         wire = sum(compression.wire_bytes(n) for n in sizes)
         f32 = 4 * n_params
         sched = build_schedule(spec)
@@ -961,6 +1293,31 @@ def phase_profile(torch, dev, params, engine, tokens):
             wall = (time.perf_counter() - t0) / 4
     print_kernel_times(prof, "decode step", wall, 4)
 
+    # one continuous decode step: 8 slots at ragged positions, paged
+    eng = continuous_engine(torch, dev, cfg)
+    B = CONT_SLOTS
+    table = torch.arange(1, B * CONT_MAXP + 1, dtype=torch.int32,
+                         device=dev).reshape(B, CONT_MAXP)
+    pos = torch.tensor([64, 207, 351, 512, 640, 801, 1000, 1086],
+                       device=dev)
+    tok = tokens[:, -1:].repeat(2, 1)
+    with torch.inference_mode():
+        M.decode_step(cfg, params, eng.pools, tok, pos, decode_mode="paged",
+                      block_table=table)                     # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(4):
+                M.decode_step(cfg, params, eng.pools, tok, pos + 1 + i,
+                              decode_mode="paged", block_table=table)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / 4
+    print_kernel_times(prof, "continuous decode step (8 slots, paged)", wall,
+                       4)
+    del eng
+    torch.cuda.empty_cache()
+
 
 def print_kernel_times(prof, what, wall, steps):
     """Device busy time per step and the twelve busiest kernel names of
@@ -979,9 +1336,10 @@ def print_kernel_times(prof, what, wall, steps):
                                 key=lambda kv: -kv[1][0])[:12]:
         print(f"[profile] {us / steps / 1e3:9.4f} ms/step {n // steps:5d}x "
               f"{name[:90]}")
-    for key in ("flash_fwd_kernel", "fused_dsgd_kernel",     # the port's own
-                "quantize_ef_kernel"):
-        mine = [v for name, v in per_kernel.items() if key in name]
+    for key in ("flash_fwd_kernel", "paged_flash_fwd_kernel",  # the port's
+                "fused_dsgd_kernel", "quantize_ef_kernel"):
+        mine = [v for name, v in per_kernel.items() if key in name
+                and (key != "flash_fwd_kernel" or "paged" not in name)]
         if mine:
             ms = sum(t for t, _ in mine) / steps / 1e3
             print(f"[profile] {key}: {ms:.4f} ms/step in "
@@ -991,8 +1349,8 @@ def print_kernel_times(prof, what, wall, steps):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one decode step and one training "
-                         "step with torch.profiler")
+                    help="also trace a decode step, a continuous decode "
+                         "step and a training step with torch.profiler")
     args = ap.parse_args()
 
     import torch
@@ -1012,7 +1370,10 @@ def main() -> None:
     entries = phase_flash_kernels(torch, dev)
     entries += phase_dsgd_kernels(torch, dev)
     entries += phase_quantize_kernels(torch, dev)
+    entries += phase_paged_kernels(torch, dev)
     launches, params, engine, tokens = phase_main_path(torch, dev, card)
+    launches.update(phase_continuous(torch, dev, card, params))
+    launches.update(phase_continuous(torch, dev, card, params, spec=True))
     if args.profile:
         phase_profile(torch, dev, params, engine, tokens)
     del params, engine, tokens
@@ -1027,6 +1388,7 @@ def main() -> None:
     phase_cpu_vs_card(torch, dev)
     phase_train_cpu_vs_card(torch, dev)
     phase_compress_cpu_vs_card(torch, dev)
+    phase_continuous_cpu_vs_card(torch, dev)
     phase_consensus(torch, dev)
     print(card)
     print(json.dumps({"kernels": [e for _, e in entries]}))

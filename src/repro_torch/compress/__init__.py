@@ -10,12 +10,13 @@ from .codecs import CODECS, Codec, get_codec, register_codec
 from .config import (CODEC_NAMES, UNCOMPRESSED_BYTES_PER_PARAM,
                      CompressionConfig, resolve)
 from .mixing import (compressed_dense_mix, flat_to_rows, init_ef,
-                     leaf_to_rows, rows_to_flat, rows_to_leaf)
+                     leaf_to_rows, reference_leaves, rows_to_flat,
+                     rows_to_leaf)
 
 __all__ = [
     "CompressionConfig", "CODEC_NAMES", "UNCOMPRESSED_BYTES_PER_PARAM",
     "resolve",
     "Codec", "CODECS", "get_codec", "register_codec",
-    "compressed_dense_mix", "init_ef",
+    "compressed_dense_mix", "init_ef", "reference_leaves",
     "flat_to_rows", "rows_to_flat", "leaf_to_rows", "rows_to_leaf",
 ]

@@ -15,17 +15,22 @@ across the node stack (node i's rows start at ``i * rows_per_node``), so
 one node's rows quantized alone (row_offset ``i * rows_per_node``) hash
 the same stochastic-rounding bits as the whole stack (row_offset 0).
 
-The port's flat dict holds one tensor per block where the reference
-stacks the blocks into one leaf, so a block's tensor is chunked, padded
-and indexed on its own: the payload of the same flat dict is the
-reference's bit for bit, the payload of the reference's stacked pytree
-is not.
+The port's flat dict holds one tensor per block
+(``stack.blocks.<block>.<pos>.…``) where the reference stacks the blocks
+into one leaf (``stack.blocks.<pos>.…``, shape ``(n, num_blocks, …)``).
+:func:`compressed_dense_mix` quantizes the reference's leaves: the block
+tensors of one leaf are laid out together, each node's blocks back to
+back in block order and padded once, as ``leaf_to_rows`` lays out the
+stacked leaf.  So every row, element index and hash bit is the
+reference's, and the payload and residual of a flat dict equal the
+reference's on its own stacked tree.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import trace
+from repro_torch.convert import _BLOCKS
 from repro_torch.kernels.ref import sr_key
 
 from .codecs import get_codec
@@ -49,25 +54,55 @@ def leaf_to_rows(x: torch.Tensor, chunk: int) -> torch.Tensor:
     each node's payload zero-padded on its own so that its rows are
     contiguous (global row = node * rows_per_node + row).  An f32 tensor
     that needs no padding comes back as a view."""
-    n = x.shape[0]
-    flat = x.reshape(n, -1)
-    p = flat.shape[1]
-    rows = max(1, -(-p // chunk))
-    if rows * chunk == p:
-        return flat.to(torch.float32).reshape(n * rows, chunk)
-    out = torch.zeros((n, rows * chunk), dtype=torch.float32,
-                      device=x.device)
-    out[:, :p] = flat
-    return out.reshape(n * rows, chunk)
+    return group_to_rows([x], chunk)
 
 
 def rows_to_leaf(r2d: torch.Tensor, shape) -> torch.Tensor:
     """Inverse of :func:`leaf_to_rows` (f32)."""
+    return rows_to_group(r2d, shape, 1)[0]
+
+
+def group_to_rows(xs, chunk: int) -> torch.Tensor:
+    """Node-stacked tensors of one shape (n, *rest), the blocks of one
+    reference leaf in block order -> (n * rows_per_node, chunk) f32: node
+    i's rows hold its blocks' values back to back, zero-padded once.
+    This is :func:`leaf_to_rows` of the stacked leaf (n, len(xs), *rest)
+    without the stacked copy; one f32 tensor that needs no padding comes
+    back as a view."""
+    n = xs[0].shape[0]
+    p = xs[0][0].numel()
+    rows = max(1, -(-len(xs) * p // chunk))
+    if len(xs) == 1 and rows * chunk == p:       # no padding
+        return xs[0].reshape(n, p).to(torch.float32).reshape(-1, chunk)
+    out = torch.zeros((n, rows * chunk), dtype=torch.float32,
+                      device=xs[0].device)
+    for b, x in enumerate(xs):
+        out[:, b * p:(b + 1) * p] = x.reshape(n, p)
+    return out.reshape(n * rows, chunk)
+
+
+def rows_to_group(r2d: torch.Tensor, shape, count: int) -> list:
+    """Inverse of :func:`group_to_rows`: ``count`` f32 views of ``shape``
+    (n, *rest)."""
     n = shape[0]
     p = 1
     for d in shape[1:]:
         p *= d
-    return r2d.reshape(n, -1)[:, :p].reshape(shape)
+    flat = r2d.reshape(n, -1)
+    return [flat[:, b * p:(b + 1) * p].reshape(shape) for b in range(count)]
+
+
+def reference_leaves(keys) -> list[list[str]]:
+    """The port's flat keys grouped into the reference's leaves: the keys
+    ``stack.blocks.<b>.<pos>.<name>`` of one ``(pos, name)`` together in
+    block order, every other key alone."""
+    groups: dict[str, list] = {}
+    for k in keys:
+        m = _BLOCKS.match(k)
+        leaf = k if m is None else f"{m[1]}.{m[3]}"
+        groups.setdefault(leaf, []).append((0 if m is None else int(m[2]),
+                                            k))
+    return [[k for _, k in sorted(g)] for g in groups.values()]
 
 
 def compressed_dense_mix(W: torch.Tensor, tree: dict, ef: dict | None,
@@ -77,13 +112,14 @@ def compressed_dense_mix(W: torch.Tensor, tree: dict, ef: dict | None,
     ``tree`` and ``ef`` are node-stacked flat dicts (``ef`` mirrors
     ``tree``, or is None when ``cfg.error_feedback`` is off); ``t`` is the
     step counter (an int) keying the stochastic rounding.  Returns
-    ``(mixed, ef)``; non-float tensors pass through untouched.
+    ``(mixed, ef)``; non-float tensors pass through untouched.  Each
+    reference leaf (:func:`reference_leaves`) is quantized once, so the
+    kernel sees the reference's stacked row counts.
 
     Unlike the reference, the residual is written into ``ef``'s tensors
     in place and ``ef`` itself is returned: at full width the old and the
     new residual (f32, twice the bf16 parameters each) would not fit on
-    the card together.  One tensor's f32 temporaries are alive at a
-    time."""
+    the card together.  One leaf's f32 temporaries are alive at a time."""
     trace.mark("mix")
     codec = get_codec(cfg.codec)
     key = sr_key(cfg.seed, t)
@@ -91,29 +127,35 @@ def compressed_dense_mix(W: torch.Tensor, tree: dict, ef: dict | None,
     d = torch.diagonal(Wf)
     Woff = Wf - torch.diag(d)
     out = {}
-    for k, x in tree.items():
-        if not x.is_floating_point():
-            out[k] = x
+    for names in reference_leaves(tree):
+        xs = [tree[k] for k in names]
+        shape = xs[0].shape
+        if not xs[0].is_floating_point():
+            out.update(zip(names, xs))
             continue
-        e = None if ef is None else ef[k]
-        x2d = leaf_to_rows(x, cfg.chunk)
-        e2d = None if e is None else leaf_to_rows(e, cfg.chunk)
+        es = None if ef is None else [ef[k] for k in names]
+        x2d = group_to_rows(xs, cfg.chunk)
+        e2d = None if es is None else group_to_rows(es, cfg.chunk)
         payload, resid = codec.compress(cfg, x2d, e2d, key, 0)
         del x2d, e2d
-        if e is not None:
-            e.copy_(rows_to_leaf(resid, e.shape))
+        if es is not None:
+            for e, r in zip(es, rows_to_group(resid, shape, len(names))):
+                e.copy_(r)
+            del r       # the last view would keep the residual rows alive
         del resid
-        hat = rows_to_leaf(codec.decode(cfg, payload), x.shape)
+        hats = rows_to_group(codec.decode(cfg, payload), shape, len(names))
         del payload
-        mixed = torch.tensordot(Woff, hat, dims=([1], [0]))
-        del hat
-        self_term = x.to(torch.float32, copy=True)
-        self_term *= d.reshape((-1,) + (1,) * (x.ndim - 1))
-        mixed += self_term
-        del self_term
-        out[k] = mixed.to(x.dtype)
-        del mixed
-    return out, ef
+        for k, x in zip(names, xs):
+            hat = hats.pop(0)   # the last view gone frees the decoded rows
+            mixed = torch.tensordot(Woff, hat, dims=([1], [0]))
+            del hat
+            self_term = x.to(torch.float32, copy=True)
+            self_term *= d.reshape((-1,) + (1,) * (x.ndim - 1))
+            mixed += self_term
+            del self_term
+            out[k] = mixed.to(x.dtype)
+            del mixed
+    return {k: out[k] for k in tree}, ef
 
 
 def init_ef(params: dict, cfg: CompressionConfig | None) -> dict | None:

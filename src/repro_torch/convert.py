@@ -5,7 +5,9 @@ the port's ``state_dict`` keys, with one difference: the repeated pattern
 blocks are stacked in the reference (``stack.blocks[i]`` leaves carry a
 leading ``num_blocks`` axis, ``blocks.py:146-160``) and are one module
 per block here (``stack.blocks.<block>.<i>``).  Weight orientation is the
-same on both sides, so each leaf is a copy.
+same on both sides, so each leaf is a copy.  Paged KV caches (page pools)
+cross the same way, in both directions (:func:`paged_cache_from_jax`,
+:func:`paged_cache_to_numpy`).
 """
 from __future__ import annotations
 
@@ -79,3 +81,37 @@ def params_from_jax(tree, cfg: ArchConfig, *, device=None,
     model = Model(cfg, dtype=dtype, device=resolve_device(device))
     model.load_state_dict(tree_from_jax(tree), strict=True)
     return model.eval()
+
+
+def paged_cache_from_jax(tree, *, device=None) -> dict:
+    """The port's page pools from the reference's (``init_paged_cache``,
+    ``model.py:201``): ``{"prologue": [{"attn": {"k", "v"}}], "blocks":
+    [[...] per block]}`` of ``(P, ps, KV, hd)`` tensors, the reference's
+    stacked ``(num_blocks, P, ps, KV, hd)`` leaves split by block."""
+    dev = resolve_device(device)
+
+    def layer(c, b=None):
+        return {"attn": {n: _to_torch(np.asarray(c["attn"][n]) if b is None
+                                      else np.asarray(c["attn"][n])[b])
+                         .to(dev) for n in ("k", "v")}}
+
+    nb = np.asarray(tree["blocks"][0]["attn"]["k"]).shape[0] \
+        if tree["blocks"] else 0
+    return {"prologue": [layer(c) for c in tree["prologue"]],
+            "blocks": [[layer(c, b) for c in tree["blocks"]]
+                       for b in range(nb)]}
+
+
+def paged_cache_to_numpy(pools: dict) -> dict:
+    """The inverse of :func:`paged_cache_from_jax`: the reference's pool
+    tree of numpy arrays (f32; the blocks stacked per pattern position)."""
+    def arr(t):
+        return t.detach().float().cpu().numpy()
+
+    blocks = pools["blocks"]
+    return {"prologue": [{"attn": {n: arr(c["attn"][n]) for n in ("k", "v")}}
+                         for c in pools["prologue"]],
+            "blocks": [{"attn": {n: np.stack([arr(blk[i]["attn"][n])
+                                              for blk in blocks])
+                                 for n in ("k", "v")}}
+                       for i in range(len(blocks[0]) if blocks else 0)]}

@@ -6,6 +6,7 @@ There is no configuration object and no fallback between the two: the
 reference's ``KernelConfig(auto)`` and Pallas' ``interpret`` flag have no
 counterpart here.  Launches are counted on the kernel wrappers
 (``flash_attention.flash_attention_fwd.launches``,
+``paged_flash_attention.paged_flash_attention_fwd.launches``,
 ``fused_dsgd.fused_dsgd.launches``,
 ``quantized_gossip.quantize_ef.launches``).
 """
@@ -16,6 +17,7 @@ import torch
 from . import ref
 from .flash_attention import flash_attention_fwd
 from .fused_dsgd import fused_dsgd
+from .paged_flash_attention import paged_flash_attention_fwd
 from .quantized_gossip import quantize_ef
 
 
@@ -145,6 +147,29 @@ def sdpa(q, k, v, *, causal: bool = True, window=None, softcap=None,
                                     softcap=softcap, scale=scale,
                                     q_pos0=q_pos0, k_valid_len=k_valid_len)
     raise NotImplementedError(f"no attention kernel for device {q.device}")
+
+
+def paged_sdpa(q, k_pages, v_pages, block_table, *, q_start, k_valid_len,
+               causal: bool = True, window=None, softcap=None, scale=None):
+    """Attention over a paged KV cache in the model stack's layout — the
+    entry point ``models.attention`` sends paged decode and speculative
+    verify through (the reference's ``ops.paged_sdpa``, ``ops.py:376``).
+
+    q: (B, Tq, H, hd);  k_pages, v_pages: (P, ps, KV, hd[, hd_v]) with
+    H % KV == 0;  block_table: (B, maxp) int32 (slot b's positions
+    ``[j*ps, (j+1)*ps)`` live at page ``block_table[b, j]``);  q_start /
+    k_valid_len: ints or (B,) tensors, per slot.  Serving only: no
+    gradient, as in the reference.  A row's result does not depend on Tq,
+    on the card (the kernel's row contract) and on the CPU."""
+    kw = dict(q_start=q_start, k_valid_len=k_valid_len, causal=causal,
+              window=window, softcap=softcap, scale=scale)
+    if q.device.type == "cuda":
+        return paged_flash_attention_fwd(q, k_pages, v_pages, block_table,
+                                         **kw)
+    if q.device.type == "cpu":
+        return ref.paged_sdpa_ref(q, k_pages, v_pages, block_table, **kw)
+    raise NotImplementedError(f"no paged attention kernel for device "
+                              f"{q.device}")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None,

@@ -117,6 +117,40 @@ def grouped_sdpa_ref(q, k, v, *, causal: bool = True, window=None,
     return out.reshape(B, Tq, H, hd_v).to(q.dtype)
 
 
+def paged_sdpa_ref(q, k_pages, v_pages, block_table, *, q_start,
+                   k_valid_len, causal: bool = True, window=None,
+                   softcap=None, scale=None):
+    """Paged-cache attention in the model stack's layout — the plain
+    version of the paged flash-attention kernel (``ref.py:203-255``).
+
+    q: (B, Tq, H, hd);  k_pages: (P, ps, KV, hd);  v_pages: (P, ps, KV,
+    hd_v);  block_table: (B, maxp) — slot b's positions ``[j*ps,
+    (j+1)*ps)`` live at page ``block_table[b, j]``.  ``q_start`` and
+    ``k_valid_len`` are ints or (B,) tensors: query i of slot b sits at
+    ``q_start[b] + i``.
+
+    The pages are gathered into the dense view (indexing), then each query
+    row runs exactly :func:`grouped_sdpa_ref`'s math as a Tq = 1 call.
+    So against a dense cache holding the same bits the result is
+    :func:`grouped_sdpa_ref`'s, row by row, bit for bit; and a row's
+    result does not depend on Tq (a (k+1)-row verify window equals k+1
+    one-row calls bit for bit), which one batched product over all rows
+    would not give on the CPU."""
+    B, Tq, H, hd = q.shape
+    _, ps, KV, _ = k_pages.shape
+    hd_v = v_pages.shape[-1]
+    S = block_table.shape[1] * ps
+    tbl = block_table.long()
+    k = k_pages[tbl].reshape(B, S, KV, hd)
+    v = v_pages[tbl].reshape(B, S, KV, hd_v)
+    q_start = torch.as_tensor(q_start, device=q.device).reshape(-1)
+    k_valid = torch.as_tensor(k_valid_len, device=q.device).reshape(-1)
+    return torch.cat([grouped_sdpa_ref(
+        q[:, i:i + 1], k, v, causal=causal, window=window, softcap=softcap,
+        scale=scale, q_pos0=q_start + i, k_valid_len=k_valid)
+        for i in range(Tq)], dim=1)
+
+
 # ---------------------------------------------------------------------------
 # quantized gossip payloads (repro_torch.compress)
 #

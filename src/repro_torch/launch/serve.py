@@ -1,5 +1,5 @@
-"""Serving launcher: the fixed-batch engine (port of
-``repro/launch/serve.py``).
+"""Serving launcher: the fixed-batch engine or the continuous-batching
+engine (port of ``repro/launch/serve.py``).
 
     python -m repro_torch.launch.serve --arch gemma3-1b --batch 4 \
         --prompt-len 1024 --gen 64 [--sample --temperature 0.8 \
@@ -8,16 +8,28 @@
 Random weights from ``--seed`` (full width in bf16, ``--reduced`` in
 f32), a random prompt batch, one warm-up generation (it builds the CUDA
 kernels on first use), then one timed generation reporting steady-state
-tokens/s.  Runs on the card unless ``--device cpu`` is given; without a
-card it exits with an error.  The reference's ``--continuous`` and
-``--speculate-k`` modes are not ported yet.
+tokens/s.
+
+``--continuous`` serves a seeded Poisson trace through
+:class:`repro_torch.serve.ContinuousEngine` over a paged KV cache,
+requests admitted into decode slots as they free up:
+
+    python -m repro_torch.launch.serve --arch gemma3-1b --continuous \
+        --requests 32 --arrival-rate 0.5 --trace-seed 0 --slots 8 \
+        --page-size 16 --prompt-len 1024 --gen 64 \
+        [--speculate-k 4 --draft-layers 2] [--prefill-batch 2]
+
+Every shape (prompt padding, the bucket list, the trace's prompt range)
+comes from :func:`plan_shapes`.  Runs on the card unless ``--device cpu``
+is given; without a card it exits with an error.  The fixed-batch
+engine's ``--speculate-k`` is not ported yet.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
-from repro_torch.serve.buckets import bucket_for, prompt_buckets
+from repro_torch.serve.paged import bucket_for, prompt_buckets
 
 
 def plan_shapes(prompt_len: int, page_size: int = 8):
@@ -49,7 +61,37 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain PyTorch versions)")
+    # speculative decoding (DESIGN.md Sec. 15), continuous engine only
+    ap.add_argument("--speculate-k", type=int, default=0,
+                    help="draft k tokens per round and verify them in one "
+                         "pass (0 = plain decoding)")
+    ap.add_argument("--draft-layers", type=int, default=0,
+                    help="[speculative] early-exit depth of the "
+                         "self-speculative draft in pattern blocks "
+                         "(0 = num_blocks // 2)")
+    # continuous-batching frontend
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous-batching paged engine instead of the "
+                         "fixed-batch engine")
+    ap.add_argument("--requests", type=int, default=32,
+                    help="[continuous] number of requests in the trace")
+    ap.add_argument("--arrival-rate", type=float, default=0.5,
+                    help="[continuous] Poisson arrivals per decode step")
+    ap.add_argument("--trace-seed", type=int, default=0,
+                    help="[continuous] seed of the arrival/prompt trace")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="[continuous] lockstep decode slots")
+    ap.add_argument("--page-size", type=int, default=8,
+                    help="[continuous] KV positions per cache page")
+    ap.add_argument("--prefill-batch", type=int, default=1,
+                    help="[continuous] admit up to this many same-bucket "
+                         "requests per prefill call")
     args = ap.parse_args(argv)
+    if args.speculate_k and not args.continuous:
+        raise NotImplementedError(
+            "--speculate-k of the fixed-batch engine is not ported to "
+            "repro_torch yet (see ROADMAP.md); the continuous engine "
+            "speculates: add --continuous")
 
     import torch
 
@@ -73,6 +115,9 @@ def main(argv=None) -> None:
         top_k=args.top_k if args.top_k > 0 else None,
         top_p=args.top_p if 0.0 < args.top_p < 1.0 else None)
     eos_id = args.eos_id if args.eos_id >= 0 else None
+    if args.continuous:
+        _run_continuous(args, cfg, params, sampling, eos_id, dtype, device)
+        return
 
     _, padded_len = plan_shapes(args.prompt_len)
     if padded_len != args.prompt_len:
@@ -108,6 +153,63 @@ def main(argv=None) -> None:
     if eos_id is not None:
         print(f"done mask: {res.done.tolist()}  "
               f"lengths: {res.lengths.tolist()}")
+
+
+def _run_continuous(args, cfg, params, sampling, eos_id, dtype,
+                    device) -> None:
+    import time
+
+    import torch
+
+    from repro_torch.models.model import PagedCacheLayout
+    from repro_torch.serve import ContinuousEngine, poisson_trace
+
+    buckets, max_bucket = plan_shapes(args.prompt_len, args.page_size)
+    # verify-window headroom: a speculative round writes up to
+    # speculate_k rows past the last committed position
+    max_pages = -(-(max_bucket + args.gen + args.speculate_k)
+                  // args.page_size)
+    layout = PagedCacheLayout(
+        page_size=args.page_size,
+        num_pages=args.slots * max_pages + 1,   # +1: reserved scratch page
+        max_pages_per_slot=max_pages)
+    trace = poisson_trace(args.requests, rate=args.arrival_rate,
+                          seed=args.trace_seed, min_prompt=4,
+                          max_prompt=args.prompt_len,
+                          vocab_size=cfg.vocab_size)
+    engine = ContinuousEngine(
+        cfg, slots=args.slots, layout=layout, max_new=args.gen,
+        buckets=buckets, sampling=sampling, eos_id=eos_id,
+        param_dtype=dtype, cache_dtype=dtype, speculate_k=args.speculate_k,
+        draft_layers=(args.draft_layers or None) if args.speculate_k
+        else None, prefill_batch=args.prefill_batch, device=device)
+
+    t0 = time.perf_counter()
+    out = engine.run(params, trace, seed=args.seed)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
+             else "cpu")
+    s = out["stats"]
+    print(f"continuous trace: {s['requests']} requests, "
+          f"{s['generated_tokens']} tokens in {s['steps']} decode steps")
+    print(f"  executables (the reference's count): {s['executables']} "
+          f"(buckets used {s['buckets_used']} + 1 decode; bound = "
+          f"{len(buckets)} buckets x {args.prefill_batch} group sizes + 1 "
+          f"= {len(buckets) * args.prefill_batch + 1})")
+    print(f"  slot utilization: {s['slot_utilization']:.2f}  "
+          f"queue wait p50/p99: {s['wait_p50_steps']:.1f}/"
+          f"{s['wait_p99_steps']:.1f} steps")
+    print(f"  wall on {where}: {dt:.2f}s, kernel builds included "
+          f"({s['generated_tokens'] / dt:.1f} tok/s)")
+    if "speculative" in s:
+        sp = s["speculative"]
+        print(f"  speculative: k={args.speculate_k}, {sp['rounds']} rounds, "
+              f"acceptance {sp['acceptance_rate']:.2f}, "
+              f"{sp['tokens_per_round']:.2f} tokens/round")
+    for rid in sorted(out["results"])[:4]:
+        print(f"  req {rid}: {out['results'][rid].tokens}")
 
 
 if __name__ == "__main__":

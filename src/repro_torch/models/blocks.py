@@ -55,13 +55,15 @@ class Layer(nn.Module):
         self.mlp = MLP(d, cfg.d_ff, act=cfg.mlp_act, **kw) if ffn else None
         self.ln2_post = RMSNorm(d, **kw) if ffn and cfg.post_norm else None
 
-    def forward(self, x, *, cache=None, cache_index=None):
+    def forward(self, x, *, cache=None, cache_index=None, decode_mode="dus",
+                block_table=None):
         cfg, spec = self.cfg, self.spec
         a = self.attn(
             self.ln1(x), rope_theta=spec.rope_theta, window=spec.window,
             softcap=cfg.attn_softcap, scale=cfg.attn_scale,
             cache=None if cache is None else cache["attn"],
-            cache_index=cache_index)
+            cache_index=cache_index, decode_mode=decode_mode,
+            block_table=block_table)
         if self.ln1_post is not None:
             a = self.ln1_post(a)
         x = x + a
@@ -86,16 +88,28 @@ class Stack(nn.Module):
             nn.ModuleList(Layer(cfg, s, **kw) for s in cfg.pattern)
             for _ in range(cfg.num_blocks))
 
-    def forward(self, x, *, caches=None, cache_index=None):
+    def forward(self, x, *, caches=None, cache_index=None, decode_mode="dus",
+                block_table=None, num_blocks_limit=None):
         """caches: ``{"prologue": [...], "blocks": [[...] per block]}``
-        (updated in place).  Returns ``(x, caches)``."""
+        (updated in place).  ``num_blocks_limit`` runs the prologue and
+        only the first n pattern blocks, the self-speculative draft's
+        early exit (``blocks.py:166-226``): the other blocks' caches are
+        left as they are.  Returns ``(x, caches)``."""
+        blocks = self.blocks
+        if num_blocks_limit is not None:
+            if not 0 <= num_blocks_limit <= len(blocks):
+                raise ValueError(f"num_blocks_limit must be in [0, "
+                                 f"{len(blocks)}], got {num_blocks_limit}")
+            blocks = blocks[:num_blocks_limit]
+        kw = dict(cache_index=cache_index, decode_mode=decode_mode,
+                  block_table=block_table)
         for i, layer in enumerate(self.prologue):
             c = None if caches is None else caches["prologue"][i]
-            x = layer(x, cache=c, cache_index=cache_index)
-        for b, block in enumerate(self.blocks):
+            x = layer(x, cache=c, **kw)
+        for b, block in enumerate(blocks):
             for i, layer in enumerate(block):
                 c = None if caches is None else caches["blocks"][b][i]
-                x = layer(x, cache=c, cache_index=cache_index)
+                x = layer(x, cache=c, **kw)
         return x, caches
 
 
@@ -115,3 +129,22 @@ def stack_cache_init(cfg: ArchConfig, batch: int, max_seq: int, dtype,
         "blocks": [[layer_cache_init(cfg, s, batch, max_seq, dtype, device)
                     for s in cfg.pattern] for _ in range(cfg.num_blocks)],
     }
+
+
+def stack_paged_cache_init(cfg: ArchConfig, num_pages: int, page_size: int,
+                           dtype, device) -> dict:
+    """Page pools with :func:`stack_cache_init`'s structure: each layer's
+    k/v is a pool ``(num_pages, page_size, KV, hd)`` shared by every slot
+    through the block table (``blocks.py:228-276``)."""
+    # a pool is a cache of num_pages rows of page_size positions
+    return stack_cache_init(cfg, num_pages, page_size, dtype, device)
+
+
+def layer_caches(caches: dict):
+    """Every layer's ``{"k", "v"}`` cache, prologue first, then the blocks
+    in order."""
+    for c in caches["prologue"]:
+        yield c["attn"]
+    for block in caches["blocks"]:
+        for c in block:
+            yield c["attn"]

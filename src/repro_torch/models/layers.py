@@ -100,15 +100,16 @@ class MLP(nn.Module):
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float = 10000.0) -> torch.Tensor:
-    """x: (..., T, H, hd) rotated by absolute positions (T,) — half-split
-    layout with f32 angles, as ``layers.py:76-88``."""
+    """x: (..., T, H, hd) rotated by absolute positions, (T,) shared or
+    (B, T) per slot — half-split layout with f32 angles, as
+    ``layers.py:76-88``."""
     hd = x.shape[-1]
     half = hd // 2
     idx = torch.arange(0, half, dtype=torch.float32, device=x.device)
     freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
                                   device=x.device), -idx / half)
-    ang = positions[..., None].float() * freq            # (T, half)
-    cos = torch.cos(ang)[..., None, :]                    # (T, 1, half)
+    ang = positions[..., None].float() * freq            # (..., T, half)
+    cos = torch.cos(ang)[..., None, :]                    # (..., T, 1, half)
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],

@@ -4,18 +4,22 @@
     loss, aux = loss_fn(cfg, params, batch)            # training
     logits, caches = prefill(cfg, params, batch, max_seq, cache_dtype)
     logits, caches = decode_step(cfg, params, caches, tokens, index)
+    pools = init_paged_cache(cfg, layout, cache_dtype)    # paged serving
+    logits, pools = decode_step(cfg, params, pools, tokens, index_vector,
+                                decode_mode="paged", block_table=table)
 
 ``params`` is a :class:`Model`; ``loss_fn`` takes a flat dict of
 tensors keyed by its ``state_dict`` keys, which are the reference's
 param-tree paths with the stacked pattern blocks split per block
 (``stack.blocks.<block>.<position>.…``, see :mod:`repro_torch.convert`).
 The simulation engine trains through that dict, one node's slice at a
-time.  Caches are updated in place.  Encoder-decoder, frontend,
-multi-token-prediction and untied-head models are not ported yet, nor
-are the ``"append_free"`` and ``"paged"`` decode modes.
+time.  Caches and page pools are updated in place.  Encoder-decoder,
+frontend, multi-token-prediction and untied-head models are not ported
+yet, nor is the ``"append_free"`` decode mode.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -24,10 +28,10 @@ from torch import nn
 from repro_torch.configs.common import ArchConfig
 from repro_torch.device import resolve_device
 
-from .blocks import Stack, stack_cache_init
+from .blocks import Stack, stack_cache_init, stack_paged_cache_init
 from .layers import Dense, Embed, RMSNorm, chunked_ce_loss
 
-DECODE_MODES = ("dus",)
+DECODE_MODES = ("dus", "paged")
 
 
 class Model(nn.Module):
@@ -73,16 +77,69 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                             resolve_device(device))
 
 
+@dataclasses.dataclass(frozen=True)
+class PagedCacheLayout:
+    """Static shape of a paged KV cache (``model.py:167-198``, DESIGN.md
+    Sec. 14).
+
+    Each layer's pool holds ``num_pages`` pages of ``page_size``
+    positions; every serve slot owns up to ``max_pages_per_slot`` pages
+    through its block-table row, so a slot holds sequences up to
+    ``max_seq = max_pages_per_slot * page_size``.  Page 0 is the scratch
+    page free slots write into (``serve.paged.PagePool`` never hands it
+    out)."""
+    page_size: int = 8
+    num_pages: int = 64
+    max_pages_per_slot: int = 8
+
+    def __post_init__(self):
+        if self.page_size < 1 or self.num_pages < 2 \
+                or self.max_pages_per_slot < 1:
+            raise ValueError(f"invalid paged layout: {self}")
+        if self.max_pages_per_slot > self.num_pages - 1:
+            raise ValueError(
+                f"max_pages_per_slot {self.max_pages_per_slot} exceeds the "
+                f"{self.num_pages - 1} allocatable pages (page 0 is the "
+                f"reserved scratch page)")
+
+    @property
+    def max_seq(self) -> int:
+        return self.max_pages_per_slot * self.page_size
+
+    def pages_for(self, n: int) -> int:
+        """Pages needed to hold ``n`` positions (ceil)."""
+        return -(-n // self.page_size)
+
+
+def init_paged_cache(cfg: ArchConfig, layout: PagedCacheLayout,
+                     dtype=torch.bfloat16, device=None) -> dict:
+    """Page pools for paged serving: :func:`init_cache`'s structure with
+    leaves ``(num_pages, page_size, KV, hd)``, to pair with a
+    (B, max_pages) int32 block table and ``decode_mode="paged"``.
+    Attention-family decoder-only models only; others raise."""
+    if cfg.encoder is not None:
+        raise NotImplementedError(
+            "paged serving does not cover encoder-decoder models")
+    return stack_paged_cache_init(cfg, layout.num_pages, layout.page_size,
+                                  dtype, resolve_device(device))
+
+
 def backbone(cfg: ArchConfig, params: Model, tokens, *, caches=None,
-             cache_index=None):
-    """Returns ``(hidden, caches)``."""
+             cache_index=None, decode_mode="dus", block_table=None,
+             num_blocks_limit=None):
+    """Returns ``(hidden, caches)``.  ``num_blocks_limit`` runs the
+    prologue and the first n pattern blocks only (the self-speculative
+    draft), sharing the final norm and head with the full model."""
     x = params.embed(tokens)
     if cfg.embed_scale:
         # the constant is rounded to x's dtype before the multiply, as the
         # reference does: in bf16, sqrt(1152) = 33.94 becomes 34.0
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)
-    x, caches = params.stack(x, caches=caches, cache_index=cache_index)
+    x, caches = params.stack(x, caches=caches, cache_index=cache_index,
+                             decode_mode=decode_mode,
+                             block_table=block_table,
+                             num_blocks_limit=num_blocks_limit)
     return params.final_norm(x), caches
 
 
@@ -112,7 +169,8 @@ def loss_fn(cfg: ArchConfig, params, batch):
     return loss, {"aux": torch.zeros((), device=loss.device)}
 
 
-def _logits(cfg: ArchConfig, params: Model, h):
+def logits_of(cfg: ArchConfig, params: Model, h):
+    """The output logits of final hidden states ``h`` (..., d_model)."""
     logits = h @ params.embed.table.T           # tied output projection
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
@@ -128,17 +186,24 @@ def prefill(cfg: ArchConfig, params: Model, batch, max_seq: int,
     caches = init_cache(cfg, tokens.shape[0], max_seq, cache_dtype,
                         tokens.device)
     h, caches = backbone(cfg, params, tokens, caches=caches, cache_index=0)
-    return _logits(cfg, params, h[:, -1:]), caches
+    return logits_of(cfg, params, h[:, -1:]), caches
 
 
-def decode_step(cfg: ArchConfig, params: Model, caches, tokens, index: int,
-                *, decode_mode="dus"):
+def decode_step(cfg: ArchConfig, params: Model, caches, tokens, index, *,
+                decode_mode="dus", block_table=None, draft_layers=None):
     """tokens: (B, T) at positions ``index .. index + T - 1`` (the cache
-    holds [0, index)).  Returns (logits (B, T, V), caches)."""
+    holds [0, index)); T = 1 decodes, T = k + 1 is a speculative verify
+    window.  ``decode_mode="dus"`` takes an int ``index`` and dense caches;
+    ``"paged"`` takes page pools, a (B,) tensor ``index`` of per-slot
+    positions and ``block_table`` (B, max_pages) int32.  ``draft_layers``
+    runs the self-speculative early exit (the first n pattern blocks).
+    Returns (logits (B, T, V), caches)."""
     if decode_mode not in DECODE_MODES:
         raise NotImplementedError(
             f"decode_mode {decode_mode!r} is not ported to repro_torch yet "
             f"(ported: {DECODE_MODES}); see ROADMAP.md")
     h, caches = backbone(cfg, params, tokens, caches=caches,
-                         cache_index=index)
-    return _logits(cfg, params, h), caches
+                         cache_index=index, decode_mode=decode_mode,
+                         block_table=block_table,
+                         num_blocks_limit=draft_layers)
+    return logits_of(cfg, params, h), caches

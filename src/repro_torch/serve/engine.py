@@ -8,8 +8,8 @@ by the done-mask (they emit ``eos_id``) and the loop stops once every row
 is done, as the reference's ``lax.cond`` early exit does.
 ``dispatch_counter[0]`` counts generations, one per ``generate`` call.
 
-Speculative decoding and the continuous (paged) engine are not ported
-yet.
+The fixed-batch engine's speculative mode (``speculate_k``, ``draft_cfg``)
+is not ported yet; the continuous engine (:mod:`.continuous`) speculates.
 """
 from __future__ import annotations
 

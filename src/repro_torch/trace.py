@@ -1,4 +1,5 @@
-"""Phase marks for timing a training step on the card.
+"""Phase marks for timing a training step or a serving dispatch on the
+card.
 
 The simulation engine and :func:`repro_torch.optim.decentralized.mix`
 call :func:`mark` at the phase boundaries of a step:
@@ -7,6 +8,10 @@ call :func:`mark` at the phase boundaries of a step:
     "update"  the gradients are done; the method's update begins
     "mix"     a gossip mix begins
     "end"     the step is done
+
+The continuous serving engine marks each dispatch with its name
+(``"prefill_<bucket>"``, ``"prefill_<bucket>x<n>"``, ``"decode"``) and
+then ``"end"``.
 
 Outside :func:`cuda_marks` a mark is one global lookup and does
 nothing.  Inside it, each mark records a CUDA event on the current

@@ -12,6 +12,8 @@ Inputs come from numpy seeds and go through both sides.  Tolerances:
   (``tests/test_compress.py:184``);
 - ``compressed_dense_mix``'s mixed values within 1e-6 (max abs): the
   (n x n) product sums in another order; its new residual bit for bit.
+  That holds on the reference's own stacked tree too: the port's
+  per-block tensors of one stacked leaf are quantized together.
 """
 import jax
 import jax.numpy as jnp
@@ -20,12 +22,15 @@ import pytest
 import torch
 
 from repro import compress as J
+from repro.configs import get_config as jget_config
+from repro.models import model as JM
 from repro.kernels import ref as jref
 from repro.kernels.quantized_gossip import quantize_ef_pallas
 from repro.optim.decentralized import mix as jmix
 from repro.topology import TopologySpec as JSpec
 from repro.topology import build_schedule as jbuild
 from repro_torch import compress as T
+from repro_torch.convert import tree_from_jax
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.optim.decentralized import mix
@@ -347,6 +352,53 @@ def test_compressed_dense_mix_matches_reference(name, n, k, t, ef_on):
             assert ef2[key] is ef[key]        # updated in place
             assert _same_bits(ef2[key], jef[key]), key
     assert (ef2 is None) == (jef is None)
+
+
+def _stacked_tree(case, n):
+    """A node-stacked reference pytree with stacked pattern blocks."""
+    rng = np.random.default_rng(3)
+    if case == "3-block leaf":
+        # 7 x 13 = 91 and 33 values per block: no block fills whole chunks
+        shapes = {"embed": {"table": (n, 40, 9)},
+                  "stack": {"prologue": [{"w": (n, 5, 6)}],
+                            "blocks": [{"w": (n, 3, 7, 13)},
+                                       {"s": (n, 3, 33)}]}}
+        return jax.tree.map(lambda sh: rng.standard_normal(sh).astype(
+            np.float32), shapes, is_leaf=lambda x: isinstance(x, tuple))
+    params = JM.init(jget_config("gemma3-1b").reduced(num_blocks=2),
+                     jax.random.PRNGKey(2), jnp.float32)
+    return jax.tree.map(lambda a: np.stack([
+        np.asarray(a) + 0.01 * rng.standard_normal(a.shape).astype(
+            np.float32) for _ in range(n)]), params)
+
+
+@pytest.mark.parametrize("codec", ["int8", "fp8"])
+@pytest.mark.parametrize("case", ["3-block leaf", "reduced gemma3-1b"])
+def test_compressed_dense_mix_on_stacked_leaves_matches_reference(case,
+                                                                  codec):
+    """The port's flat dict (one tensor per block) against the reference
+    on its own stacked tree: mixed within 1e-6, residuals bit for bit."""
+    n, t = 3, 5
+    kw = dict(codec=codec, chunk=32, error_feedback=True)
+    jtree = _stacked_tree(case, n)
+    jef = jax.tree.map(lambda a: 0.05 * np.random.default_rng(4)
+                       .standard_normal(a.shape).astype(np.float32), jtree)
+    W = np.asarray(jbuild(JSpec(name="base", n=n, k=1)).W(t), np.float32)
+    jout, jef2 = J.compressed_dense_mix(
+        jnp.asarray(W), jax.tree.map(jnp.asarray, jtree),
+        jax.tree.map(jnp.asarray, jef), J.CompressionConfig(**kw), t)
+    tree = tree_from_jax(jtree, node_axis=True)
+    ef = tree_from_jax(jef, node_axis=True)
+    out, ef2 = T.compressed_dense_mix(torch.from_numpy(W), tree, ef,
+                                      T.CompressionConfig(**kw), t)
+    want = tree_from_jax(jax.tree.map(np.asarray, jout), node_axis=True)
+    want_ef = tree_from_jax(jax.tree.map(np.asarray, jef2), node_axis=True)
+    assert list(out) == list(tree) and set(want) == set(tree)
+    assert any(len(g) > 1 for g in T.reference_leaves(tree))
+    for key in tree:
+        np.testing.assert_allclose(out[key].numpy(), want[key].numpy(),
+                                   rtol=0, atol=1e-6)
+        assert ef2[key] is ef[key] and _same_bits(ef[key], want_ef[key]), key
 
 
 def test_identity_mix_is_the_plain_mix():

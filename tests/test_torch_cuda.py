@@ -13,7 +13,10 @@ gradients equal plain autograd bit for bit: the backward is the same
 plain recompute.  The fused DSGD kernel equals its plain version bit for
 bit: it takes the same f32 rounding steps in the same order.  So does
 the quantize+EF kernel, on q, scale and the residual, in int8 and fp8,
-with and without err: its payload is a bitwise contract.
+with and without err: its payload is a bitwise contract.  The paged
+flash-attention kernel is held to flash attention's tolerance against
+its plain version, and to its own row contract bit for bit: a verify
+window equals one-row calls, whatever else the block holds.
 """
 import pytest
 import torch
@@ -22,6 +25,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import (SUPPORTED_DIMS,
                                                  flash_attention_fwd)
 from repro_torch.kernels.fused_dsgd import fused_dsgd
+from repro_torch.kernels.paged_flash_attention import \
+    paged_flash_attention_fwd
 from repro_torch.kernels.quantized_gossip import quantize_ef
 
 pytestmark = pytest.mark.cuda
@@ -220,3 +225,146 @@ def test_compressed_mix_on_the_card_launches_once_per_tensor(card):
         tol = 1e-6 + (2.0 ** -7 * want[k].float().abs()
                       if out[k].dtype == torch.bfloat16 else 0.0)
         assert bool((diff <= tol).all())
+
+
+def test_compressed_mix_on_the_card_launches_once_per_reference_leaf(card):
+    """The blocks of one stacked reference leaf are quantized in one
+    launch, with the CPU's payload."""
+    from repro_torch.compress import CompressionConfig, compressed_dense_mix
+    g = torch.Generator(device=card).manual_seed(5)
+    tree = {f"stack.blocks.{b}.0.w": torch.randn(3, 7, 13, generator=g,
+                                                 device=card)
+            for b in range(3)}
+    tree["embed.table"] = torch.randn(3, 40, generator=g, device=card)
+    W = torch.full((3, 3), 1.0 / 3, device=card)
+    cfg = CompressionConfig(codec="fp8", chunk=32)
+    ef = {k: torch.zeros_like(v) for k, v in tree.items()}
+    ef_cpu = {k: v.cpu() for k, v in ef.items()}
+    before = quantize_ef.launches
+    compressed_dense_mix(W, tree, ef, cfg, 1)
+    torch.cuda.synchronize()
+    assert quantize_ef.launches == before + 2
+    compressed_dense_mix(W.cpu(), {k: v.cpu() for k, v in tree.items()},
+                         ef_cpu, cfg, 1)
+    for k in tree:
+        assert torch.equal(ef[k].cpu().view(torch.int32),
+                           ef_cpu[k].view(torch.int32))
+
+
+def _paged_case(card, dtype, *, B, H, KV, D, Dv, ps, maxp, seed):
+    """q rows for a verify window of 5, pools of distinct pages per slot,
+    NaN in scratch page 0 and in every page no table row names."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    P = B * maxp + 3
+    q = torch.randn(B, 5, H, D, generator=g, device=card).to(dtype)
+    kp = torch.randn(P, ps, KV, D, generator=g, device=card).to(dtype)
+    vp = torch.randn(P, ps, KV, Dv, generator=g, device=card).to(dtype)
+    perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(
+        seed))[:B * maxp] + 1
+    table = perm.reshape(B, maxp).to(torch.int32).to(card)
+    unused = torch.ones(P, dtype=torch.bool)
+    unused[perm] = False
+    kp[unused.to(card)] = float("nan")
+    vp[unused.to(card)] = float("nan")
+    return q, kp, vp, table
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,Dv", SUPPORTED_DIMS)
+@pytest.mark.parametrize("ps", [8, 16, 32, 64])
+def test_paged_kernel_matches_plain(card, dtype, D, Dv, ps):
+    """Ragged slots (a fresh slot, a page boundary, a long local window)
+    with NaN in page 0 and unused pages; a window and a softcap case."""
+    B, H, KV = 3, 4, 1
+    maxp = -(-300 // ps)
+    q, kp, vp, table = _paged_case(card, dtype, B=B, H=H, KV=KV, D=D, Dv=Dv,
+                                   ps=ps, maxp=maxp, seed=ps + D)
+    table[2, maxp // 2:] = 0          # entries past k_valid: scratch page
+    q_start = torch.tensor([0, ps - 2, 120], device=card, dtype=torch.int32)
+    k_valid = q_start + 5
+    for kw in (dict(), dict(window=37), dict(softcap=30.0, window=100)):
+        want = ref.paged_sdpa_ref(q, kp, vp, table, q_start=q_start,
+                                  k_valid_len=k_valid, **kw)
+        before = paged_flash_attention_fwd.launches
+        got = ops.paged_sdpa(q, kp, vp, table, q_start=q_start,
+                             k_valid_len=k_valid, **kw)
+        torch.cuda.synchronize()
+        assert paged_flash_attention_fwd.launches == before + 1
+        assert got.dtype == dtype and got.shape == (B, 5, H, Dv)
+        assert not bool(got.isnan().any())
+        _assert_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,window", [(4, 1, None), (4, 1, 9),
+                                         (8, 2, 40), (4, 4, None)])
+def test_paged_kernel_verify_window_equals_one_row_calls(card, dtype, H, KV,
+                                                         window):
+    """The kernel's row contract, bit for bit: one (k+1)-row verify call
+    equals k+1 one-row calls, whatever the block's other rows."""
+    q, kp, vp, table = _paged_case(card, dtype, B=3, H=H, KV=KV, D=128,
+                                   Dv=128, ps=16, maxp=12, seed=H + KV)
+    q_start = torch.tensor([0, 31, 170], device=card, dtype=torch.int32)
+    verify = paged_flash_attention_fwd(q, kp, vp, table, q_start=q_start,
+                                       k_valid_len=q_start + 5,
+                                       window=window)
+    for i in range(5):
+        one = paged_flash_attention_fwd(q[:, i:i + 1], kp, vp, table,
+                                        q_start=q_start + i,
+                                        k_valid_len=q_start + i + 1,
+                                        window=window)
+        assert torch.equal(_bits(verify[:, i:i + 1]), _bits(one)), i
+
+
+def test_paged_kernel_rejects_what_it_does_not_take(card):
+    q = torch.randn(2, 1, 4, 64, device=card)
+    kp = torch.randn(5, 8, 1, 64, device=card)
+    table = torch.ones(2, 2, dtype=torch.int32, device=card)
+    kw = dict(q_start=0, k_valid_len=1)
+    with pytest.raises(TypeError, match="int32"):
+        paged_flash_attention_fwd(q, kp, kp, table.long(), **kw)
+    with pytest.raises(TypeError, match="dtype"):
+        paged_flash_attention_fwd(q.to(torch.bfloat16), kp, kp, table, **kw)
+    with pytest.raises(ValueError, match="shapes"):
+        paged_flash_attention_fwd(q, kp, kp, table[:1], **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_flash_attention_fwd(q, kp, kp, table.cpu(), **kw)
+    with pytest.raises(ValueError, match="instantiated"):
+        paged_flash_attention_fwd(q[..., :32], kp[..., :32], kp[..., :32],
+                                  table, **kw)
+
+
+def test_continuous_engine_on_the_card_matches_the_cpu(card):
+    """A short trace through the continuous engine on reduced gemma3-1b in
+    f32: the card's greedy tokens and statistics are the CPU's, plainly
+    and speculatively, and every model pass of a decode step goes through
+    the paged kernel, one launch per layer it runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serve import (ContinuousEngine, PagedCacheLayout,
+                                   poisson_trace)
+    cfg = get_config("gemma3-1b").reduced()
+    cpu = M.init(cfg, seed=3, dtype=torch.float32, device="cpu")
+    dev = M.Model(cfg, dtype=torch.float32, device=card)
+    dev.load_state_dict(cpu.state_dict())
+    trace = poisson_trace(6, rate=1.0, seed=2, min_prompt=3, max_prompt=14,
+                          vocab_size=cfg.vocab_size)
+    for kw in (dict(), dict(speculate_k=2, draft_layers=0)):
+        out = {}
+        for name, params, d in (("cpu", cpu, "cpu"), ("card", dev, card)):
+            eng = ContinuousEngine(
+                cfg, slots=3, layout=PagedCacheLayout(
+                    page_size=4, num_pages=19, max_pages_per_slot=6),
+                max_new=5, buckets=(4, 8, 16), param_dtype=torch.float32,
+                cache_dtype=torch.float32, device=d, **kw)
+            before = paged_flash_attention_fwd.launches
+            out[name] = eng.run(params, trace)
+            launches = paged_flash_attention_fwd.launches - before
+        steps = out["card"]["stats"]["dispatches"]["decode"]
+        per_step = cfg.num_layers * (1 + kw.get("speculate_k", 0))
+        if kw:     # the draft runs the prologue only
+            per_step = cfg.num_layers + kw["speculate_k"] * len(cfg.prologue)
+        assert launches == steps * per_step
+        for rid, r in out["cpu"]["results"].items():
+            assert out["card"]["results"][rid].tokens == r.tokens, (kw, rid)
+        assert out["card"]["stats"] == out["cpu"]["stats"]

@@ -186,9 +186,13 @@ def test_unported_decode_paths_raise():
     params = TM.init(cfg, seed=0, device="cpu")
     caches = TM.init_cache(cfg, 1, 8, torch.float32, "cpu")
     tok = torch.zeros(1, 1, dtype=torch.int64)
-    for mode in ("append_free", "paged"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TM.decode_step(cfg, params, caches, tok, 3, decode_mode=mode)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TM.decode_step(cfg, params, caches, tok, 3, decode_mode="append_free")
+    # the paged mode is ported (tests/test_torch_continuous.py); it needs
+    # page pools and a block table
+    with pytest.raises(ValueError, match="block_table"):
+        TM.decode_step(cfg, params, caches, tok, torch.tensor([3]),
+                       decode_mode="paged")
     with pytest.raises(NotImplementedError, match="vector"):
         TM.decode_step(cfg, params, caches, tok, torch.tensor([3]))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

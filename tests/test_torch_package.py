@@ -15,6 +15,8 @@ import repro_torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.paged_flash_attention import \
+    paged_flash_attention_fwd
 from repro_torch.kernels.quantized_gossip import quantize_ef
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -43,7 +45,10 @@ def test_importing_every_module_leaves_jax_and_repro_out():
     assert r.returncode == 0, r.stderr
     assert {"repro_torch.launch.serve", "repro_torch.compress.codecs",
             "repro_torch.compress.config", "repro_torch.compress.mixing",
-            "repro_torch.kernels.quantized_gossip"} <= set(_modules())
+            "repro_torch.kernels.quantized_gossip",
+            "repro_torch.kernels.paged_flash_attention",
+            "repro_torch.serve.continuous",
+            "repro_torch.serve.paged"} <= set(_modules())
 
 
 def test_sources_import_no_jax_and_no_repro():
@@ -67,9 +72,30 @@ def test_serve_launcher_without_card_exits_with_message():
     assert "CUDA device" in r.stderr and "--device cpu" in r.stderr
 
 
+@pytest.mark.parametrize("extra", [["--continuous"],
+                                   ["--continuous", "--speculate-k", "2"]])
+def test_continuous_launcher_without_card_exits_with_message(extra):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "gemma3-1b", "--reduced", *extra], cwd=ROOT,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert "CUDA device" in r.stderr and "--device cpu" in r.stderr
+
+
+def test_fixed_batch_speculation_is_not_ported():
+    from repro_torch.launch import serve
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        serve.main(["--arch", "gemma3-1b", "--reduced", "--speculate-k", "2",
+                    "--device", "cpu"])
+
+
 def test_entry_points_default_to_cuda():
     from repro_torch.models import model as M
-    from repro_torch.serve import make_engine
+    from repro_torch.serve import ContinuousEngine, make_engine
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     cfg = get_config("gemma3-1b").reduced()
@@ -81,6 +107,17 @@ def test_entry_points_default_to_cuda():
         M.init_cache(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_engine(cfg, batch=1, prompt_len=8, max_new=2)
+    layout = M.PagedCacheLayout(page_size=4, num_pages=9,
+                                max_pages_per_slot=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        M.init_paged_cache(cfg, layout)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ContinuousEngine(cfg, slots=2, layout=layout, max_new=2,
+                         buckets=(4, 8))
+    eng = ContinuousEngine(cfg, slots=2, layout=layout, max_new=2,
+                           buckets=(4, 8), device="cpu")
+    assert eng.device.type == "cpu"
+    assert eng.pools["prologue"][0]["attn"]["k"].device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA"):
         repro_torch.resolve_device()
     assert repro_torch.resolve_device("cpu").type == "cpu"
@@ -119,6 +156,16 @@ def test_cpu_attention_does_not_touch_the_kernel_counter():
     assert flash_attention_fwd.launches == before
 
 
+def test_cpu_paged_attention_does_not_touch_the_kernel_counter():
+    q = torch.randn(2, 3, 4, 16)
+    pool = torch.randn(5, 4, 2, 16)
+    table = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+    before = paged_flash_attention_fwd.launches
+    ops.paged_sdpa(q, pool, pool, table, q_start=torch.tensor([0, 2]),
+                   k_valid_len=torch.tensor([3, 5]))
+    assert paged_flash_attention_fwd.launches == before
+
+
 def test_cpu_quantize_does_not_touch_the_kernel_counter():
     from repro_torch.compress import CompressionConfig, compressed_dense_mix
     x = {"w": torch.randn(3, 40)}
@@ -138,6 +185,9 @@ def test_kernel_wrapper_takes_cuda_tensors_only():
     x = torch.randn(4, 32)
     with pytest.raises(ValueError, match="CUDA"):
         quantize_ef(x, None, 3, fmt="int8")
+    table = torch.zeros(1, 2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_flash_attention_fwd(q, q, q, table, q_start=0, k_valid_len=1)
 
 
 def test_kernels_build_into_the_checkout_only(tmp_path):
@@ -164,7 +214,7 @@ def test_each_library_hashes_its_own_source(tmp_path):
     shutil.copytree(PKG, checkout / "src" / "repro_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
     names = sorted(f.stem for f in (PKG / "kernels" / "csrc").glob("*.cu"))
-    assert {"flash_attention", "fused_dsgd",
+    assert {"flash_attention", "fused_dsgd", "paged_flash_attention",
             "quantized_gossip"} <= set(names)
     code = ("from repro_torch.kernels import _build\n"
             f"for name in {names!r}:\n"

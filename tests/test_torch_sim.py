@@ -25,10 +25,9 @@ reference's scan and loop backends, on the CPU.
   port's own 30-step fp8 losses by 4.2e-4).  Step by step, from the same
   state, the methods agree to 1e-6 (tests/test_torch_decentralized.py).
   The
-  reference runs the gemma model on the port's flat layout (one tensor
-  per block, restacked inside its loss), because compression chunks and
-  indexes each tensor on its own: on the reference's stacked blocks the
-  payload bits would differ by design (``repro_torch.compress.mixing``).
+  gemma case has two pattern blocks, and the reference runs on its own
+  stacked tree: the port quantizes each stacked leaf's block tensors
+  together, as the reference's leaf (``repro_torch.compress.mixing``).
 - The synthetic data of the port's numpy copy equals the reference's
   bit for bit.
 """
@@ -49,7 +48,7 @@ from repro.sim import engine as jengine
 from repro.topology import TopologySpec as JSpec
 from repro_torch.compress import CompressionConfig
 from repro_torch.configs import get_config
-from repro_torch.convert import _BLOCKS, tree_from_jax
+from repro_torch.convert import tree_from_jax
 from repro_torch.data import synthetic
 from repro_torch.models import mlp
 from repro_torch.models import model as TM
@@ -191,29 +190,12 @@ def test_compressed_mlp_simulation_matches_reference(name, codec):
     assert got.state["ct"] == STEPS
 
 
-def _restack(flat: dict, like):
-    """The reference's parameter pytree ``like`` rebuilt from the port's
-    flat layout: each ``stack.blocks.<pos>`` leaf is the stack of the
-    port's per-block tensors (the inverse of ``tree_from_jax``)."""
-    def leaf(path, x):
-        name = ".".join(str(getattr(p, "key", getattr(p, "idx", None)))
-                        for p in path)
-        m = _BLOCKS.match(name)
-        if m is None:
-            return flat[name]
-        head, pos, rest = m.groups()
-        return jnp.stack([flat[f"{head}.{b}.{pos}.{rest}"]
-                          for b in range(x.shape[0])])
-    return jax.tree_util.tree_map_with_path(leaf, like)
-
-
 def test_reduced_gemma_compressed_training_matches_reference():
     n, steps, eta, B, T = 3, 3, 0.01, 2, 16
-    jcfg = jget_config("gemma3-1b").reduced()
-    cfg = get_config("gemma3-1b").reduced()
+    jcfg = jget_config("gemma3-1b").reduced(num_blocks=2)
+    cfg = get_config("gemma3-1b").reduced(num_blocks=2)
     jparams = JM.init(jcfg, jax.random.PRNGKey(0), jnp.float32)
     flat = tree_from_jax(jax.tree.map(np.asarray, jparams))
-    jflat = {k: jnp.asarray(v.numpy()) for k, v in flat.items()}
     ccfg = dict(codec="int8", chunk=256, error_feedback=True, seed=0)
 
     def batches(step):
@@ -227,8 +209,7 @@ def test_reduced_gemma_compressed_training_matches_reference():
         schedule=TopologySpec("base", n, 1), batches=batches, steps=steps,
         eta=eta, device="cpu")
     want = jengine.simulate_decentralized(
-        loss_fn=lambda p, b: JM.loss_fn(jcfg, _restack(p, jparams), b)[0],
-        params=jflat,
+        loss_fn=lambda p, b: JM.loss_fn(jcfg, p, b)[0], params=jparams,
         method=jmake("dsgdm", compression=JCompressionConfig(**ccfg)),
         schedule=JSpec("base", n, 1),
         batches=lambda r: jax.tree.map(jnp.asarray, batches(r)),
