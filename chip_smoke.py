@@ -8,6 +8,7 @@ Phases (any failure exits non-zero and prints no result line):
 1. Card and build: the card's name and power limit, then every CUDA
    kernel of the ported paths built from the sources in this checkout,
    one ``nvcc`` per source, all started together, each build timed.
+   The spawned ranks of ``[dist]`` load these builds; none compiles.
 2. Each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it.  Times are CUDA-event medians of 25
    launches after warm-up, with the 50 MB L2 flushed before each launch.
@@ -33,6 +34,15 @@ Phases (any failure exits non-zero and prints no result line):
      e4m3's subnormal range: q, scale and the residual bit for bit.  No
      PyTorch call computes hash stochastic rounding with a residual, so
      its ``library_ms`` is null.
+   - The gossip combines (``[gossip-mix]``): both entry points of the
+     slots combine at one rank's f32 work-buffer shapes (the embedding,
+     an MLP gate, a norm scale), f32 and bf16, 1 to 3 slots with the
+     last one zeros at weight 0, and the quantized combine at the same
+     leaves' chunk rows, int8 and fp8, 1 to 3 payloads, plus every
+     payload byte value: bit for bit.  ``library_ms`` times
+     ``torch.tensordot(w, stack, dims=1)`` for the slots combine; no
+     PyTorch call dequantizes and combines, so the quantized combine's
+     is null.
    - Paged flash attention (``[paged]``), at the continuous serving
      path's shapes (8 slots with ragged positions, page size 16, 553
      pages of one kv head of 256, block table 8 x 69), decode (Tq = 1)
@@ -68,6 +78,23 @@ Phases (any failure exits non-zero and prints no result line):
    step), split into
    forward+backward, update and compressed mix, with the peak memory and
    the wire bytes per node per round against f32.
+   ``[dist]``: the same training across processes: 3 ranks of one node
+   each (``launch.distributed.spawn_local``, gloo, each message staged
+   through pinned host memory, all on this card), each through the
+   launcher's per-rank entry ``launch.train.train_rank`` for 3 steps,
+   its kernel counters set to 0 just before and read just after (340
+   slots combines, 340 fused updates and 26 flash forwards per rank per
+   step, asserted).  The simulation engine on the same parameters and
+   batches, run first, is the oracle: step 0's per-node losses equal,
+   later ones within 1e-2; every parameter element within 2^-5 |sim| +
+   2^-1 max|sim - init| of its tensor; the bytes each rank sent equal
+   the plan's messages times the f32 tree.  Split per step into
+   forward+backward, update, exchange and combine, with each rank's
+   peak memory.  ``[dist-compress]``: the same with int8 + EF (106
+   quantize and 106 quantized combines per rank per step), step 0's
+   payloads equal to the simulation's rows of the node (sha256 of
+   each leaf's q and scales), and the EF residuals within 2^-5 |sim| +
+   2^-1 max|sim| of their tensor.
 5. The port on the card against the port on the CPU: reduced gemma3-1b
    serving in f32 (greedy tokens equal, prefill logits within 1e-4); the
    five methods on the paper MLP (losses within 1e-5) and reduced
@@ -137,6 +164,17 @@ CONT_SLOTS, CONT_PAGE, CONT_NEW, CONT_K, CONT_DRAFT = 8, 16, 64, 4, 2
 CONT_REQUESTS, CONT_RATE, CONT_SPEC_REQUESTS = 32, 0.5, 16
 CONT_MIN_PROMPT = 64
 CONT_MAXP = -(-(PROMPT + CONT_NEW + CONT_K) // CONT_PAGE)      # 69 pages
+# the distributed path: the [train] cell split over TRAIN_N processes,
+# one node each, sharing the card through gloo
+DIST_STEPS, DIST_TIMEOUT, DIST_LOSS_TOL = 3, 600.0, 1e-2
+# one rank's (R, C) views of its f32 work buffers (ops._as_2d of the
+# (1, ...) tensors) and the same reference leaves' chunk rows (one node's
+# blocks back to back: the embedding, 4 MLP gates, 4 norm scales)
+GOSSIP_SHAPES = (("embed", (262144, 1152)), ("mlp.gate", (1152, 6912)),
+                 ("norm", (1, 1152)))
+QMIX_SHAPES = tuple((name, (-(-blocks * r * c // CHUNK), CHUNK))
+                    for (name, (r, c)), blocks in zip(GOSSIP_SHAPES,
+                                                      (1, 4, 4)))
 QUANT_EDGES = (  # (name, (R, C), row_offset, case)
     ("ragged rows", (1001, 256), 7, None),
     ("C=2", (13, 2), 0, None), ("C=32", (9, 32), 0, None),
@@ -214,8 +252,8 @@ def phase_build(torch):
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import _build
-    names = ("flash_attention", "fused_dsgd", "paged_flash_attention",
-             "quantized_gossip")
+    names = ("flash_attention", "fused_dsgd", "gossip_mix",
+             "paged_flash_attention", "quantized_gossip")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         secs = dict(zip(names, pool.map(_build.build, names)))
@@ -1242,6 +1280,494 @@ def phase_compress_cpu_vs_card(torch, dev):
                              f"by {err}")
 
 
+def phase_gossip_kernels(torch, dev):
+    """The gossip combines vs their plain versions on the card, bit for
+    bit: both entry points of the slots combine (f32 and bf16, S = 1, 2,
+    3, the last slot zeros at weight 0, as a rank that receives nothing
+    takes them) at one rank's work-buffer shapes, and the quantized
+    combine (int8 and fp8, S = 1, 2, 3) at the same leaves' chunk rows,
+    plus every payload byte value.  Returns (phase, JSON entry) for each
+    shape at the main path's S (own + one received) in f32 / int8."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gossip_mix import (gossip_mix_slots,
+                                                gossip_mix_stacked)
+    from repro_torch.kernels.quantized_gossip import (quantize_ef,
+                                                      quantized_gossip_mix)
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def weights(S, zero_last):
+        w = (torch.rand(S, generator=gen, device=dev) + 0.1).tolist()
+        if zero_last:
+            w[-1] = 0.0
+        return w
+
+    def same_bits(got, want):
+        nan = torch.isnan(want)      # fp8's NaN codes decode to NaN
+        return (got.dtype == want.dtype and got.shape == want.shape
+                and torch.equal(torch.isnan(got), nan)
+                and torch.equal(_bits(torch, got)[~nan],
+                                _bits(torch, want)[~nan]))
+
+    entries = []
+    for name, (R, C) in GOSSIP_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            for S in (1, 2, 3):
+                stack = torch.randn(S, R, C, generator=gen,
+                                    device=dev).to(dtype)
+                if S > 1:
+                    stack[-1].zero_()
+                bufs = list(stack.unbind(0))
+                w = weights(S, S > 1)
+                want = ref.gossip_mix_ref(bufs, w)
+                got = {"slots": gossip_mix_slots(bufs, w),
+                       "stacked": gossip_mix_stacked(stack, w)}
+                torch.cuda.synchronize()
+                for entry_point, g in got.items():
+                    ok = same_bits(g, want)
+                    print(f"[gossip-mix] {entry_point} {name} ({R}, {C}) "
+                          f"{dname} S={S}: bitwise {ok}")
+                    if not ok:
+                        raise SystemExit(f"gossip_mix_{entry_point} {name} "
+                                         f"{dname} S={S} differs from its "
+                                         f"plain version")
+                del got, want
+                if S == 2 and dtype == torch.float32:
+                    numel = R * C
+                    b_ms, b_by = bound_ms((S + 1) * numel * 4,
+                                          (2 * S - 1) * numel, "float32")
+                    wt = torch.tensor(w, device=dev)
+                    lib_ms = time_ms(torch, lambda: torch.tensordot(
+                        wt, stack, dims=1), flush)
+                    for row, fn, plain, line, phase in (
+                            ("slots", lambda: gossip_mix_slots(bufs, w),
+                             lambda: ref.gossip_mix_ref(bufs, w), 92,
+                             "dist-gossip_mix"),
+                            ("stacked", lambda: gossip_mix_stacked(stack, w),
+                             lambda: ref.gossip_mix_ref(stack, w), 69,
+                             "dist-gossip_mix_stacked")):
+                        entry = {
+                            "name": f"gossip_mix_{row}[{name},float32,S=2]",
+                            "route": "cuda",
+                            "source":
+                                "src/repro_torch/kernels/csrc/gossip_mix.cu",
+                            "replaces":
+                                f"src/repro/kernels/gossip_mix.py:{line}",
+                            "launches": None,
+                            "max_abs_err": 0.0,
+                            "ms": time_ms(torch, fn, flush),
+                            "plain_ms": time_ms(torch, plain, flush),
+                            "bound_ms": b_ms,
+                            "bound_by": b_by,
+                            "library_ms": lib_ms,
+                        }
+                        print(f"[gossip-mix] {entry['name']}: "
+                              f"{entry['ms']:.4f} ms (bound {b_ms:.4f} ms by "
+                              f"{b_by}; plain {entry['plain_ms']:.4f} ms; "
+                              f"tensordot {lib_ms:.4f} ms)")
+                        entries.append((phase, entry))
+                del stack, bufs
+                torch.cuda.empty_cache()
+
+    # every payload byte value through both formats, 0 to 3 slots
+    own = torch.randn(4, 256, generator=gen, device=dev)
+    codes = torch.arange(256, device=dev, dtype=torch.uint8).repeat(4, 1)
+    for fmt, pdt in (("int8", torch.int8), ("fp8", torch.float8_e4m3fn)):
+        q = codes.view(pdt)
+        sc = torch.rand(4, 1, generator=gen, device=dev)
+        for S in (0, 1, 2, 3):
+            w = weights(S + 1, False)
+            ok = same_bits(quantized_gossip_mix(own, [q] * S, [sc] * S, w),
+                           ref.quantized_gossip_mix_ref(own, [q] * S,
+                                                        [sc] * S, w))
+            print(f"[gossip-mix] quantized {fmt}, all 256 byte values, "
+                  f"S={S}: bitwise {ok} (NaN codes decode to NaN)")
+            if not ok:
+                raise SystemExit(f"quantized_gossip_mix {fmt} S={S} differs "
+                                 f"from its plain version on the byte "
+                                 f"sweep")
+    for name, (R, C) in QMIX_SHAPES:
+        own = torch.randn(R, C, generator=gen, device=dev)
+        for fmt in ("int8", "fp8"):
+            for S in (1, 2, 3):
+                qs, scales = [], []
+                for s in range(S):
+                    x = torch.randn(R, C, generator=gen, device=dev)
+                    q, sc, _ = quantize_ef(x, None, s + 1, 0, fmt=fmt)
+                    del x
+                    if S > 1 and s == S - 1:
+                        q.zero_()
+                        sc.zero_()
+                    qs.append(q)
+                    scales.append(sc)
+                w = weights(S + 1, S > 1)
+                want = ref.quantized_gossip_mix_ref(own, qs, scales, w)
+                got = quantized_gossip_mix(own, qs, scales, w)
+                torch.cuda.synchronize()
+                ok = same_bits(got, want)
+                print(f"[gossip-mix] quantized {name} ({R}, {C}) {fmt} "
+                      f"S={S}: bitwise {ok}")
+                if not ok:
+                    raise SystemExit(f"quantized_gossip_mix {name} {fmt} "
+                                     f"S={S} differs from its plain version")
+                del got, want
+                if S == 1 and fmt == COMPRESS_CODEC:
+                    numel = R * C
+                    # own and out f32, one payload byte, one scale per row;
+                    # 4 f32 operations per element
+                    b_ms, b_by = bound_ms(9 * numel + 4 * R, 4 * numel,
+                                          "float32")
+                    entry = {
+                        "name": f"quantized_gossip_mix[{name},{fmt},S=1]",
+                        "route": "cuda",
+                        "source": "src/repro_torch/kernels/csrc/"
+                                  "quantized_gossip.cu",
+                        "replaces":
+                            "src/repro/kernels/quantized_gossip.py:115",
+                        "launches": None,
+                        "max_abs_err": 0.0,
+                        "ms": time_ms(torch, lambda: quantized_gossip_mix(
+                            own, qs, scales, w), flush),
+                        "plain_ms": time_ms(
+                            torch, lambda: ref.quantized_gossip_mix_ref(
+                                own, qs, scales, w), flush),
+                        "bound_ms": b_ms,
+                        "bound_by": b_by,
+                        "library_ms": None,
+                    }
+                    print(f"[gossip-mix] {entry['name']} ({R} x {C}): "
+                          f"{entry['ms']:.4f} ms (bound {b_ms:.4f} ms by "
+                          f"{b_by}; plain {entry['plain_ms']:.4f} ms)")
+                    entries.append(("dist-compress-quantized_gossip_mix",
+                                    entry))
+                del qs, scales
+                torch.cuda.empty_cache()
+        del own
+    del flush
+    torch.cuda.empty_cache()
+    return entries
+
+
+def _payload_digest(q, scale):
+    """sha256 of a payload's bytes (q, then the scales), on the host."""
+    import hashlib
+
+    import torch
+    h = hashlib.sha256(q.contiguous().view(torch.uint8).cpu().numpy())
+    h.update(scale.contiguous().cpu().numpy())
+    return h.hexdigest()
+
+
+def _record_payloads(ops, digests, count, nodes):
+    """Wrap ``ops.quantize_payload`` so its first ``count`` calls leave
+    one digest per node's rows (``nodes`` equal row blocks) in
+    ``digests``; returns the function to restore."""
+    real = ops.quantize_payload
+
+    def recording(x, err=None, *, fmt, key, row_offset=0):
+        out = real(x, err, fmt=fmt, key=key, row_offset=row_offset)
+        if len(digests) < count:
+            rows = x.shape[0] // nodes
+            digests.append([_payload_digest(out[0][r * rows:(r + 1) * rows],
+                                            out[1][r * rows:(r + 1) * rows])
+                            for r in range(nodes)])
+        return out
+
+    ops.quantize_payload = recording
+    return real
+
+
+def _step_spans(marks):
+    """Per step, the CUDA-event time (ms) of each span, keyed by the mark
+    that opens it and summed over its repeats: "step" is the forward and
+    backward, "update" the fused update, "quantize", "exchange" and
+    "combine" the mixer's per-tensor (or per-leaf) phases."""
+    steps, cur = [], None
+    for name, ev in marks:
+        if name == "step":
+            cur = [(name, ev)]
+        elif cur is not None:
+            cur.append((name, ev))
+            if name == "end":
+                steps.append(cur)
+                cur = None
+    out = []
+    for seq in steps:
+        spans = {}
+        for (a, ea), (_, eb) in zip(seq, seq[1:]):
+            spans[a] = spans.get(a, 0.0) + ea.elapsed_time(eb)
+        out.append(spans)
+    return out
+
+
+def _dist_rank(rank, device, opts, ref_paths, disp, n_leaves):
+    """One rank of ``[dist]``: the launcher's per-rank entry
+    (``train_rank``) with every kernel counter set to 0 just before and
+    read just after; then this node's parameters (and EF residuals)
+    against the simulation's, element by element, on the card."""
+    import torch
+    from repro_torch import trace
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.fused_dsgd import fused_dsgd
+    from repro_torch.kernels.gossip_mix import (gossip_mix_slots,
+                                                gossip_mix_stacked)
+    from repro_torch.kernels.quantized_gossip import (quantize_ef,
+                                                      quantized_gossip_mix)
+    from repro_torch.launch.train import train_rank
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = {"gossip_mix": gossip_mix_slots,
+                "gossip_mix_stacked": gossip_mix_stacked,
+                "fused_dsgd": fused_dsgd, "flash": flash_attention_fwd,
+                "quantize_ef": quantize_ef,
+                "quantized_gossip_mix": quantized_gossip_mix}
+    digests = []
+    real = _record_payloads(ops, digests, n_leaves if opts.compress else 0,
+                            1)
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    try:
+        with trace.cuda_marks() as marks:
+            res = train_rank(opts, device)
+            torch.cuda.synchronize()
+    finally:
+        ops.quantize_payload = real
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated(device)
+    spans = _step_spans(marks)
+    del marks
+    on_card = all(v.device == device for v in res.params.values())
+    if res.state.get("ef") is not None:
+        on_card &= all(v.device == device for v in res.state["ef"].values())
+
+    def compare(got, want, floor):
+        """Elementwise |got - want| <= 2^-5 |want| + floor[k]: four bf16
+        ulps of the element or more, plus a per-tensor floor."""
+        worst = {"differing": 0, "violations": 0, "max_abs": 0.0,
+                 "max_ratio": 0.0, "elements": 0}
+        for k, g in got.items():
+            s = want[k].to(device).float()
+            diff = (g[0].float() - s).abs()
+            tol = 2.0 ** -5 * s.abs() + floor[k]
+            worst["elements"] += diff.numel()
+            worst["differing"] += int((diff > 0).sum())
+            worst["violations"] += int((diff > tol).sum())
+            worst["max_abs"] = max(worst["max_abs"], float(diff.max()))
+            pos = tol > 0
+            if bool(pos.any()):
+                worst["max_ratio"] = max(worst["max_ratio"], float(
+                    (diff[pos] / tol[pos]).max()))
+            del s, diff, tol, pos
+        return worst
+
+    ref = torch.load(ref_paths[rank], mmap=True)
+    checks = {"params": compare(res.params, ref["params"],
+                                {k: 2.0 ** -1 * v for k, v in disp.items()})}
+    if "ef" in ref:
+        checks["ef"] = compare(
+            res.state["ef"], ref["ef"],
+            {k: 2.0 ** -1 * float(v.float().abs().max())
+             for k, v in ref["ef"].items()})
+    del ref
+    return {"rank": rank, "device": str(device), "on_card": on_card,
+            "losses": res.losses, "launches": launches, "peak": peak,
+            "wall": wall, "spans": spans, "sent": dict(res.bundle.mixer.stats),
+            "ct": res.state.get("ct"), "digests": digests,
+            "checks": checks}
+
+
+def phase_dist(torch, dev, card, compression=None):
+    """Full-width gemma3-1b training across processes (``[dist]``): the
+    ``[train]`` cell split into TRAIN_N ranks of one node each, sharing
+    the card through gloo with pinned host staging, through the
+    launcher's per-rank entry; with ``compression``, ``[dist-compress]``.
+    The simulation engine on the same parameters and batches, run here
+    first, is the oracle.  Returns the gossip kernels' launch counts
+    over all ranks by phase."""
+    from repro_torch.compress import reference_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch.distributed import spawn_local
+    from repro_torch.launch.train import TrainOptions
+    from repro_torch.models import model as M
+    from repro_torch.optim.decentralized import make_method
+    from repro_torch.sim.engine import simulate_decentralized
+    from repro_torch.topology import TopologySpec, build_schedule
+
+    tag = "[dist-compress]" if compression else "[dist]"
+    pre = "dist-compress-" if compression else "dist-"
+    cfg = get_config("gemma3-1b")
+    spec = TopologySpec(name="base", n=TRAIN_N, k=1)
+    opts = TrainOptions(arch="gemma3-1b", topology="base", k=1,
+                        method="dsgdm", eta=TRAIN_ETA, steps=DIST_STEPS,
+                        batch=TRAIN_N * TRAIN_B, seq=TRAIN_SEQ,
+                        compress=compression and compression.to_json(),
+                        log_every=1)
+
+    # the oracle, on the same parameters and batches, its per-node losses
+    # and (compressed) step 0's payload digests recorded on the way
+    init = M.init(cfg, seed=0, dtype=torch.bfloat16, device=dev).state_dict()
+    leaves = reference_leaves(init)
+    numel = {k: v.numel() for k, v in init.items() if v.is_floating_point()}
+    per_node, sim_digests = [], []
+
+    def loss_fn(p, b):
+        loss = M.loss_fn(cfg, p, b)[0]
+        per_node.append(loss.detach())
+        return loss
+
+    def batches(step):
+        raw = token_batches(step, batch=TRAIN_N * TRAIN_B, seq=TRAIN_SEQ,
+                            vocab=cfg.vocab_size)
+        return {k: v.reshape(TRAIN_N, TRAIN_B, TRAIN_SEQ)
+                for k, v in raw.items()}
+
+    t0 = time.perf_counter()
+    real = _record_payloads(ops, sim_digests,
+                            len(leaves) if compression else 0, TRAIN_N)
+    try:
+        res = simulate_decentralized(
+            loss_fn=loss_fn, params=init,
+            method=make_method("dsgdm", TRAIN_MOMENTUM,
+                               compression=compression),
+            schedule=spec, batches=batches, steps=DIST_STEPS, eta=TRAIN_ETA,
+            device=dev)
+        torch.cuda.synchronize()
+    finally:
+        ops.quantize_payload = real
+    sim_s = time.perf_counter() - t0
+    sim_losses = torch.stack(per_node).reshape(DIST_STEPS,
+                                               TRAIN_N).T.cpu().tolist()
+    disp = {k: float((res.params[k].float() - v.float()).abs().max())
+            for k, v in init.items()}
+    del init, per_node
+    ref_dir = ROOT / "build" / "chip_smoke_dist"
+    ref_dir.mkdir(parents=True, exist_ok=True)
+    paths = [ref_dir / f"{pre}node{r}.pt" for r in range(TRAIN_N)]
+    t0 = time.perf_counter()
+    for r, path in enumerate(paths):
+        node = {"params": {k: v[r].cpu() for k, v in res.params.items()}}
+        if compression:
+            node["ef"] = {k: v[r].cpu() for k, v in res.state["ef"].items()}
+        torch.save(node, path)
+        del node
+    print(f"{tag} oracle: simulate_decentralized, {DIST_STEPS} steps in "
+          f"{sim_s:.1f}s; per-node results written in "
+          f"{time.perf_counter() - t0:.1f}s")
+    del res
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    try:
+        results = spawn_local(
+            _dist_rank, TRAIN_N, backend="gloo", device=dev,
+            timeout=DIST_TIMEOUT,
+            args=(opts, [str(p) for p in paths], disp, len(leaves)))
+    finally:
+        for path in paths:
+            path.unlink(missing_ok=True)
+    total_s = time.perf_counter() - t0
+
+    plan = build_schedule(spec).as_ppermute_plan()
+    f32_bytes = 4 * sum(numel.values())
+    wire = f32_bytes
+    if compression:
+        wire = sum(compression.wire_bytes(sum(numel[k] for k in g))
+                   for g in leaves)
+    n_comp = len(leaves) * DIST_STEPS if compression else 0
+    want = {"gossip_mix": 0 if compression else len(numel) * DIST_STEPS,
+            "gossip_mix_stacked": 0,
+            "fused_dsgd": len(numel) * DIST_STEPS,
+            "flash": cfg.num_layers * DIST_STEPS,
+            "quantize_ef": n_comp, "quantized_gossip_mix": n_comp}
+    print(f"{tag} gemma3-1b full width in bf16, {TRAIN_N} ranks on "
+          f"{dev} (gloo, each message staged through pinned host memory: "
+          f"not NCCL's times), base k=1, dsgdm {TRAIN_MOMENTUM}, eta "
+          f"{TRAIN_ETA}, {TRAIN_B} x {TRAIN_SEQ} tokens per rank, "
+          f"{DIST_STEPS} steps; spawn to join {total_s:.1f}s")
+    fails = []
+    for res in results:
+        r = res["rank"]
+        sends = sum(1 for s in range(DIST_STEPS)
+                    for sp in plan.rounds[s % len(plan)].slots
+                    for src, _ in sp.perm if src == r)
+        per_send = 2 * len(leaves) if compression else len(numel)
+        want_sent = {"messages": sends * per_send, "bytes": sends * wire}
+        if res["launches"] != want:
+            fails.append(f"rank {r} launches {res['launches']}, expected "
+                         f"{want}")
+        if not (res["on_card"] and res["device"].startswith("cuda")):
+            fails.append(f"rank {r} ran on {res['device']}, or its tensors "
+                         f"left the card")
+        if res["sent"] != want_sent:
+            fails.append(f"rank {r} sent {res['sent']}, the plan asks "
+                         f"{want_sent}")
+        got_l, sim_l = res["losses"], sim_losses[r]
+        loss_err = [abs(a - b) for a, b in zip(got_l, sim_l)]
+        if not (len(got_l) == DIST_STEPS and got_l[0] == sim_l[0]
+                and max(loss_err) <= DIST_LOSS_TOL):
+            fails.append(f"rank {r} losses {got_l}, simulation {sim_l}")
+        for what, c in res["checks"].items():
+            print(f"{tag} rank {r} {what} vs the simulation: "
+                  f"{c['differing']} of {c['elements']} elements differ, "
+                  f"max abs {c['max_abs']:.3e}, worst |diff|/tol "
+                  f"{c['max_ratio']:.3f}, {c['violations']} over tol")
+            if c["violations"]:
+                fails.append(f"rank {r} {what}: {c['violations']} elements "
+                             f"over tolerance")
+        if compression:
+            same = [d[0] for d in res["digests"]] \
+                == [d[r] for d in sim_digests]
+            print(f"{tag} rank {r} step 0 payloads (q, scale) of "
+                  f"{len(res['digests'])} reference leaves equal the "
+                  f"simulation's rows of node {r} bit for bit: {same}")
+            if not same or len(res["digests"]) != len(leaves):
+                fails.append(f"rank {r} step 0 payloads differ from the "
+                             f"simulation's")
+            if res["ct"] != DIST_STEPS:
+                fails.append(f"rank {r} ct = {res['ct']}")
+        spans = res["spans"][1:]
+        med = {k: statistics.median(s.get(k, 0.0) for s in spans)
+               for k in ("step", "update", "quantize", "exchange",
+                         "combine")}
+        step_ms = statistics.median(sum(s.values()) for s in spans)
+        print(f"{tag} rank {r} {card}: {step_ms:.1f} ms/step (median of "
+              f"steps 1-{DIST_STEPS - 1}, CUDA events): forward+backward "
+              f"{med['step']:.1f}, update {med['update']:.1f}"
+              + (f", quantize {med['quantize']:.1f}" if compression else "")
+              + f", exchange {med['exchange']:.1f}, combine "
+              f"{med['combine']:.1f} ms; wall {res['wall']:.1f}s; peak "
+              f"memory {res['peak'] / 2**30:.2f} GiB; losses "
+              f"{[round(x, 4) for x in got_l]} (simulation "
+              f"{[round(x, 4) for x in sim_l]}, equal per step: "
+              f"{[a == b for a, b in zip(got_l, sim_l)]}, max diff "
+              f"{max(loss_err):.3e})")
+        print(f"{tag} rank {r} sent {res['sent']['bytes'] / DIST_STEPS:.0f} "
+              f"bytes per step in {res['sent']['messages']} messages over "
+              f"{DIST_STEPS} steps: {sends} plan sends x {wire} bytes"
+              + (f" ({f32_bytes / wire:.3f}x fewer than f32's {f32_bytes})"
+                 if compression else " (the f32 tree)"))
+        print(f"{tag} rank {r} launches over {DIST_STEPS} steps: "
+              f"{res['launches']}")
+    if fails:
+        raise SystemExit(f"{tag} failed:\n" + "\n".join(fails))
+    total = {k: sum(res["launches"][k] for res in results)
+             for k in ("gossip_mix", "gossip_mix_stacked",
+                       "quantized_gossip_mix")}
+    if compression:
+        return {pre + "quantized_gossip_mix": total["quantized_gossip_mix"]}
+    return {pre + "gossip_mix": total["gossip_mix"],
+            pre + "gossip_mix_stacked": total["gossip_mix_stacked"]}
+
+
 def phase_consensus(torch, dev):
     """``optim.mix`` over one period of Base-(k+1) on the card reaches
     exact consensus (to f32 rounding); the ring after as many rounds
@@ -1371,6 +1897,7 @@ def main() -> None:
     entries += phase_dsgd_kernels(torch, dev)
     entries += phase_quantize_kernels(torch, dev)
     entries += phase_paged_kernels(torch, dev)
+    entries += phase_gossip_kernels(torch, dev)
     launches, params, engine, tokens = phase_main_path(torch, dev, card)
     launches.update(phase_continuous(torch, dev, card, params))
     launches.update(phase_continuous(torch, dev, card, params, spec=True))
@@ -1381,6 +1908,11 @@ def main() -> None:
     launches.update(phase_train(torch, dev, card, profile=args.profile))
     launches.update(phase_train(
         torch, dev, card, profile=args.profile,
+        compression=CompressionConfig(codec=COMPRESS_CODEC, chunk=CHUNK,
+                                      error_feedback=True, seed=0)))
+    launches.update(phase_dist(torch, dev, card))
+    launches.update(phase_dist(
+        torch, dev, card,
         compression=CompressionConfig(codec=COMPRESS_CODEC, chunk=CHUNK,
                                       error_feedback=True, seed=0)))
     for phase, e in entries:

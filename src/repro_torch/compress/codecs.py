@@ -17,7 +17,9 @@ the tensor <-> rows plumbing).  The contract is two functions:
   ``row_offset`` the global index of row 0.
 
 ``int8`` and ``fp8`` go through ``repro_torch.kernels.ops`` (the CUDA
-quantize+EF kernel on the card, its plain version on the CPU).  ``int4``
+quantize+EF kernel on the card, its plain version on the CPU).  Their
+``fused_mix`` is True: the distributed runtime combines their received
+payloads with ``ops.quantized_gossip_mix`` instead of decoding them.  ``int4``
 and ``topk`` are plain PyTorch on both devices: the reference has no
 kernel for them.  ``identity`` is a registry entry for byte accounting;
 ``repro_torch.compress.config.resolve`` turns it into the uncompressed
@@ -39,6 +41,8 @@ class Codec:
     name: str
     compress: Callable
     decode: Callable
+    # the payload is {"q", "scale"} that ops.quantized_gossip_mix combines
+    fused_mix: bool = False
 
 
 CODECS: dict[str, Codec] = {}
@@ -93,7 +97,7 @@ def _make_quant(fmt: str) -> Codec:
         hat *= payload["scale"]
         return hat
 
-    return register_codec(Codec(fmt, compress, decode))
+    return register_codec(Codec(fmt, compress, decode, fused_mix=True))
 
 
 _make_quant("int8")

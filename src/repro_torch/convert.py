@@ -7,7 +7,10 @@ leading ``num_blocks`` axis, ``blocks.py:146-160``) and are one module
 per block here (``stack.blocks.<block>.<i>``).  Weight orientation is the
 same on both sides, so each leaf is a copy.  Paged KV caches (page pools)
 cross the same way, in both directions (:func:`paged_cache_from_jax`,
-:func:`paged_cache_to_numpy`).
+:func:`paged_cache_to_numpy`).  The distributed runtime holds one node per
+rank: :func:`rank_slice` cuts rank r's ``(1, ...)`` slice out of a
+node-stacked tree or method state, and :func:`stack_ranks` puts the
+ranks' slices back together.
 """
 from __future__ import annotations
 
@@ -115,3 +118,30 @@ def paged_cache_to_numpy(pools: dict) -> dict:
                                               for blk in blocks])
                                  for n in ("k", "v")}}
                        for i in range(len(blocks[0]) if blocks else 0)]}
+
+
+def rank_slice(tree, r: int):
+    """Rank r's slice of a node-stacked flat dict, or of a method state (a
+    dict of such dicts, with a compressed method's host-int ``ct``): every
+    tensor ``x`` becomes the view ``x[r:r+1]``, with its node axis of size
+    1, the shape a rank of the distributed runtime holds.  Anything else
+    (an int, None) passes through."""
+    if isinstance(tree, dict):
+        return {k: rank_slice(v, r) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree[r:r + 1]
+    return tree
+
+
+def stack_ranks(slices):
+    """The inverse of :func:`rank_slice`: the ranks' ``(1, ...)`` slices,
+    in rank order, concatenated along the node axis (on the CPU).  An int
+    such as ``ct`` must be the same on every rank."""
+    first = slices[0]
+    if isinstance(first, dict):
+        return {k: stack_ranks([s[k] for s in slices]) for k in first}
+    if isinstance(first, torch.Tensor):
+        return torch.cat([s.detach().cpu() for s in slices])
+    if any(s != first for s in slices[1:]):
+        raise ValueError(f"ranks disagree: {slices}")
+    return first

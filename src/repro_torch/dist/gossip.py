@@ -1,0 +1,252 @@
+"""Point-to-point gossip: a compiled slot plan executed across the ranks of
+a ``torch.distributed`` group, one node per rank (the port of
+``repro/dist/gossip.py``).
+
+A round of the plan is ``x'_i = w_self[i] x_i + sum_s w_recv[s][i] *
+recv_s(x)``.  Each slot is a partial permutation (every node sends and
+receives at most one message), executed as one
+``dist.batch_isend_irecv``: this rank sends to ``dst`` where ``(me, dst)``
+is in the slot's ``perm`` and receives from ``src`` where ``(src, me)``
+is.  A rank that receives nothing in a slot takes zeros at weight 0, as
+``ppermute`` gives it.  So a degree-k round costs at most k messages per
+node and no all-reduce at all: the paper's communication saving.  The
+round is chosen on the host (``r % len(plan)``); no ``lax.switch`` is
+needed.
+
+A rank holds its own node's flat dict, every tensor with a leading node
+axis of size 1 (the reference's shard shape), so
+``repro_torch.optim.decentralized`` runs unchanged through its
+callable-mixer branch.  Each float tensor becomes an f32 work buffer, the
+received buffers come in beside it, and ``ops.gossip_mix`` (the CUDA
+slots-combine kernel on the card) sums them in slot order; the result is
+cast back to the tensor's dtype.  With ``flatten=True`` one f32 buffer
+holds all float tensors, so each slot sends one message for the whole
+tree.  Tensors that are not floats pass through: a weighted average is
+meaningless for them.
+
+Compressed gossip (``compression=``, DESIGN.md Sec. 13): each reference
+leaf (the blocks of one stacked leaf, back to back, padded once:
+``compress.mixing.group_to_rows``) is quantized once per step, with
+``row_offset = rank * rows``, so its payload bits equal the simulation's
+rows of this node.  The payload arrays (``q`` and ``scale``) go through
+the same exchange, and the combine is ``ops.quantized_gossip_mix`` (the
+CUDA kernel on the card) for int8 and fp8, decode-and-accumulate for the
+other codecs.  The EF21 residual is written into the ``ef`` tensors in
+place, as ``compress.compressed_dense_mix`` does.
+
+Messages travel as bytes.  Under the ``gloo`` backend, whose send and
+receive read host memory, a message on the card is staged through a
+pinned host buffer (a copy out before the send, a copy in after the
+receive); ``nccl`` moves card memory directly.  The combine runs where
+the tensors are.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.distributed as dist
+
+from repro_torch import trace
+from repro_torch.compress import get_codec
+from repro_torch.compress import resolve as resolve_compression
+from repro_torch.compress.mixing import (group_to_rows, reference_leaves,
+                                         rows_to_group)
+from repro_torch.core.ppermute_plan import SchedulePlan
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import _f32_weights, sr_key
+
+
+@dataclass(frozen=True)
+class _Slot:
+    send_to: int | None      # the global rank this rank sends to
+    recv_from: int | None    # the global rank it receives from
+    weight: float            # recv_weight[me] in f32
+
+
+@dataclass(frozen=True)
+class _Round:
+    weights: list            # [w_self, *slot weights] of this rank, f32
+    slots: tuple
+
+
+def _rank_rounds(plan: SchedulePlan, me: int, to_global) -> list[_Round]:
+    """This rank's side of every round: peers and f32 weights."""
+    rounds = []
+    for rp in plan.rounds:
+        slots = []
+        for sp in rp.slots:
+            dst = next((d for s, d in sp.perm if s == me), None)
+            src = next((s for s, d in sp.perm if d == me), None)
+            slots.append(_Slot(None if dst is None else to_global(dst),
+                               None if src is None else to_global(src),
+                               _f32_weights([sp.recv_weight[me]])[0]))
+        w = _f32_weights([rp.self_weight[me]]) + [s.weight for s in slots]
+        rounds.append(_Round(w, tuple(slots)))
+    return rounds
+
+
+def _as_bytes(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(-1).view(torch.uint8)
+
+
+class _Wire:
+    """This rank's point-to-point transport: one slot's messages per
+    call, counted in ``stats``."""
+
+    def __init__(self, group):
+        self.group = group
+        self.stage = dist.get_backend(group) == "gloo"
+        self.stats = {"messages": 0, "bytes": 0}
+
+    def exchange(self, tensors: list, slot: _Slot) -> list:
+        """Send ``tensors`` to the slot's peer and receive their like from
+        its source, zeros where this rank receives nothing."""
+        if slot.recv_from is None:
+            recvs = [torch.zeros_like(t) for t in tensors]
+        else:
+            recvs = [torch.empty_like(t) for t in tensors]
+        p2p, copy_in = [], []
+        if slot.send_to is not None:
+            for t in tensors:
+                b = _as_bytes(t.contiguous())
+                if self.stage and b.is_cuda:
+                    host = torch.empty(b.shape, dtype=torch.uint8,
+                                       pin_memory=True)
+                    b = host.copy_(b)       # waits for the card
+                p2p.append(dist.P2POp(dist.isend, b, slot.send_to,
+                                      self.group))
+                self.stats["messages"] += 1
+                self.stats["bytes"] += b.numel()
+        if slot.recv_from is not None:
+            for r in recvs:
+                b = _as_bytes(r)
+                if self.stage and b.is_cuda:
+                    host = torch.empty(b.shape, dtype=torch.uint8,
+                                       pin_memory=True)
+                    copy_in.append((b, host))
+                    b = host
+                p2p.append(dist.P2POp(dist.irecv, b, slot.recv_from,
+                                      self.group))
+        if p2p:
+            for work in dist.batch_isend_irecv(p2p):
+                work.wait()
+        for b, host in copy_in:
+            b.copy_(host)
+        return recvs
+
+
+def make_gossip_mixer(group, plan: SchedulePlan, *, flatten: bool = False,
+                      compression=None):
+    """Build this rank's ``mixer(tree, r) -> tree`` applying round
+    ``r % len(plan)`` over ``group`` (None: the default group), whose
+    rank i is the plan's node i.
+
+    ``tree`` is this rank's flat dict, every tensor with a leading node
+    axis of size 1.  With ``compression`` (a ``CompressionConfig`` or a
+    CLI string; identity and None mean uncompressed) the signature is
+    ``mixer(tree, r, ef, t) -> (tree, ef)``: ``ef`` the EF21 residuals
+    mirroring ``tree`` (None without error feedback), updated in place,
+    and ``t`` the step counter keying the stochastic rounding.  The
+    mixer's ``stats`` counts the messages and bytes this rank sent."""
+    ccfg = resolve_compression(compression)
+    if ccfg is not None and flatten:
+        raise ValueError(
+            "flatten_gossip + compression is unsupported: the whole-tree "
+            "flat buffer would chunk across leaf boundaries, breaking "
+            "payload-bit parity with the per-leaf simulation layout")
+    world = dist.get_world_size(group)
+    if world != plan.n:
+        raise ValueError(f"plan built for n={plan.n} nodes but the group "
+                         f"has {world} ranks")
+    if len(plan.rounds) == 0:
+        raise ValueError("empty schedule plan")
+    me = dist.get_rank(group)
+    if group is None or group is dist.group.WORLD:
+        def to_global(r):
+            return r
+    else:
+        def to_global(r):
+            return dist.get_global_rank(group, r)
+    rounds = _rank_rounds(plan, me, to_global)
+    wire = _Wire(group)
+
+    def combine(work: torch.Tensor, rnd: _Round) -> torch.Tensor:
+        trace.mark("exchange")
+        recvs = [wire.exchange([work], slot)[0] for slot in rnd.slots]
+        trace.mark("combine")
+        return ops.gossip_mix([work, *recvs], rnd.weights)
+
+    def mixer(tree: dict, r: int) -> dict:
+        rnd = rounds[r % len(rounds)]
+        keys = [k for k, x in tree.items() if x.is_floating_point()]
+        out = dict(tree)
+        if flatten and keys:
+            flat = torch.cat([tree[k].reshape(-1).to(torch.float32)
+                              for k in keys])
+            mixed = combine(flat, rnd)
+            del flat
+            start = 0
+            for k in keys:
+                x = tree[k]
+                out[k] = mixed[start:start + x.numel()].reshape(
+                    x.shape).to(x.dtype)
+                start += x.numel()
+            return out
+        for k in keys:
+            x = tree[k]
+            out[k] = combine(x.to(torch.float32), rnd).to(x.dtype)
+        return out
+
+    if ccfg is None:
+        mixer.stats = wire.stats
+        return mixer
+
+    codec = get_codec(ccfg.codec)
+
+    def compressed_mixer(tree: dict, r: int, ef: dict | None, t: int):
+        rnd = rounds[r % len(rounds)]
+        key = sr_key(ccfg.seed, t)
+        out = {}
+        for names in reference_leaves(tree):
+            xs = [tree[k] for k in names]
+            if not xs[0].is_floating_point():
+                out.update(zip(names, xs))
+                continue
+            shape = xs[0].shape
+            es = None if ef is None else [ef[k] for k in names]
+            trace.mark("quantize")
+            own = group_to_rows(xs, ccfg.chunk)
+            e2d = None if es is None else group_to_rows(es, ccfg.chunk)
+            payload, resid = codec.compress(ccfg, own, e2d, key,
+                                            me * own.shape[0])
+            del e2d
+            if es is not None:
+                for e, part in zip(es, rows_to_group(resid, shape,
+                                                     len(names))):
+                    e.copy_(part)
+                del part
+            del resid
+            trace.mark("exchange")
+            fields = sorted(payload)
+            recvs = [dict(zip(fields, wire.exchange(
+                [payload[f] for f in fields], slot))) for slot in rnd.slots]
+            del payload
+            trace.mark("combine")
+            if codec.fused_mix:
+                mixed = ops.quantized_gossip_mix(
+                    own, [rc["q"] for rc in recvs],
+                    [rc["scale"] for rc in recvs], rnd.weights)
+            else:
+                mixed = rnd.weights[0] * own
+                for w, rc in zip(rnd.weights[1:], recvs):
+                    mixed = mixed + w * codec.decode(ccfg, rc)
+            del own, recvs
+            for k, x, part in zip(names, xs, rows_to_group(mixed, shape,
+                                                           len(names))):
+                out[k] = part.to(x.dtype)
+            del mixed, part
+        return {k: out[k] for k in tree}, ef
+
+    compressed_mixer.stats = wire.stats
+    return compressed_mixer

@@ -38,6 +38,24 @@
 // keep the row in registers instead of reading it twice, read the bf16
 // leaf directly instead of the f32 copy the chunk-row layout makes, and
 // fuse the decode and the mix into the same pass.
+//
+// The second kernel here is the compressed gossip round's combine, on the
+// node's own exact chunk rows and the S payloads it received:
+//
+//     out = w[0] * own + sum_s w[s+1] * (q_s * scale_s)     (f32, s in order)
+//
+// own (R, C) f32, q_s (R, C) int8 or fp8 e4m3fn, scale_s (R, 1) f32,
+// 0 <= S <= 32.  It replaces the TPU kernel
+// quantized_gossip_mix_slots_pallas (src/repro/kernels/quantized_gossip.py
+// :115, body _qmix_slots_kernel at :101); the plain version is
+// repro_torch.kernels.ref.quantized_gossip_mix_ref, bit for bit: explicit
+// _rn products and sums in its order, and the payload decoded as the
+// quantize kernel decodes it (int8 exactly; fp8 through the hardware's
+// e4m3 -> half conversion, exact for every finite code).  Bound: bytes,
+// 8 + S B per element (own and out 4 B each, one payload byte per slot)
+// plus 4 B per row and slot.  Design: one warp per row, as above; the
+// slot pointers and weights travel in a parameter struct and the slot
+// loop is unrolled over its 32 entries with a guard.
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
@@ -135,6 +153,56 @@ cudaError_t launch(const float* x, const float* err, uint8_t* q,
   return cudaGetLastError();
 }
 
+constexpr int kMaxMixSlots = 32;
+
+struct QSlots {
+  const uint8_t* q[kMaxMixSlots];
+  const float* scale[kMaxMixSlots];
+  float w[kMaxMixSlots + 1];  // w[0] is the own value's weight
+  int n;
+};
+
+template <int kFmt>
+__device__ __forceinline__ float decode(uint8_t b) {
+  if (kFmt == 0) return __int2float_rn((int)(int8_t)b);
+  return __half2float(
+      __half(__nv_cvt_fp8_to_halfraw((__nv_fp8_storage_t)b, __NV_E4M3)));
+}
+
+template <int kFmt>
+__global__ void __launch_bounds__(kThreads)
+    quantized_gossip_mix_kernel(const float* __restrict__ own, const QSlots s,
+                                float* __restrict__ out, int64_t rows,
+                                int64_t cols) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warp = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int64_t n_warps = (int64_t)gridDim.x * kWarps;
+  for (int64_t r = warp; r < rows; r += n_warps) {
+    const int64_t base = r * cols;
+    for (int64_t c = lane; c < cols; c += 32) {
+      const int64_t i = base + c;
+      float acc = __fmul_rn(s.w[0], own[i]);
+#pragma unroll
+      for (int k = 0; k < kMaxMixSlots; ++k) {
+        if (k >= s.n) break;
+        const float hat = __fmul_rn(decode<kFmt>(s.q[k][i]), s.scale[k][r]);
+        acc = __fadd_rn(acc, __fmul_rn(s.w[k + 1], hat));
+      }
+      out[i] = acc;
+    }
+  }
+}
+
+template <int kFmt>
+cudaError_t launch_mix(const float* own, const QSlots& s, float* out,
+                       int64_t rows, int64_t cols, cudaStream_t stream) {
+  int64_t blocks = (rows + kWarps - 1) / kWarps;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  quantized_gossip_mix_kernel<kFmt><<<(unsigned)blocks, kThreads, 0,
+                                      stream>>>(own, s, out, rows, cols);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -163,6 +231,33 @@ int repro_quantize_ef(int fmt, const float* x, const float* err, void* q,
   if (fmt == 1)
     return (int)launch<1, true>(x, err, qb, scale, resid, key, row_offset,
                                 inv_qmax, rows, cols, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// fmt: 0 = int8, 1 = fp8 e4m3fn.  own, out: contiguous (rows, cols)
+// float32, out aliasing nothing; q: n_slots pointers (a host array) to
+// (rows, cols) payload bytes; scale: n_slots pointers to rows floats; w:
+// n_slots + 1 floats (a host array), the own value's weight first.
+// Returns the cudaError_t of the launch (0 on success); nothing is
+// synchronised.
+int repro_quantized_gossip_mix(int fmt, const float* own,
+                               const void* const* q,
+                               const float* const* scale, const float* w,
+                               int n_slots, float* out, int64_t rows,
+                               int64_t cols, void* stream) {
+  if (rows < 1 || cols < 1 || n_slots < 0 || n_slots > kMaxMixSlots)
+    return (int)cudaErrorInvalidValue;
+  QSlots s{};
+  s.n = n_slots;
+  s.w[0] = w[0];
+  for (int k = 0; k < n_slots; ++k) {
+    s.q[k] = static_cast<const uint8_t*>(q[k]);
+    s.scale[k] = scale[k];
+    s.w[k + 1] = w[k + 1];
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (fmt == 0) return (int)launch_mix<0>(own, s, out, rows, cols, st);
+  if (fmt == 1) return (int)launch_mix<1>(own, s, out, rows, cols, st);
   return (int)cudaErrorInvalidValue;
 }
 

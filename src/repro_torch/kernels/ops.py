@@ -8,7 +8,10 @@ counterpart here.  Launches are counted on the kernel wrappers
 (``flash_attention.flash_attention_fwd.launches``,
 ``paged_flash_attention.paged_flash_attention_fwd.launches``,
 ``fused_dsgd.fused_dsgd.launches``,
-``quantized_gossip.quantize_ef.launches``).
+``quantized_gossip.quantize_ef.launches``,
+``gossip_mix.gossip_mix_slots.launches``,
+``gossip_mix.gossip_mix_stacked.launches``,
+``quantized_gossip.quantized_gossip_mix.launches``).
 """
 from __future__ import annotations
 
@@ -17,8 +20,9 @@ import torch
 from . import ref
 from .flash_attention import flash_attention_fwd
 from .fused_dsgd import fused_dsgd
+from .gossip_mix import gossip_mix_slots, gossip_mix_stacked
 from .paged_flash_attention import paged_flash_attention_fwd
-from .quantized_gossip import quantize_ef
+from .quantized_gossip import quantize_ef, quantized_gossip_mix as _qmix
 
 
 def _as_2d(a: torch.Tensor, *, lead_rows: bool = False):
@@ -37,6 +41,56 @@ def _as_2d(a: torch.Tensor, *, lead_rows: bool = False):
     if a.ndim == 1:
         return a.reshape(1, -1), shape
     return a.reshape(-1, shape[-1]), shape
+
+
+# ---------------------------------------------------------------------------
+# gossip combine
+# ---------------------------------------------------------------------------
+
+def gossip_mix(bufs, weights):
+    """Fused weighted combine ``sum_s weights[s] * bufs[s]`` (the
+    reference's ``ops.gossip_mix``, ``ops.py:152-189``).
+
+    ``bufs`` is a sequence of S equal-shape buffers (the distributed
+    round's own buffer and each received one: the slots entry point) or
+    a stacked ``(S, ...)`` tensor (the stacked entry point).  ``weights``
+    is S floats.  The output has the slot shape and dtype."""
+    if isinstance(bufs, (list, tuple)):
+        slots = list(bufs)
+        if not slots:
+            raise ValueError("gossip_mix needs at least one buffer")
+        dev = slots[0].device
+        if dev.type == "cuda":
+            two_d = [_as_2d(b) for b in slots]
+            out = gossip_mix_slots([b for b, _ in two_d], weights)
+            return out.reshape(two_d[0][1])
+    else:
+        dev = bufs.device
+        if dev.type == "cuda":
+            S, shape = bufs.shape[0], bufs.shape[1:]
+            R, C = _as_2d(bufs[0])[0].shape
+            return gossip_mix_stacked(bufs.reshape(S, R, C),
+                                      weights).reshape(shape)
+    if dev.type == "cpu":
+        return ref.gossip_mix_ref(bufs, weights)
+    raise NotImplementedError(f"no gossip-mix kernel for device {dev}")
+
+
+def quantized_gossip_mix(own, q_slots, scale_slots, weights):
+    """Fused dequantize-and-combine for one compressed gossip round:
+    ``w[0]*own + sum_s w[s+1]*(q_s * scale_s)`` (the reference's
+    ``ops.quantized_gossip_mix``, ``ops.py:222-242``).
+
+    own: (R, C) f32; q_slots: S received (R, C) int8/fp8 payloads;
+    scale_slots: S received (R, 1) f32 scales; weights: S + 1 floats,
+    the self weight first.  Returns (R, C) f32."""
+    if own.device.type == "cuda":
+        return _qmix(own, q_slots, scale_slots, weights)
+    if own.device.type == "cpu":
+        return ref.quantized_gossip_mix_ref(own, list(q_slots),
+                                            list(scale_slots), weights)
+    raise NotImplementedError(f"no quantized gossip-mix kernel for device "
+                              f"{own.device}")
 
 
 # ---------------------------------------------------------------------------

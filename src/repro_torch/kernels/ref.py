@@ -33,6 +33,59 @@ def fused_dsgd_ref(x, u, g, beta: float, eta: float, pre_scale=1.0):
     return x_new.to(x.dtype), u_new.to(u.dtype)
 
 
+def _f32_weights(weights) -> list[float]:
+    """Mixing weights as Python floats holding f32 values: the products
+    below are f32 (PyTorch rounds a Python scalar to the f32 tensor's
+    type), as the reference's ``jnp.asarray(weights, f32)`` makes them."""
+    if isinstance(weights, torch.Tensor):
+        weights = weights.detach().to("cpu", torch.float64).tolist()
+    return [float(torch.tensor(float(w), dtype=torch.float32))
+            for w in weights]
+
+
+def gossip_mix_ref(bufs, weights):
+    """Weighted combine of the node's own buffer and the buffers it
+    received (``ref.py:16-26``), the plain version of the gossip-mix
+    kernel:
+
+        out = sum_s weights[s] * bufs[s]
+
+    accumulated in f32 in slot order (``acc = w0*b0``, then ``acc = acc +
+    ws*bs``, one rounding per product and per sum), cast back to the
+    buffers' dtype.  ``bufs`` is a stacked ``(S, ...)`` tensor or a
+    sequence of S equal-shape tensors; ``weights`` S floats."""
+    slots = list(bufs.unbind(0)) if isinstance(bufs, torch.Tensor) \
+        else list(bufs)
+    w = _f32_weights(weights)
+    if len(w) != len(slots) or not slots:
+        raise ValueError(f"{len(slots)} buffers, {len(w)} weights")
+    acc = w[0] * slots[0].float()
+    for ws, b in zip(w[1:], slots[1:]):
+        acc = acc + ws * b.float()
+    return acc.to(slots[0].dtype)
+
+
+def quantized_gossip_mix_ref(own, q_slots, scale_slots, weights):
+    """Dequantize-and-combine for one compressed gossip round
+    (``ref.py:369-386``), the plain version of the quantized gossip-mix
+    kernel:
+
+        out = w[0] * own + sum_s w[s+1] * (q_s * scale_s)
+
+    own: (R, C) f32, the node's own exact values; q_slots: S received
+    (R, C) int8 / float8_e4m3fn payloads; scale_slots: S (R, 1) f32;
+    weights: S + 1 floats, the self weight first.  f32, in that order,
+    one rounding per product and per sum."""
+    w = _f32_weights(weights)
+    if len(w) != len(q_slots) + 1 or len(q_slots) != len(scale_slots):
+        raise ValueError(f"{len(q_slots)} payloads, {len(scale_slots)} "
+                         f"scales, {len(w)} weights")
+    acc = w[0] * own.to(torch.float32)
+    for ws, q, sc in zip(w[1:], q_slots, scale_slots):
+        acc = acc + ws * (q.to(torch.float32) * sc.to(torch.float32))
+    return acc
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,
                         softcap=None, scale=None):
     """Plain-softmax attention oracle (``ref.py:49-78``).

@@ -6,9 +6,10 @@ round-robin sequence of doubly-stochastic mixing matrices) built from a
 canonical :class:`TopologySpec`.  The simulation engine consumes
 ``as_dense_stack(steps, device)``: one period as an ``(L, n, n)``
 float32 tensor on the device, plus the per-step round index.  The
-reference's two other artifacts, ``as_ppermute_plan`` (the distributed
-runtime) and ``as_padded`` (the vmapped sweep), belong to slices that
-are not ported yet and raise.
+distributed runtime consumes ``as_ppermute_plan()``: the rounds compiled
+into point-to-point slot plans.  The reference's third artifact,
+``as_padded`` (the vmapped sweep), belongs to a slice that is not ported
+yet and raises.
 
 ``build_schedule(spec)`` memoizes whole Schedules by canonical spec, as
 the reference does.
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.graphs import TopologySchedule
+from repro_torch.core.ppermute_plan import SchedulePlan, compile_schedule
 from repro_torch.device import resolve_device
 
 from .registry import canonicalize, get_registration
@@ -38,6 +40,7 @@ class Schedule:
         self._mats = mats
         self.spec = spec
         self._dense: dict[torch.device, torch.Tensor] = {}
+        self._plan: SchedulePlan | None = None
 
     # -- TopologySchedule delegation --------------------------------------
 
@@ -122,10 +125,12 @@ class Schedule:
         idx = torch.arange(steps, device=dev) % L
         return dense, idx
 
-    def as_ppermute_plan(self):
-        raise NotImplementedError(
-            "the collective-permute plan of the distributed runtime is not "
-            "ported to repro_torch yet (multi-GPU slice); see ROADMAP.md")
+    def as_ppermute_plan(self) -> SchedulePlan:
+        """Distributed-runtime artifact: the rounds edge-coloured into
+        point-to-point slot plans (DESIGN.md Sec. 3), compiled once."""
+        if self._plan is None:
+            self._plan = compile_schedule(self._mats)
+        return self._plan
 
     def as_padded(self, steps: int, length: int | None = None):
         raise NotImplementedError(

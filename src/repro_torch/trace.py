@@ -9,6 +9,12 @@ call :func:`mark` at the phase boundaries of a step:
     "mix"     a gossip mix begins
     "end"     the step is done
 
+The distributed train step (``repro_torch.dist.steps``) marks
+``"step"``, ``"update"`` and ``"end"`` the same way; in place of
+``"mix"``, its gossip mixer marks each tensor's (compressed: each
+reference leaf's) phases, ``"quantize"``, ``"exchange"`` (the
+point-to-point messages) and ``"combine"``.
+
 The continuous serving engine marks each dispatch with its name
 (``"prefill_<bucket>"``, ``"prefill_<bucket>x<n>"``, ``"decode"``) and
 then ``"end"``.

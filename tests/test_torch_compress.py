@@ -14,6 +14,12 @@ Inputs come from numpy seeds and go through both sides.  Tolerances:
   (n x n) product sums in another order; its new residual bit for bit.
   That holds on the reference's own stacked tree too: the port's
   per-block tensors of one stacked leaf are quantized together.
+- the dequantize-and-combine of a compressed round
+  (``ref.quantized_gossip_mix_ref``) equals the reference's oracle bit
+  for bit (the same f32 steps in the same order, every fp8 code decoded
+  alike), and the interpret-mode Pallas kernel within 4 f32 ulps of the
+  terms' magnitude ``|w0 own| + sum_s |w_s q_s scale_s|``: XLA may
+  contract its products and sums into FMAs (ROADMAP queue 3).
 """
 import jax
 import jax.numpy as jnp
@@ -25,7 +31,8 @@ from repro import compress as J
 from repro.configs import get_config as jget_config
 from repro.models import model as JM
 from repro.kernels import ref as jref
-from repro.kernels.quantized_gossip import quantize_ef_pallas
+from repro.kernels.quantized_gossip import (
+    quantize_ef_pallas, quantized_gossip_mix_slots_pallas)
 from repro.optim.decentralized import mix as jmix
 from repro.topology import TopologySpec as JSpec
 from repro.topology import build_schedule as jbuild
@@ -225,6 +232,79 @@ def test_quantize_ef_ref_matches_interpret_kernel(fmt, shape):
                                    torch.from_numpy(err), key, 5, fmt=fmt)
     assert _same_bits(q, jq) and _same_bits(s, js)
     np.testing.assert_allclose(r.numpy(), np.asarray(jr), rtol=0, atol=1e-6)
+
+
+def _qmix_inputs(fmt, S, R=9, C=256, seed=0):
+    """Payloads as the quantizer makes them, the last one of all zeros
+    (a slot this node receives nothing in, at weight 0); for fp8 the
+    first row holds every byte value of e4m3 except its two NaNs."""
+    rng = np.random.default_rng(seed)
+    own = rng.standard_normal((R, C)).astype(np.float32)
+    qs, scales = [], []
+    for s in range(S):
+        x = rng.standard_normal((R, C)).astype(np.float32)
+        q, sc, _ = tref.quantize_ef_ref(torch.from_numpy(x), None,
+                                        tref.sr_key(1, s), 0, fmt=fmt)
+        if fmt == "fp8" and s == 0:
+            codes = np.asarray([b for b in range(256)
+                                if b & 0x7F != 0x7F], np.uint8)
+            q = q.clone()
+            q.view(torch.uint8)[0, :codes.size] = torch.from_numpy(codes)
+        if s == S - 1 and S > 1:
+            q, sc = torch.zeros_like(q), torch.zeros_like(sc)
+        qs.append(q)
+        scales.append(sc)
+    w = rng.random(S + 1).astype(np.float32)
+    if S > 1:
+        w[-1] = 0.0
+    return own, qs, scales, w
+
+
+def _jpayload(q):
+    dt = jnp.int8 if q.dtype == torch.int8 else jnp.float8_e4m3fn
+    return jnp.asarray(q.view(torch.uint8).numpy()).view(dt)
+
+
+@pytest.mark.parametrize("S", [0, 1, 2, 3])
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_quantized_gossip_mix_ref_matches_reference(fmt, S):
+    own, qs, scales, w = _qmix_inputs(fmt, S)
+    got = tref.quantized_gossip_mix_ref(torch.from_numpy(own), qs, scales,
+                                        w.tolist())
+    jq = [_jpayload(q) for q in qs]
+    js = [jnp.asarray(sc.numpy()) for sc in scales]
+    want = jref.quantized_gossip_mix_ref(jnp.asarray(own), jq, js,
+                                         jnp.asarray(w))
+    assert got.dtype == torch.float32
+    assert _same_bits(got, np.asarray(want, np.float32))
+    disp = ops.quantized_gossip_mix(torch.from_numpy(own), qs, scales,
+                                    torch.from_numpy(w))
+    assert _same_bits(disp, got)
+    if S:
+        kern = np.asarray(quantized_gossip_mix_slots_pallas(
+            jnp.asarray(own), tuple(jq), tuple(js), jnp.asarray(w),
+            interpret=True))
+        terms = np.abs(w[0] * own) + sum(
+            np.abs(w[s + 1] * q.float().numpy() * sc.numpy())
+            for s, (q, sc) in enumerate(zip(qs, scales)))
+        ulps = np.abs(got.numpy().astype(np.float64) - kern) / np.spacing(
+            np.maximum(terms, 1e-30).astype(np.float32))
+        assert ulps.max() <= 4
+
+
+def test_quantized_gossip_mix_takes_its_shapes():
+    own, qs, scales, w = _qmix_inputs("int8", 2)
+    with pytest.raises(ValueError):
+        tref.quantized_gossip_mix_ref(torch.from_numpy(own), qs, scales,
+                                      w[:2].tolist())
+    with pytest.raises(ValueError):
+        tref.quantized_gossip_mix_ref(torch.from_numpy(own), qs,
+                                      scales[:1], w.tolist())
+
+
+def test_codecs_fused_mix_match_reference():
+    for name in J.CODEC_NAMES:
+        assert T.get_codec(name).fused_mix == J.get_codec(name).fused_mix
 
 
 def test_quantize_payload_dispatches_by_device():

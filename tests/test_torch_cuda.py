@@ -16,7 +16,13 @@ the quantize+EF kernel, on q, scale and the residual, in int8 and fp8,
 with and without err: its payload is a bitwise contract.  The paged
 flash-attention kernel is held to flash attention's tolerance against
 its plain version, and to its own row contract bit for bit: a verify
-window equals one-row calls, whatever else the block holds.
+window equals one-row calls, whatever else the block holds.  The gossip
+combine (both entry points, f32 and bf16, 1 to 32 slots, aligned or
+not) and the quantized combine (int8 and fp8, every fp8 code, 0 to 3
+slots) equal their plain versions bit for bit: the same f32 steps in the
+same order.  The distributed mixer runs on the card in two gloo ranks
+(host staging) and launches one combine per tensor, or per reference
+leaf when compressed.
 """
 import pytest
 import torch
@@ -25,9 +31,12 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import (SUPPORTED_DIMS,
                                                  flash_attention_fwd)
 from repro_torch.kernels.fused_dsgd import fused_dsgd
+from repro_torch.kernels.gossip_mix import (gossip_mix_slots,
+                                            gossip_mix_stacked)
 from repro_torch.kernels.paged_flash_attention import \
     paged_flash_attention_fwd
-from repro_torch.kernels.quantized_gossip import quantize_ef
+from repro_torch.kernels.quantized_gossip import (quantize_ef,
+                                                  quantized_gossip_mix)
 
 pytestmark = pytest.mark.cuda
 
@@ -249,6 +258,146 @@ def test_compressed_mix_on_the_card_launches_once_per_reference_leaf(card):
     for k in tree:
         assert torch.equal(ef[k].cpu().view(torch.int32),
                            ef_cpu[k].view(torch.int32))
+
+
+def _mix_slots(card, dtype, S, shape, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    bufs = [torch.randn(shape, generator=g, device=card).to(dtype)
+            for _ in range(S)]
+    w = (torch.rand(S, generator=g, device=card) + 0.1).tolist()
+    if S > 1:           # a slot this node receives nothing in
+        bufs[-1].zero_()
+        w[-1] = 0.0
+    return bufs, w
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 2, 3, 9, 32])
+@pytest.mark.parametrize("shape", [(1,), (3, 1152), (257, 513), (2, 3, 4)])
+def test_gossip_mix_matches_plain_bitwise(card, dtype, S, shape):
+    bufs, w = _mix_slots(card, dtype, S, shape, S)
+    want = ref.gossip_mix_ref(bufs, w)
+    before = (gossip_mix_slots.launches, gossip_mix_stacked.launches)
+    got_slots = ops.gossip_mix(bufs, w)
+    got_stack = ops.gossip_mix(torch.stack(bufs), w)
+    torch.cuda.synchronize()
+    assert (gossip_mix_slots.launches, gossip_mix_stacked.launches) \
+        == (before[0] + 1, before[1] + 1)
+    for got in (got_slots, got_stack):
+        assert got.dtype == dtype and got.shape == want.shape
+        assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gossip_mix_unaligned_slots_take_the_scalar_loop(card, dtype):
+    bufs, w = _mix_slots(card, dtype, 3, (4, 1001), 7)
+    # views one element into their storage: not 16-byte aligned
+    flat = [b.reshape(-1)[1:4001].reshape(4, 1000) for b in bufs]
+    got = gossip_mix_slots(flat, w)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(ref.gossip_mix_ref(flat, w)))
+
+
+def test_gossip_mix_rejects_what_it_does_not_take(card):
+    x = torch.randn(4, 32, device=card)
+    with pytest.raises(ValueError, match="1 to 32"):
+        gossip_mix_slots([x] * 33, [0.1] * 33)
+    with pytest.raises(ValueError, match="weights"):
+        gossip_mix_slots([x, x], [1.0])
+    with pytest.raises(TypeError, match="dtype"):
+        gossip_mix_slots([x, x.to(torch.bfloat16)], [0.5, 0.5])
+    with pytest.raises(TypeError, match="dtype"):
+        gossip_mix_slots([x.half()], [1.0])
+    with pytest.raises(ValueError, match="shape"):
+        gossip_mix_slots([x, x[:2]], [0.5, 0.5])
+    with pytest.raises(ValueError, match="contiguous"):
+        gossip_mix_slots([x.t(), x.t()], [0.5, 0.5])
+    with pytest.raises(ValueError, match="CUDA"):
+        gossip_mix_slots([x, x.cpu()], [0.5, 0.5])
+    with pytest.raises(ValueError, match="stack"):
+        gossip_mix_stacked(x, [0.5])
+
+
+def _qmix_case(card, fmt, S, R=37, C=256, seed=0):
+    g = torch.Generator(device=card).manual_seed(seed)
+    own = torch.randn(R, C, generator=g, device=card)
+    qs, scales = [], []
+    for s in range(S):
+        x = torch.randn(R, C, generator=g, device=card)
+        q, sc, _ = ref.quantize_ef_ref(x, None, ref.sr_key(2, s), 0, fmt=fmt)
+        if s == 0:      # every byte value (as many as fit) in the first rows
+            n = min(q.numel(), 256)
+            q.view(torch.uint8).reshape(-1)[:n] = torch.arange(
+                n, device=card, dtype=torch.uint8)
+        if S > 1 and s == S - 1:
+            q, sc = torch.zeros_like(q), torch.zeros_like(sc)
+        qs.append(q)
+        scales.append(sc)
+    w = (torch.rand(S + 1, generator=g, device=card) + 0.1).tolist()
+    if S > 1:
+        w[-1] = 0.0
+    return own, qs, scales, w
+
+
+@pytest.mark.parametrize("S", [0, 1, 2, 3])
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("R,C", [(37, 256), (5, 2), (3, 250)])
+def test_quantized_gossip_mix_matches_plain_bitwise(card, fmt, S, R, C):
+    own, qs, scales, w = _qmix_case(card, fmt, S, R, C, seed=S)
+    before = quantized_gossip_mix.launches
+    got = ops.quantized_gossip_mix(own, qs, scales, w)
+    torch.cuda.synchronize()
+    assert quantized_gossip_mix.launches == before + 1
+    want = ref.quantized_gossip_mix_ref(own, qs, scales, w)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    nan = torch.isnan(want)         # fp8's two NaN codes decode to NaN
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(_bits(got)[~nan], _bits(want)[~nan])
+
+
+def test_quantized_gossip_mix_rejects_what_it_does_not_take(card):
+    own, qs, scales, w = _qmix_case(card, "int8", 2)
+    with pytest.raises(ValueError, match="weights"):
+        quantized_gossip_mix(own, qs, scales, w[:2])
+    with pytest.raises(ValueError, match="scale"):
+        quantized_gossip_mix(own, qs, scales[:1], w)
+    with pytest.raises(TypeError, match="float32"):
+        quantized_gossip_mix(own.to(torch.bfloat16), qs, scales, w)
+    with pytest.raises(TypeError, match="int8"):
+        quantized_gossip_mix(own, [qs[0], qs[1].view(
+            torch.float8_e4m3fn)], scales, w)
+    with pytest.raises(ValueError, match="shape"):
+        quantized_gossip_mix(own, [q[:3] for q in qs], scales, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        quantized_gossip_mix(own, [qs[0].cpu(), qs[1]], scales, w)
+
+
+def test_dist_mixer_on_the_card_launches_once_per_tensor(card):
+    """Two gloo ranks share the card (host staging): the mixer's rounds
+    equal W(r) X, with one slots-combine per float tensor, and the
+    int8 mixer's one quantize and one quantized combine per reference
+    leaf."""
+    import numpy as np
+    import torch_dist_ranks
+    from repro_torch.launch.distributed import spawn_local
+    rng = np.random.default_rng(0)
+    tree = {"a": rng.standard_normal((2, 4, 600)).astype(np.float32),
+            "stack.blocks.0.0.w": rng.standard_normal((2, 300)).astype(
+                np.float32),
+            "stack.blocks.1.0.w": rng.standard_normal((2, 300)).astype(
+                np.float32)}
+    results = spawn_local(torch_dist_ranks.card_mixer, 2, args=(tree,),
+                          backend="gloo", device="cuda", timeout=300)
+    for rank, res in enumerate(results):
+        assert res["device"].startswith("cuda")
+        assert res["launches"] == {"gossip_mix_slots": 3,
+                                   "quantize_ef": 2,
+                                   "quantized_gossip_mix": 2}
+        for key, x in tree.items():     # W(0) of Base-2 at n = 2: averaging
+            np.testing.assert_allclose(res["mixed"][key][0], x.mean(axis=0),
+                                       rtol=0, atol=1e-6)
+            np.testing.assert_allclose(res["compressed"][key][0],
+                                       x.mean(axis=0), rtol=0, atol=0.05)
 
 
 def _paged_case(card, dtype, *, B, H, KV, D, Dv, ps, maxp, seed):

@@ -15,9 +15,12 @@ import repro_torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.gossip_mix import (gossip_mix_slots,
+                                            gossip_mix_stacked)
 from repro_torch.kernels.paged_flash_attention import \
     paged_flash_attention_fwd
-from repro_torch.kernels.quantized_gossip import quantize_ef
+from repro_torch.kernels.quantized_gossip import (quantize_ef,
+                                                  quantized_gossip_mix)
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -48,7 +51,11 @@ def test_importing_every_module_leaves_jax_and_repro_out():
             "repro_torch.kernels.quantized_gossip",
             "repro_torch.kernels.paged_flash_attention",
             "repro_torch.serve.continuous",
-            "repro_torch.serve.paged"} <= set(_modules())
+            "repro_torch.serve.paged", "repro_torch.core.ppermute_plan",
+            "repro_torch.dist.gossip", "repro_torch.dist.steps",
+            "repro_torch.kernels.gossip_mix",
+            "repro_torch.launch.distributed",
+            "repro_torch.launch.train"} <= set(_modules())
 
 
 def test_sources_import_no_jax_and_no_repro():
@@ -66,6 +73,18 @@ def test_serve_launcher_without_card_exits_with_message():
     r = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
          "gemma3-1b", "--reduced"], cwd=ROOT,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert "CUDA device" in r.stderr and "--device cpu" in r.stderr
+
+
+def test_train_launcher_without_card_exits_with_message():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "gemma3-1b", "--reduced", "--nproc", "2"], cwd=ROOT,
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
         capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
@@ -178,6 +197,18 @@ def test_cpu_quantize_does_not_touch_the_kernel_counter():
     assert quantize_ef.launches == before
 
 
+def test_cpu_gossip_mix_does_not_touch_the_kernel_counters():
+    a = torch.randn(3, 5)
+    before = (gossip_mix_slots.launches, gossip_mix_stacked.launches,
+              quantized_gossip_mix.launches)
+    ops.gossip_mix([a, a], [0.5, 0.5])
+    ops.gossip_mix(torch.stack([a, a]), [0.5, 0.5])
+    q = torch.zeros(3, 5, dtype=torch.int8)
+    ops.quantized_gossip_mix(a, [q], [torch.ones(3, 1)], [0.5, 0.5])
+    assert (gossip_mix_slots.launches, gossip_mix_stacked.launches,
+            quantized_gossip_mix.launches) == before
+
+
 def test_kernel_wrapper_takes_cuda_tensors_only():
     q = torch.randn(1, 3, 4, 16)
     with pytest.raises(ValueError, match="CUDA"):
@@ -188,6 +219,12 @@ def test_kernel_wrapper_takes_cuda_tensors_only():
     table = torch.zeros(1, 2, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         paged_flash_attention_fwd(q, q, q, table, q_start=0, k_valid_len=1)
+    with pytest.raises(ValueError, match="CUDA"):
+        gossip_mix_slots([x, x], [0.5, 0.5])
+    with pytest.raises(ValueError, match="CUDA"):
+        gossip_mix_stacked(torch.stack([x, x]), [0.5, 0.5])
+    with pytest.raises(ValueError, match="CUDA"):
+        quantized_gossip_mix(x, [x.to(torch.int8)], [x[:, :1]], [0.5, 0.5])
 
 
 def test_kernels_build_into_the_checkout_only(tmp_path):
@@ -214,8 +251,8 @@ def test_each_library_hashes_its_own_source(tmp_path):
     shutil.copytree(PKG, checkout / "src" / "repro_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
     names = sorted(f.stem for f in (PKG / "kernels" / "csrc").glob("*.cu"))
-    assert {"flash_attention", "fused_dsgd", "paged_flash_attention",
-            "quantized_gossip"} <= set(names)
+    assert {"flash_attention", "fused_dsgd", "gossip_mix",
+            "paged_flash_attention", "quantized_gossip"} <= set(names)
     code = ("from repro_torch.kernels import _build\n"
             f"for name in {names!r}:\n"
             "    print(_build.library_path(name))\n")

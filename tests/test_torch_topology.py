@@ -71,9 +71,60 @@ def test_consensus_utilities_match_reference(name, n, k):
 def test_unported_artifacts_raise():
     sched = build_schedule(TopologySpec(name="base", n=5, k=1))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sched.as_ppermute_plan()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         sched.as_padded(4, 8)
+    # the slot plan is ported (its parity is below) and compiled once
+    assert sched.as_ppermute_plan() is sched.as_ppermute_plan()
+
+
+PLAN_CASES = [(name, n, k) for n in (3, 4, 5, 8, 12)
+              for name, k in (("base", 1), ("base", 2), ("base", 3),
+                              ("simple_base", 2), ("one_peer_exp", None),
+                              ("ring", None))]
+
+
+@pytest.mark.parametrize("name,n,k", PLAN_CASES)
+def test_ppermute_plan_matches_reference(name, n, k):
+    """The distributed runtime's artifact: the same slots (perms and
+    receive weights) and self weights as the reference's
+    ``compile_schedule``, and the plan executed in numpy equals W(r) X
+    and the reference's executor bit for bit."""
+    from repro.core.ppermute_plan import apply_round_plan_np as japply
+    from repro_torch.core.ppermute_plan import apply_round_plan_np
+    try:
+        want_sched = jbuild(JSpec(name=name, n=n, k=k))
+    except ValueError:
+        with pytest.raises(ValueError):
+            build_schedule(TopologySpec(name=name, n=n, k=k))
+        return
+    got_sched = build_schedule(TopologySpec(name=name, n=n, k=k))
+    got, want = got_sched.as_ppermute_plan(), want_sched.as_ppermute_plan()
+    assert (got.name, got.n, len(got), got.max_slots) \
+        == (want.name, want.n, len(want), want.max_slots)
+    X = np.random.default_rng(n).standard_normal((n, 3, 5))
+    for r, (g, w) in enumerate(zip(got.rounds, want.rounds)):
+        assert np.array_equal(g.self_weight, w.self_weight)
+        assert g.num_messages == w.num_messages
+        assert [s.perm for s in g.slots] == [s.perm for s in w.slots]
+        for gs, ws in zip(g.slots, w.slots):
+            assert np.array_equal(gs.recv_weight, ws.recv_weight)
+        out = apply_round_plan_np(g, X)
+        assert np.array_equal(out, japply(w, X))
+        np.testing.assert_allclose(
+            out, np.tensordot(got_sched.W(r), X, axes=([1], [0])),
+            rtol=0, atol=1e-12)
+
+
+def test_spec_from_cli_matches_reference():
+    from repro.topology import spec_from_cli as jspec_from_cli
+    from repro_torch.topology import spec_from_cli
+    for value, k in (("base", 2), ('{"name":"base","k":3}', None),
+                     ("ring", None), (TopologySpec("base", 6, 1), None)):
+        jvalue = JSpec("base", 6, 1) if isinstance(value, TopologySpec) \
+            else value
+        assert spec_from_cli(value, n=6, k=k).to_json() \
+            == jspec_from_cli(jvalue, n=6, k=k).to_json()
+    with pytest.raises(ValueError, match="n=5"):
+        spec_from_cli('{"name":"base","n":5}', n=6)
 
 
 @pytest.mark.parametrize("name,n,k", [("ring", 8, None), ("base", 3, 1),

@@ -1,0 +1,114 @@
+"""Rank functions for ``tests/test_torch_dist.py``.
+
+``launch.distributed.spawn_local`` pickles a rank function by name, and
+each rank imports its module afresh, so these live in a module of their
+own that imports no JAX: a rank loads only torch and the port.  Each
+returns numpy arrays, so the parent can hold them against the reference.
+"""
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs import get_config
+from repro_torch.data.synthetic import token_batches
+from repro_torch.dist.gossip import make_gossip_mixer
+from repro_torch.dist.steps import make_train_step
+from repro_torch.sim.engine import node_stack
+from repro_torch.topology import TopologySpec, build_schedule
+
+
+def _numpy(tree):
+    return {k: v.detach().cpu().numpy() for k, v in tree.items()}
+
+
+def mixer_rounds(rank, device, tree_np, cases):
+    """For each ``(name, n, k, flatten)`` case, this rank's mixed slice
+    after each round, every round applied to the same inputs.  A case of
+    n < world size runs in the subgroup of ranks 0..n-1; every rank
+    builds the subgroups, as ``new_group`` asks."""
+    torch.set_num_threads(1)
+    world = dist.get_world_size()
+    groups = {n: dist.new_group(list(range(n)))
+              for n in sorted({c[1] for c in cases}) if n < world}
+    out = {}
+    for name, n, k, flatten in cases:
+        if rank >= n:
+            continue
+        group = groups.get(n)
+        plan = build_schedule(TopologySpec(name=name, n=n,
+                                           k=k)).as_ppermute_plan()
+        mixer = make_gossip_mixer(group, plan, flatten=flatten)
+        mine = {key: torch.from_numpy(v[:n][rank:rank + 1]).to(device)
+                for key, v in tree_np.items()}
+        out[(name, n, k, flatten)] = {
+            "rounds": [_numpy(mixer(mine, r)) for r in range(len(plan))],
+            "sent": dict(mixer.stats)}
+    return out
+
+
+def train(rank, device, params_np, num_blocks, compression, steps, eta, B,
+          T, method="dsgdm"):
+    """This rank's node of ``method`` (DSGD-momentum by default) on
+    reduced gemma3-1b (f32) over Base-2, from the given parameters;
+    returns the final parameters, method state and losses as numpy."""
+    torch.set_num_threads(1)
+    cfg = get_config("gemma3-1b").reduced(num_blocks=num_blocks)
+    n = dist.get_world_size()
+    params = node_stack({k: torch.from_numpy(v) for k, v in
+                         params_np.items()}, 1, device)
+    bundle = make_train_step(cfg, None, topology="base", k=1,
+                             method_name=method, eta=eta,
+                             param_dtype=torch.float32,
+                             compression=compression)
+    opt = bundle.method.init(params)
+    losses = []
+    for step in range(steps):
+        raw = token_batches(step, batch=n * B, seq=T, vocab=cfg.vocab_size)
+        batch = {k: v.reshape(n, B, T)[rank:rank + 1] for k, v in raw.items()}
+        params, opt, loss = bundle.step_fn(params, opt, batch, step)
+        losses.append(float(loss))
+    state = {k: (_numpy(v) if isinstance(v, dict) else v)
+             for k, v in opt.items()}
+    return {"params": _numpy(params), "state": state, "losses": losses,
+            "sent": dict(bundle.mixer.stats)}
+
+
+def all_cases(rank, device, tree_np, mix_cases, train_cases):
+    """Every case of the test module in one spawn: the mixer cases, then
+    one training run per ``(name, train arguments)`` of
+    ``train_cases``."""
+    out = {"mix": mixer_rounds(rank, device, tree_np, mix_cases)}
+    for name, args in train_cases:
+        out[name] = train(rank, device, *args)
+    return out
+
+
+def card_mixer(rank, device, tree_np):
+    """One round of Base-2 at n = 2 (an average) on the card, plain and
+    int8-compressed, with the gossip kernels' launch counts."""
+    from repro_torch.compress import CompressionConfig, init_ef
+    from repro_torch.kernels.gossip_mix import gossip_mix_slots
+    from repro_torch.kernels.quantized_gossip import (quantize_ef,
+                                                      quantized_gossip_mix)
+    plan = build_schedule(TopologySpec(name="base", n=2,
+                                       k=1)).as_ppermute_plan()
+    mine = {k: torch.from_numpy(v[rank:rank + 1]).to(device)
+            for k, v in tree_np.items()}
+    ccfg = CompressionConfig(codec="int8", chunk=64)
+    counters = {"gossip_mix_slots": gossip_mix_slots,
+                "quantize_ef": quantize_ef,
+                "quantized_gossip_mix": quantized_gossip_mix}
+    before = {k: c.launches for k, c in counters.items()}
+    mixed = make_gossip_mixer(None, plan)(mine, 0)
+    compressed, _ = make_gossip_mixer(None, plan, compression=ccfg)(
+        mine, 0, init_ef(mine, ccfg), 0)
+    torch.cuda.synchronize()
+    return {"device": str(device), "mixed": _numpy(mixed),
+            "compressed": _numpy(compressed),
+            "launches": {k: c.launches - before[k]
+                         for k, c in counters.items()}}
+
+
+def fail_on_rank_one(rank, device):
+    if rank == 1:
+        raise ValueError("rank one fails on purpose")
+    return rank
