@@ -7,16 +7,26 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. Card and build: the card's name and power limit, then every CUDA
    kernel of the ported paths built from the sources in this checkout,
-   one ``nvcc`` per source, all started together, each build timed.
+   one ``nvcc`` per source, all started together, each build timed,
+   with each kernel's registers and spilled bytes from ``-Xptxas -v``.
    The spawned ranks of ``[dist]`` load these builds; none compiles.
 2. Each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it.  Times are CUDA-event medians of 25
    launches after warm-up, with the 50 MB L2 flushed before each launch.
+   The attention entries also carry ``device_ms`` and
+   ``library_device_ms``: the same calls replayed as CUDA graphs, so
+   the host's time to prepare a launch drops out (at decode it exceeds
+   the card's time).
    - Flash attention, at serving (full-width gemma3-1b: B=4, prompt
      1024, 64 new tokens) and training (B=2, Tq=S=1024) shapes, in bf16
      and f32, plus a ragged and a softcap case, element by element:
      |kernel - plain| <= 1e-4, plus 2^-7 |plain| in bf16 (one bf16
-     rounding step, as each side rounds its f32 result).
+     rounding step, as each side rounds its f32 result).  Each case
+     prints its grid and key-axis split.  The row contract at the
+     serving shapes, bit for bit in bf16 and f32, local and global: a
+     5-row verify window with per-batch q_start equals 5 one-row calls,
+     and a decode row split over 2 to 17 blocks (and the wrapper's own
+     choice) equals kv_splits=1.
      ``library_ms`` times PyTorch's ``scaled_dot_product_attention`` on
      the same inputs as a yardstick; the port never calls it.
    - Fused DSGD-momentum, at the training path's leaf shapes (the
@@ -50,8 +60,11 @@ Phases (any failure exits non-zero and prints no result line):
      8, 32 and 64, in bf16 and f32, with NaN in scratch page 0 and in
      every page no slot names: within flash attention's tolerance of the
      plain version.  The verify window equals five one-row calls bit for
-     bit.  ``library_ms`` times ``scaled_dot_product_attention`` on the
-     already-gathered dense view (no PyTorch call takes a block table).
+     bit; at page size 16 the wrapper's split and splits 2, 9, 17 equal
+     kv_splits=1, and a decode row equals the dense kernel's over the
+     gathered pages, bit for bit.  ``library_ms`` times
+     ``scaled_dot_product_attention`` on the already-gathered dense view
+     (no PyTorch call takes a block table).
 3. Serving: full-width gemma3-1b in bf16 (random weights from a seed),
    ``make_engine(batch=4, prompt_len=1024, max_new=64)``, one warm-up
    generation, then one timed greedy generation whose kernel launches
@@ -247,6 +260,34 @@ def time_ms(torch, fn, flush, runs=25, warmup=3):
     return statistics.median(times)
 
 
+def graph_ms(torch, fn, flush, runs=25):
+    """Median device time of ``fn`` replayed as a CUDA graph, the L2
+    flushed before each replay: what the launches cost the card without
+    the host's time to prepare them (which ``time_ms`` includes, and
+    which exceeds a decode call's device time)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    times = []
+    for _ in range(runs):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    del graph
+    return statistics.median(times)
+
+
 def phase_build(torch):
     """One nvcc per source, all started together; each build timed."""
     from concurrent.futures import ThreadPoolExecutor
@@ -259,6 +300,9 @@ def phase_build(torch):
         secs = dict(zip(names, pool.map(_build.build, names)))
     for name in names:
         print(f"[build] {name}.cu in {secs[name]:.1f}s")
+        for kernel, regs, spill in _build.ptxas_report(name):
+            print(f"[build]   {regs:3d} registers, {spill:4d} B spilled: "
+                  f"{kernel}")
     print(f"[build] all in {time.perf_counter() - t0:.1f}s")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -334,7 +378,8 @@ def phase_flash_kernels(torch, dev):
             torch.cuda.synchronize()
             err, worst, ok = check_close(torch, got, want)
             dname = str(dtype).split(".")[1]
-            print(f"[kernels] {name} {dname} {err:.3e} {worst:.3f}")
+            print(f"[kernels] {name} {dname} {err:.3e} {worst:.3f} "
+                  f"({_launch_line(flash_attention_fwd)})")
             if not ok:
                 raise SystemExit(f"flash attention {name} {dname}: max abs "
                                  f"err {err}, {worst} x its tolerance")
@@ -353,7 +398,8 @@ def phase_flash_kernels(torch, dev):
             entry = {
                 "name": f"flash_attention[{name},{dname}]",
                 "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "source": "src/repro_torch/kernels/csrc/flash_attention.cu, "
+                          "src/repro_torch/kernels/csrc/flash_core.cuh",
                 "replaces": "src/repro/kernels/flash_attention.py:310",
                 "launches": None,
                 "max_abs_err": err,
@@ -363,14 +409,69 @@ def phase_flash_kernels(torch, dev):
                 "bound_by": b_by,
                 "library_ms": None if lib is None else time_ms(torch, lib,
                                                                flush),
+                "device_ms": graph_ms(torch, fa, flush),
+                "library_device_ms": None if lib is None else graph_ms(
+                    torch, lib, flush),
             }
             print(f"[kernels] {entry['name']}: {entry['ms']:.4f} ms "
                   f"(bound {b_ms:.4f} ms by {b_by}; plain "
                   f"{entry['plain_ms']:.4f} ms; sdpa "
-                  f"{entry['library_ms']} ms)")
+                  f"{entry['library_ms']} ms; device, as a graph: "
+                  f"{entry['device_ms']:.4f} ms, sdpa "
+                  f"{entry['library_device_ms']} ms)")
             entries.append((phase, entry))
     del flush
+    flash_row_contract(torch, dev, gen, flash_attention_fwd)
     return entries
+
+
+def _launch_line(fn):
+    ll = fn.last_launch
+    return (f"grid {ll['grid']} x {ll['threads']} threads, "
+            f"{ll['splits']} split{'s' if ll['splits'] > 1 else ''}")
+
+
+def flash_row_contract(torch, dev, gen, flash):
+    """The dense kernel's row contract at the serving path's shapes (B=4,
+    4 q / 1 kv heads of 256, S=1088, local window 512 and global), bit
+    for bit in bf16 and f32: a 5-row verify window with per-batch q_start
+    equals 5 one-row calls, and a decode row split over 2 to 17 blocks
+    equals kv_splits=1."""
+    starts = [3, 401, 700, SEQ - 5]
+    qs = torch.tensor(starts, dtype=torch.int32, device=dev)
+    for layer, window in (("local", LOCAL_WINDOW), ("global", None)):
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            q = torch.randn(BATCH, 5, HEADS, HEAD_DIM, generator=gen,
+                            device=dev).to(dtype)
+            k, v = (torch.randn(BATCH, SEQ, KV_HEADS, HEAD_DIM,
+                                generator=gen, device=dev).to(dtype)
+                    for _ in range(2))
+            verify = flash(q, k, v, q_start=qs, k_valid_len=qs + 5,
+                           window=window)
+            plan = _launch_line(flash)
+            for i in range(5):
+                one = flash(q[:, i:i + 1], k, v, q_start=qs + i,
+                            k_valid_len=qs + i + 1, window=window)
+                if not torch.equal(_bits(torch, one),
+                                   _bits(torch, verify[:, i:i + 1])):
+                    raise SystemExit(f"flash attention {layer} {dname}: "
+                                     f"verify row {i} differs from its "
+                                     f"one-row call")
+            print(f"[kernels] verify,{layer} {dname}: 5 rows == 5 one-row "
+                  f"calls bitwise ({plan}; one-row: {_launch_line(flash)})")
+            kw = dict(q_start=SEQ - 2, k_valid_len=SEQ - 1, window=window)
+            chosen = flash(q[:, :1], k, v, **kw)
+            plan = _launch_line(flash)
+            base = flash(q[:, :1], k, v, kv_splits=1, **kw)
+            for splits, got in ((None, chosen), *(
+                    (n, flash(q[:, :1], k, v, kv_splits=n, **kw))
+                    for n in (2, 5, 17))):
+                if not torch.equal(_bits(torch, got), _bits(torch, base)):
+                    raise SystemExit(f"flash attention {layer} {dname}: "
+                                     f"{splits} splits differ from one")
+            print(f"[kernels] decode@{SEQ - 2},{layer} {dname}: the chosen "
+                  f"split ({plan}) and splits 2, 5, 17 == unsplit bitwise")
 
 
 def _bits(torch, t):
@@ -603,9 +704,11 @@ def phase_paged_kernels(torch, dev):
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.paged_flash_attention import \
         paged_flash_attention_fwd as paged
 
+    flash = flash_attention_fwd
     gen = torch.Generator(device=dev).manual_seed(21)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     # ragged slot positions, as mid-trace: fresh, page-boundary, past the
@@ -628,7 +731,8 @@ def phase_paged_kernels(torch, dev):
                     err, worst, ok = check_close(torch, got, want)
                     kind = "decode" if Tq == 1 else "verify"
                     name = f"{kind},{layer},ps={ps}"
-                    print(f"[paged] {name} {dname} {err:.3e} {worst:.3f}")
+                    print(f"[paged] {name} {dname} {err:.3e} {worst:.3f} "
+                          f"({_launch_line(paged)})")
                     if not ok or bool(got.isnan().any()):
                         raise SystemExit(f"paged attention {name} {dname}: "
                                          f"max abs err {err}, {worst} x "
@@ -647,6 +751,9 @@ def phase_paged_kernels(torch, dev):
                                     f"one-row call")
                         print(f"[paged]   verify window == {Tq} one-row "
                               f"calls bitwise")
+                    if ps == CONT_PAGE:
+                        paged_row_contract(torch, flash, paged, name, dname,
+                                           got, q, kp, vp, table, kw)
                     if not (ps == CONT_PAGE and dtype == torch.bfloat16):
                         continue
                     entries.append(paged_entry(torch, dev, flush, F, ref,
@@ -655,6 +762,31 @@ def phase_paged_kernels(torch, dev):
     del flush
     torch.cuda.empty_cache()
     return entries
+
+
+def paged_row_contract(torch, flash, paged, name, dname, got, q, kp, vp,
+                       table, kw):
+    """At the continuous path's shapes, bit for bit: the chosen split
+    (``got``) equals kv_splits=1 and splits 2, 9, 17; a decode row (Tq
+    = 1) equals the dense kernel's over the gathered pages."""
+    base = paged(q, kp, vp, table, kv_splits=1, **kw)
+    for splits, out in ((None, got), *((n, paged(q, kp, vp, table,
+                                                 kv_splits=n, **kw))
+                                       for n in (2, 9, 17))):
+        if not torch.equal(_bits(torch, out), _bits(torch, base)):
+            raise SystemExit(f"paged attention {name} {dname}: split "
+                             f"{splits} differs from unsplit")
+    line = "the chosen split and splits 2, 9, 17 == unsplit"
+    if q.shape[1] == 1:
+        B, S = table.shape[0], table.shape[1] * kp.shape[1]
+        kd = kp[table.long()].reshape(B, S, *kp.shape[2:])
+        vd = vp[table.long()].reshape(B, S, *vp.shape[2:])
+        dense = flash(q, kd, vd, **kw)
+        if not torch.equal(_bits(torch, dense), _bits(torch, got)):
+            raise SystemExit(f"paged attention {name} {dname}: the dense "
+                             f"kernel over the same bits differs")
+        line += f"; == the dense kernel ({_launch_line(flash)})"
+    print(f"[paged]   {line}, bitwise")
 
 
 def paged_entry(torch, dev, flush, F, ref, paged, kind, layer, window, q,
@@ -691,7 +823,8 @@ def paged_entry(torch, dev, flush, F, ref, paged, kind, layer, window, q,
     entry = {
         "name": f"paged_flash_attention[{kind},{layer},bfloat16]",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/paged_flash_attention.cu",
+        "source": "src/repro_torch/kernels/csrc/paged_flash_attention.cu, "
+                  "src/repro_torch/kernels/csrc/flash_core.cuh",
         "replaces": "src/repro/kernels/flash_attention.py:216",
         "launches": None,
         "max_abs_err": err,
@@ -701,11 +834,16 @@ def paged_entry(torch, dev, flush, F, ref, paged, kind, layer, window, q,
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": time_ms(torch, lib, flush),
+        "device_ms": graph_ms(torch, lambda: paged(q, kp, vp, table, **kw),
+                              flush),
+        "library_device_ms": graph_ms(torch, lib, flush),
     }
     print(f"[paged] {entry['name']}: {entry['ms']:.4f} ms (bound "
           f"{b_ms:.5f} ms by {b_by}, {nbytes} B; plain "
           f"{entry['plain_ms']:.4f} ms; sdpa on the gathered view "
-          f"{entry['library_ms']:.4f} ms)")
+          f"{entry['library_ms']:.4f} ms; device, as a graph: "
+          f"{entry['device_ms']:.4f} ms, sdpa "
+          f"{entry['library_device_ms']:.4f} ms)")
     phase = "continuous-paged" if kind == "decode" else \
         "continuous-spec-paged"
     return phase, entry
@@ -1862,13 +2000,16 @@ def print_kernel_times(prof, what, wall, steps):
                                 key=lambda kv: -kv[1][0])[:12]:
         print(f"[profile] {us / steps / 1e3:9.4f} ms/step {n // steps:5d}x "
               f"{name[:90]}")
-    for key in ("flash_fwd_kernel", "paged_flash_fwd_kernel",  # the port's
-                "fused_dsgd_kernel", "quantize_ef_kernel"):
-        mine = [v for name, v in per_kernel.items() if key in name
-                and (key != "flash_fwd_kernel" or "paged" not in name)]
+    for key, also in (("attn_kernel", "false>"),   # the port's: dense
+                      ("attn_kernel", "true>"),    # paged
+                      ("combine_kernel", ""), ("fused_dsgd_kernel", ""),
+                      ("quantize_ef_kernel", "")):
+        mine = [v for name, v in per_kernel.items()
+                if key in name and also in name]
         if mine:
             ms = sum(t for t, _ in mine) / steps / 1e3
-            print(f"[profile] {key}: {ms:.4f} ms/step in "
+            print(f"[profile] {key}{'<' + also if also else ''}: "
+                  f"{ms:.4f} ms/step in "
                   f"{sum(n for _, n in mine) // steps} launches")
 
 

@@ -5,17 +5,21 @@ shared library with a plain C interface and loaded with ``ctypes``.  The
 build runs at first use, from the sources in the checkout only, into
 ``build/repro_torch/`` at the checkout's root, so the package runs from
 the checkout's ``src/`` (``PYTHONPATH=src`` or an editable install).
-Each library's file name carries a hash of its own source and the
-flags, so an edited source is rebuilt, alone, and an unchanged one is
-loaded as it is.  The sources include no shared header; one that does
-must add the header to its hash.  A missing ``nvcc`` or a failed build
-raises: there is no fallback to the plain versions.
+Each library's file name carries a hash of the flags, its source and
+every ``csrc`` header the source includes (``#include "x.cuh"``, followed
+through the headers), so an edited source or header is rebuilt, with
+every library that includes it, and an unchanged one is loaded as it is.
+``ptxas`` reports each kernel's registers, shared memory and spills;
+the report is kept beside the library (:func:`ptxas_report`).  A missing
+``nvcc`` or a failed build raises: there is no fallback to the plain
+versions.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -24,7 +28,8 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "kernels" / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -53,9 +58,23 @@ def nvcc_path() -> str:
     return found
 
 
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every ``csrc`` header it includes, directly
+    or through another header, in the order first met."""
+    found = [CSRC / f"{name}.cu"]
+    for path in found:
+        for inc in _INCLUDE.findall(path.read_text()):
+            dep = CSRC / inc
+            if dep.is_file() and dep not in found:
+                found.append(dep)
+    return found
+
+
 def _digest(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update((CSRC / f"{name}.cu").read_bytes())
+    for path in sources(name):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -79,8 +98,32 @@ def build(name: str) -> float:
     if r.returncode != 0:
         raise RuntimeError(f"CUDA kernel build of {name} failed (nvcc "
                            f"exited {r.returncode}):\n{r.stdout}{r.stderr}")
+    out.with_suffix(".ptxas.txt").write_text(r.stdout + r.stderr)
     os.replace(tmp, out)
     return time.perf_counter() - t0
+
+
+def ptxas_report(name: str) -> list[tuple[str, int, int]]:
+    """(kernel symbol, registers, spill bytes stored + loaded) for each
+    kernel of ``csrc/<name>.cu``, from the ``-Xptxas -v`` report of its
+    build; empty where the library was built without one."""
+    path = library_path(name).with_suffix(".ptxas.txt")
+    if not path.exists():
+        return []
+    out, kernel, spill = [], None, 0
+    for line in path.read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            kernel, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel is not None:
+            out.append((kernel, int(m.group(1)), spill))
+            kernel = None
+    return out
 
 
 def load_library(name: str) -> ctypes.CDLL:

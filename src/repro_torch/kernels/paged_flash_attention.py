@@ -2,21 +2,24 @@
 ``paged_flash_attention_pallas``
 (``src/repro/kernels/flash_attention.py:216``).
 
-The kernel is ``csrc/paged_flash_attention.cu`` (its header says what it
-computes, the row contract that makes speculative decoding lossless, what
-bounds it on the H100 and what its simple design leaves for later).
-:func:`paged_flash_attention_fwd` checks its inputs, allocates the output
-and launches the kernel on PyTorch's current stream; it counts each launch
-in ``paged_flash_attention_fwd.launches``.  It takes CUDA tensors only:
-the plain version for other devices is
+The kernel body is ``csrc/flash_core.cuh``, shared with the dense kernel
+(its header says what it computes, the row contract that makes
+speculative decoding lossless, how it uses the tensor cores and what
+bounds it on the H100); ``csrc/paged_flash_attention.cu`` launches it
+with page-table key addressing.  :func:`paged_flash_attention_fwd` checks
+its inputs, allocates the output (and a split call's scratch) and
+launches on PyTorch's current stream; it counts each attention call in
+``paged_flash_attention_fwd.launches`` and each combine launch in
+``paged_flash_attention_fwd.combine_launches``.  It takes CUDA tensors
+only: the plain version for other devices is
 :func:`repro_torch.kernels.ref.paged_sdpa_ref`, chosen by
 :mod:`repro_torch.kernels.ops` from the tensor's device.
 
 Where the TPU kernel lets a scalar-prefetched block table drive the
 BlockSpec index maps, so each kv grid step fetches one whole page, this
-kernel walks 32-key tiles at absolute positions and looks each key's page
-up in the table itself: any page size works, and the pools are read in the
-model layout through strides.
+kernel walks key tiles at absolute positions and looks each key's page
+up in the table once per tile: any page size works, and the pools are
+read in the model layout through strides.
 """
 from __future__ import annotations
 
@@ -25,12 +28,15 @@ import ctypes
 import torch
 
 from ._build import load_library
-from .flash_attention import _DTYPE_CODES, SUPPORTED_DIMS
+from .flash_attention import (_DTYPE_CODES, SUPPORTED_DIMS, aligned,
+                              choose_splits, split_scratch)
 
 _c_void_p, _c_int, _c_i64, _c_float = (ctypes.c_void_p, ctypes.c_int,
                                        ctypes.c_int64, ctypes.c_float)
 _ARGTYPES = ([_c_int] * 3 + [_c_void_p] * 7 + [_c_i64] * 6 + [_c_i64] * 13
-             + [_c_int, _c_i64, _c_int, _c_float, _c_float, _c_void_p])
+             + [_c_int, _c_i64, _c_int, _c_float, _c_float]
+             + [_c_int, _c_void_p, _c_void_p, _c_void_p])
+_BLOCK_ROWS = 16
 
 
 def _lib() -> ctypes.CDLL:
@@ -41,6 +47,8 @@ def _lib() -> ctypes.CDLL:
         fn.restype = _c_int
         lib.repro_paged_cuda_error_string.argtypes = [_c_int]
         lib.repro_paged_cuda_error_string.restype = ctypes.c_char_p
+        lib.repro_paged_key_tile.argtypes = [_c_int]
+        lib.repro_paged_key_tile.restype = _c_int
     return lib
 
 
@@ -57,7 +65,8 @@ def _per_slot(x, B: int, device, what: str) -> torch.Tensor:
 
 def paged_flash_attention_fwd(q, k_pages, v_pages, block_table, *, q_start,
                               k_valid_len, causal: bool = True, window=None,
-                              softcap=None, scale=None) -> torch.Tensor:
+                              softcap=None, scale=None,
+                              kv_splits=None) -> torch.Tensor:
     """Grouped-query attention over a paged KV cache, on the card.
 
     q: (B, Tq, H, D);  k_pages: (P, ps, KV, D);  v_pages: (P, ps, KV, Dv),
@@ -66,8 +75,10 @@ def paged_flash_attention_fwd(q, k_pages, v_pages, block_table, *, q_start,
     slot b's positions ``[j*ps, (j+1)*ps)`` live at page
     ``block_table[b, j]``; the entries below ``ceil(k_valid_len / ps)``
     must be pages of the pool (not checked on the card).  ``q_start`` and
-    ``k_valid_len`` are ints or (B,) tensors.  Returns a contiguous
-    (B, Tq, H, Dv) tensor of q's dtype."""
+    ``k_valid_len`` are ints or (B,) tensors.  ``kv_splits`` (private:
+    tests and the chip check) fixes the number of blocks over the key
+    axis; the result is the same bits whatever it is.  Returns a
+    contiguous (B, Tq, H, Dv) tensor of q's dtype."""
     B, Tq, H, D = q.shape
     P, ps, KV, Dk = k_pages.shape
     Dv = v_pages.shape[-1]
@@ -93,8 +104,7 @@ def paged_flash_attention_fwd(q, k_pages, v_pages, block_table, *, q_start,
                          f"supported: {SUPPORTED_DIMS}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    q, k_pages, v_pages = (t if t.stride(-1) == 1 else t.contiguous()
-                           for t in (q, k_pages, v_pages))
+    q, k_pages, v_pages = (aligned(t) for t in (q, k_pages, v_pages))
     if scale is None:
         scale = D ** -0.5
     q_start = _per_slot(q_start, B, q.device, "q_start")
@@ -103,6 +113,18 @@ def paged_flash_attention_fwd(q, k_pages, v_pages, block_table, *, q_start,
     if out.numel() == 0:
         return out
     lib = _lib()
+    rows = Tq * (H // KV)
+    row_tiles = -(-rows // _BLOCK_ROWS)
+    nchunks = -(-block_table.shape[1] * ps
+                // lib.repro_paged_key_tile(_DTYPE_CODES[q.dtype]))
+    splits = choose_splits(kv_splits, blocks=row_tiles * KV * B, rows=rows,
+                           nchunks=nchunks, device=q.device)
+    # the scratch may be freed once the launches are queued: the caching
+    # allocator hands its memory only to work queued after them on this
+    # stream
+    scratch, part_o, part_ml = split_scratch(
+        splits, B=B, KV=KV, row_tiles=row_tiles, block_rows=_BLOCK_ROWS,
+        nchunks=nchunks, Dv=Dv, device=q.device)
     rc = lib.repro_paged_flash_attention_fwd(
         _DTYPE_CODES[q.dtype], D, Dv,
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
@@ -114,12 +136,20 @@ def paged_flash_attention_fwd(q, k_pages, v_pages, block_table, *, q_start,
         out.stride(0), out.stride(1), out.stride(2), block_table.stride(0),
         int(bool(causal)), 0 if window is None else int(window),
         int(softcap is not None), float(softcap or 0.0), float(scale),
+        splits, part_o, part_ml,
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("paged flash attention kernel launch failed: "
                            + lib.repro_paged_cuda_error_string(rc).decode())
     paged_flash_attention_fwd.launches += 1
+    paged_flash_attention_fwd.combine_launches += int(splits > 1)
+    paged_flash_attention_fwd.last_launch = dict(
+        grid=(row_tiles * B, KV * splits, 1), threads=8 * _BLOCK_ROWS,
+        splits=splits)
     return out
 
 
 paged_flash_attention_fwd.launches = 0
+paged_flash_attention_fwd.combine_launches = 0
+#: the grid, threads per block and key-axis split of the last call
+paged_flash_attention_fwd.last_launch = None

@@ -93,8 +93,8 @@ class ContinuousEngine:
     def __init__(self, cfg, *, slots: int, layout: PagedCacheLayout,
                  max_new: int, buckets=None, max_prompt: int = 48,
                  sampling: SamplingParams = SamplingParams(),
-                 eos_id: int | None = None, param_dtype=torch.bfloat16,
-                 cache_dtype=torch.bfloat16, speculate_k: int = 0,
+                 eos_id: int | None = None, param_dtype=torch.float32,
+                 cache_dtype=torch.float32, speculate_k: int = 0,
                  draft_layers: int | None = None, prefill_batch: int = 1,
                  device=None):
         if slots < 1:

@@ -465,9 +465,27 @@ def test_capacity_and_dtype_checks_raise():
     with pytest.raises(ValueError, match="speculate_k"):
         eng.run(params, [Request(rid=0, tokens=(1, 2), arrival=0.0)])
     bf = ContinuousEngine(cfg, layout=PagedCacheLayout(**LAYOUT),
-                          device="cpu", **KW)
+                          param_dtype=torch.bfloat16,
+                          cache_dtype=torch.bfloat16, device="cpu", **KW)
     with pytest.raises(TypeError, match="bfloat16"):
         bf.run(params, [Request(rid=0, tokens=(1, 2), arrival=0.0)])
+
+
+def test_engine_defaults_to_f32_params_and_pools_as_the_reference():
+    """Built without dtypes, the engine takes f32 params and keeps f32
+    page pools, as the reference's does (``serve/continuous.py:105-106``),
+    and serves the f32 params a trace."""
+    jcfg, cfg, _, params = _setup()
+    jeng = JEngine(jcfg, layout=JM.PagedCacheLayout(**LAYOUT), **KW)
+    eng = ContinuousEngine(cfg, layout=PagedCacheLayout(**LAYOUT),
+                           device="cpu", **KW)
+    assert jeng.cache_dtype == jnp.float32
+    assert eng.param_dtype == eng.cache_dtype == torch.float32
+    from repro_torch.models.blocks import layer_caches
+    leaves = [c[kv] for c in layer_caches(eng.pools) for kv in ("k", "v")]
+    assert leaves and all(t.dtype == torch.float32 for t in leaves)
+    out = eng.run(params, _trace(cfg, n=2))
+    assert out["stats"]["requests"] == 2
 
 
 def test_continuous_launcher_runs_on_the_cpu(capsys):

@@ -16,7 +16,12 @@ the quantize+EF kernel, on q, scale and the residual, in int8 and fp8,
 with and without err: its payload is a bitwise contract.  The paged
 flash-attention kernel is held to flash attention's tolerance against
 its plain version, and to its own row contract bit for bit: a verify
-window equals one-row calls, whatever else the block holds.  The gossip
+window equals one-row calls, whatever else the block holds.  The dense
+kernel holds the same contract (both run ``csrc/flash_core.cuh``): its
+verify window equals one-row calls, its one-row call equals the paged
+kernel's over pages holding the same bits, and in both kernels a call
+split over the key axis equals ``kv_splits=1`` bit for bit.  K/V or pools
+whose rows the kernels' 16-byte copies cannot read are copied first.  The gossip
 combine (both entry points, f32 and bf16, 1 to 32 slots, aligned or
 not) and the quantized combine (int8 and fp8, every fp8 code, 0 to 3
 slots) equal their plain versions bit for bit: the same f32 steps in the
@@ -100,6 +105,31 @@ def test_kernel_reads_strided_views_and_per_batch_positions(card, causal):
                               q_start=starts, k_valid_len=valid)
     torch.cuda.synchronize()
     _assert_close(got, want)
+
+
+def test_kernels_copy_views_their_16_byte_copies_cannot_read(card):
+    """K/V (and pools) that start 4 bytes off 16-byte alignment: the
+    wrappers copy them, and the results match the plain versions."""
+    g = torch.Generator(device=card).manual_seed(7)
+    B, H, KV, Tq, S, D, ps = 2, 4, 1, 3, 48, 64, 16
+
+    def off(*shape):
+        n = 1
+        for d in shape:
+            n *= d
+        return torch.randn(n + 1, generator=g, device=card)[1:].view(shape)
+
+    q = torch.randn(B, Tq, H, D, generator=g, device=card)
+    k, v = off(B, S, KV, D), off(B, S, KV, D)
+    _assert_close(flash_attention_fwd(q, k, v),
+                  ref.grouped_sdpa_ref(q, k, v))
+    kp, vp = off(B * S // ps + 1, ps, KV, D), off(B * S // ps + 1, ps, KV, D)
+    table = torch.arange(1, B * S // ps + 1, dtype=torch.int32,
+                         device=card).view(B, S // ps)
+    kw = dict(q_start=S - Tq, k_valid_len=S)
+    _assert_close(paged_flash_attention_fwd(q, kp, vp, table, **kw),
+                  ref.paged_sdpa_ref(q, kp, vp, table, **kw))
+    torch.cuda.synchronize()
 
 
 def _bits(t):
@@ -463,6 +493,82 @@ def test_paged_kernel_verify_window_equals_one_row_calls(card, dtype, H, KV,
                                         k_valid_len=q_start + i + 1,
                                         window=window)
         assert torch.equal(_bits(verify[:, i:i + 1]), _bits(one)), i
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,window", [(4, 1, None), (4, 1, 9),
+                                         (4, 1, 40), (8, 2, 40)])
+def test_dense_kernel_verify_window_equals_one_row_calls(card, dtype, H, KV,
+                                                         window):
+    """The dense kernel holds the row contract too: a 5-row verify call
+    with per-batch q_start equals 5 one-row calls bit for bit (the
+    reference's ``tests/test_decode_attention.py:80-94``)."""
+    g = torch.Generator(device=card).manual_seed(H + KV + (window or 0))
+    B, S, D = 3, 260, 256
+    q = torch.randn(B, 5, H, D, generator=g, device=card).to(dtype)
+    k = torch.randn(B, S, KV, D, generator=g, device=card).to(dtype)
+    v = torch.randn(B, S, KV, D, generator=g, device=card).to(dtype)
+    q_start = torch.tensor([0, 31, 170], device=card, dtype=torch.int32)
+    k[:, 175:] = float("nan")           # past every k_valid: never read
+    v[:, 175:] = float("nan")
+    verify = flash_attention_fwd(q, k, v, q_start=q_start,
+                                 k_valid_len=q_start + 5, window=window)
+    for i in range(5):
+        one = flash_attention_fwd(q[:, i:i + 1], k, v, q_start=q_start + i,
+                                  k_valid_len=q_start + i + 1, window=window)
+        assert torch.equal(_bits(verify[:, i:i + 1]), _bits(one)), i
+    assert not bool(verify.isnan().any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,softcap", [(None, None), (37, None),
+                                            (None, 30.0)])
+def test_dense_row_equals_paged_row(card, dtype, window, softcap):
+    """A dense one-row call equals the paged kernel over pages that hold
+    the same bits, bit for bit (DESIGN.md Sec. 14, on the card)."""
+    B, H, KV, D, ps, maxp = 3, 4, 1, 256, 16, 12
+    q, kp, vp, table = _paged_case(card, dtype, B=B, H=H, KV=KV, D=D, Dv=D,
+                                   ps=ps, maxp=maxp, seed=11)
+    q = q[:, :1]
+    S = maxp * ps
+    k = kp[table.long()].reshape(B, S, KV, D)
+    v = vp[table.long()].reshape(B, S, KV, D)
+    pos = torch.tensor([0, 63, 150], device=card, dtype=torch.int32)
+    kw = dict(window=window, softcap=softcap)
+    paged = paged_flash_attention_fwd(q, kp, vp, table, q_start=pos,
+                                      k_valid_len=pos + 1, **kw)
+    dense = flash_attention_fwd(q, k, v, q_start=pos, k_valid_len=pos + 1,
+                                **kw)
+    assert torch.equal(_bits(dense), _bits(paged))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Tq,window", [(1, None), (1, 40), (5, None)])
+def test_split_equals_unsplit(card, dtype, Tq, window):
+    """Split over the key axis (2 to 17 blocks per row tile, partials
+    folded by the combine kernel) equals kv_splits=1 bit for bit, in both
+    kernels; the combine launches are counted apart."""
+    B, H, KV, D, ps, maxp = 4, 4, 1, 256, 16, 68
+    q, kp, vp, table = _paged_case(card, dtype, B=B, H=H, KV=KV, D=D, Dv=D,
+                                   ps=ps, maxp=maxp, seed=13)
+    q = q[:, :Tq]
+    S = maxp * ps
+    k = kp[table.long()].reshape(B, S, KV, D)
+    v = vp[table.long()].reshape(B, S, KV, D)
+    pos = torch.tensor([64, 512, 1000, S - Tq], device=card,
+                       dtype=torch.int32)
+    kw = dict(q_start=pos, k_valid_len=pos + Tq, window=window)
+    calls = ((flash_attention_fwd, (q, k, v)),
+             (paged_flash_attention_fwd, (q, kp, vp, table)))
+    for fn, args in calls:
+        one = fn(*args, kv_splits=1, **kw)
+        for splits in (2, 3, 5, 17):
+            before = (fn.launches, fn.combine_launches)
+            got = fn(*args, kv_splits=splits, **kw)
+            assert (fn.launches, fn.combine_launches) == (before[0] + 1,
+                                                          before[1] + 1)
+            assert torch.equal(_bits(got), _bits(one)), (fn, splits)
+    torch.cuda.synchronize()
 
 
 def test_paged_kernel_rejects_what_it_does_not_take(card):
