@@ -34,7 +34,14 @@ Phases (any failure exits non-zero and prints no result line):
      bf16 and f32, with per-row and scalar pre-scales, plus a ragged
      case and a bf16 case above 2^31 elements: bit for bit.  No single
      PyTorch call computes the same function (``torch._fused_sgd_`` has
-     no per-row pre-scale), so its ``library_ms`` is null.
+     no per-row pre-scale), so its ``library_ms`` is null.  Then the
+     grouped launch (``fused_dsgd_many``) over all 340 gemma3-1b leaves
+     at n = 3 in bf16, per-row, scalar and unit pre-scales, and over a
+     ragged list (f32 and bf16, an empty and an unaligned leaf), bit for
+     bit leaf by leaf; timed at per-row and unit pre (``device_ms`` as a
+     CUDA graph), with ``torch._fused_sgd_`` (dampening 0, no weight
+     decay) as the unit entry's ``library_ms`` and its max abs
+     difference from the kernel beside it.
    - Quantize + EF21 residual (``[quantize]``), at the compressed
      training path's chunk-row shapes (the embedding and three stacked
      reference leaves, each node's four blocks back to back, as (rows,
@@ -52,7 +59,11 @@ Phases (any failure exits non-zero and prints no result line):
      payload byte value: bit for bit.  ``library_ms`` times
      ``torch.tensordot(w, stack, dims=1)`` for the slots combine; no
      PyTorch call dequantizes and combines, so the quantized combine's
-     is null.
+     is null.  Then the grouped combine (``gossip_mix_slots_many``) over
+     one rank's 340 f32 work buffers of gemma3-1b, S = 2, with f32 and
+     bf16 outputs, and over a ragged list, bit for bit tensor by tensor;
+     timed (``device_ms`` as a CUDA graph) against the per-tensor
+     ``tensordot`` loop.
    - Paged flash attention (``[paged]``), at the continuous serving
      path's shapes (8 slots with ragged positions, page size 16, 553
      pages of one kv head of 256, block table 8 x 69), decode (Tq = 1)
@@ -81,26 +92,28 @@ Phases (any failure exits non-zero and prints no result line):
    graph, DSGD-momentum (0.9, eta 0.01) through ``simulate_decentralized``,
    2 sequences of 1024 tokens per node; one warm-up step, then 6 timed
    steps (two periods of the schedule) whose launches are counted (one
-   fused update per parameter tensor and 26 x 3 flash forwards per
-   step) and whose steps are split by CUDA events into forward+backward,
-   update and mix.
+   grouped fused update per step over all 340 parameter tensors and
+   26 x 3 flash forwards per step) and whose steps are split by CUDA
+   events into forward+backward, update and mix.
    ``[train-compress]``: the same with int8 compressed gossip (chunk
    256, error feedback, seed 0), after one warm-up step, 6 timed steps
    whose launches are counted (one quantize+EF per reference leaf, one
-   fused update per parameter tensor and 26 x 3 flash forwards per
-   step), split into
+   grouped fused update and 26 x 3 flash forwards per step), split into
    forward+backward, update and compressed mix, with the peak memory and
    the wire bytes per node per round against f32.
    ``[dist]``: the same training across processes: 3 ranks of one node
    each (``launch.distributed.spawn_local``, gloo, each message staged
    through pinned host memory, all on this card), each through the
    launcher's per-rank entry ``launch.train.train_rank`` for 3 steps,
-   its kernel counters set to 0 just before and read just after (340
-   slots combines, 340 fused updates and 26 flash forwards per rank per
-   step, asserted).  The simulation engine on the same parameters and
-   batches, run first, is the oracle: step 0's per-node losses equal,
-   later ones within 1e-2; every parameter element within 2^-5 |sim| +
-   2^-1 max|sim - init| of its tensor; the bytes each rank sent equal
+   its kernel counters set to 0 just before and read just after (13
+   grouped combines, one per bucket of at most 256 MiB of f32 work
+   buffers, over the 340 tensors; one grouped fused update; 26 flash
+   forwards per rank per step, asserted), and each rank's peak memory
+   held under the per-tensor mixer's 18.73 GiB plus (S + 1) buckets.
+   The simulation engine on the same parameters and batches, run first,
+   is the oracle: step 0's per-node losses equal, later ones within
+   1e-2; every parameter element within 2^-5 |sim| + 2^-1 max|sim -
+   init| of its tensor; the bytes each rank sent equal
    the plan's messages times the f32 tree.  Split per step into
    forward+backward, update, exchange and combine, with each rank's
    peak memory.  ``[dist-compress]``: the same with int8 + EF (106
@@ -135,6 +148,7 @@ and main-path shape; the last line is
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -180,6 +194,7 @@ CONT_MAXP = -(-(PROMPT + CONT_NEW + CONT_K) // CONT_PAGE)      # 69 pages
 # the distributed path: the [train] cell split over TRAIN_N processes,
 # one node each, sharing the card through gloo
 DIST_STEPS, DIST_TIMEOUT, DIST_LOSS_TOL = 3, 600.0, 1e-2
+DIST_PEAK_GIB = 18.73     # peak per rank of the per-tensor mixer, measured
 # one rank's (R, C) views of its f32 work buffers (ops._as_2d of the
 # (1, ...) tensors) and the same reference leaves' chunk rows (one node's
 # blocks back to back: the embedding, 4 MLP gates, 4 norm scales)
@@ -530,13 +545,16 @@ def phase_dsgd_kernels(torch, dev):
                     "max_abs_err": err,
                     "ms": time_ms(torch, lambda: fused_dsgd(
                         x, u, g, beta, eta, row), flush),
+                    "device_ms": graph_ms(torch, lambda: fused_dsgd(
+                        x, u, g, beta, eta, row), flush),
                     "plain_ms": time_ms(torch, lambda: ref.fused_dsgd_ref(
                         x, u, g, beta, eta, row[:, None]), flush),
                     "bound_ms": b_ms,
                     "bound_by": b_by,
                     "library_ms": None,
                 }
-                print(f"[dsgd] {entry['name']}: {entry['ms']:.4f} ms (bound "
+                print(f"[dsgd] {entry['name']}: {entry['ms']:.4f} ms, device "
+                      f"(as a graph) {entry['device_ms']:.4f} ms (bound "
                       f"{b_ms:.4f} ms by {b_by}; plain "
                       f"{entry['plain_ms']:.4f} ms)")
                 entries.append(("train-fused_dsgd", entry))
@@ -563,7 +581,145 @@ def phase_dsgd_kernels(torch, dev):
                              f"its plain version in columns {c0}+")
     print(f"[dsgd] {shape} bfloat16 pre=row ({x.numel()} elements, 2^31 = "
           f"{1 << 31}): bitwise True")
-    del x, u, g, gx, gu, flush
+    del x, u, g, gx, gu
+    torch.cuda.empty_cache()
+    entries += dsgd_grouped(torch, dev, gen, flush)
+    del flush
+    torch.cuda.empty_cache()
+    return entries
+
+
+def gemma_shapes(torch):
+    """gemma3-1b's 340 leaf shapes, from the model on the meta device."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    return [tuple(v.shape) for v in M.Model(
+        get_config("gemma3-1b"), dtype=torch.bfloat16,
+        device="meta").state_dict().values()]
+
+
+def dsgd_grouped(torch, dev, gen, flush):
+    """The grouped launch (``fused_dsgd_many``) over every gemma3-1b leaf
+    at n = TRAIN_N in bf16, per-row, scalar and unit pre-scales, and over
+    a ragged list of mixed dtypes, bit for bit against the plain version
+    leaf by leaf; returns the JSON entries of the per-row (``[train]``)
+    and unit (``[train-compress]``, ``[dist]``) launches, timed."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_dsgd import fused_dsgd_many
+
+    beta, eta = TRAIN_MOMENTUM, TRAIN_ETA
+
+    def check(name, xs, us, gs, pre, mode):
+        before = (fused_dsgd_many.launches, fused_dsgd_many.segments)
+        got_x, got_u = fused_dsgd_many(xs, us, gs, beta, eta, pre)
+        torch.cuda.synchronize()
+        launches = fused_dsgd_many.launches - before[0]
+        segments = fused_dsgd_many.segments - before[1]
+        same = True
+        for x, u, g, gx, gu in zip(xs, us, gs, got_x, got_u):
+            bp = pre.reshape((-1,) + (1,) * (x.ndim - 1)) \
+                if isinstance(pre, torch.Tensor) else pre
+            wx, wu = ref.fused_dsgd_ref(x, u, g, beta, eta, bp)
+            same &= torch.equal(_bits(torch, gx), _bits(torch, wx)) \
+                and torch.equal(_bits(torch, gu), _bits(torch, wu))
+            del wx, wu
+        print(f"[dsgd] grouped {name} pre={mode}: {launches} launch(es) over "
+              f"{segments} tensors, bitwise {same}")
+        if not same:
+            raise SystemExit(f"fused_dsgd_many {name} pre={mode} differs "
+                             f"from its plain version")
+        return got_x, got_u
+
+    # a ragged list: f32 and bf16, an empty leaf, an unaligned one, rows
+    # that are no multiple of a vector
+    specs = [((3, 1), torch.float32), ((3, 1152), torch.bfloat16),
+             ((3, 0), torch.float32), ((3, 257, 3), torch.float32),
+             ((3, 70001), torch.bfloat16), ((3, 4, 65), torch.float32)]
+    xs, us, gs = [], [], []
+    for shape, dtype in specs:
+        for lst in (xs, us, gs):
+            lst.append(torch.randn(shape, generator=gen, device=dev,
+                                   dtype=dtype))
+    n = 1 + 3 * 1152
+    off = torch.randn(n, generator=gen, device=dev, dtype=torch.bfloat16)
+    xs.append(off[1:].view(3, 1152))           # 2 bytes off alignment
+    us.append(torch.randn(3, 1152, generator=gen, device=dev,
+                          dtype=torch.bfloat16))
+    gs.append(torch.randn(3, 1152, generator=gen, device=dev,
+                          dtype=torch.bfloat16))
+    row = torch.rand(TRAIN_N, generator=gen, device=dev) + 0.2
+    for pre, mode in ((row, "row"), (0.37, "scalar")):
+        check("ragged (f32 + bf16, empty, unaligned)", xs, us, gs, pre, mode)
+    del xs, us, gs, off
+
+    shapes = gemma_shapes(torch)
+    xs, us, gs = ([torch.randn((TRAIN_N,) + s, generator=gen, device=dev,
+                               dtype=torch.bfloat16) for s in shapes]
+                  for _ in range(3))
+    numel = sum(x.numel() for x in xs)
+    name = f"gemma3-1b, {len(xs)} leaves x {TRAIN_N} nodes, bfloat16"
+    check(name, xs, us, gs, row, "row")
+    check(name, xs, us, gs, 0.37, "scalar")
+    got_x, got_u = check(name, xs, us, gs, 1.0, "1")
+
+    # torch._fused_sgd_ at pre = 1 (dampening 0, no weight decay, no
+    # Nesterov) computes the same function, in place, with its own
+    # rounding: its max abs difference from the kernel beside its time
+    lx, lu = [x.clone() for x in xs], [u.clone() for u in us]
+
+    def fused_sgd():
+        torch._fused_sgd_(lx, gs, lu, weight_decay=0.0, momentum=beta,
+                          lr=eta, dampening=0.0, nesterov=False,
+                          maximize=False, is_first_step=False)
+
+    fused_sgd()
+    torch.cuda.synchronize()
+    lib_err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(lx + lu, got_x + got_u))
+    del got_x, got_u
+    b_ms, b_by = bound_ms(5 * numel * 2 + 4 * TRAIN_N, 6 * numel, "float32")
+    entries = []
+    for pre, mode, phase in ((row, "row", "train-fused_dsgd"),
+                             (1.0, "1", "train-compress-fused_dsgd")):
+        def fn():
+            return fused_dsgd_many(xs, us, gs, beta, eta, pre)
+
+        def plain():
+            bp = pre[:, None] if isinstance(pre, torch.Tensor) else pre
+            return [ref.fused_dsgd_ref(x.view(TRAIN_N, -1),
+                                       u.view(TRAIN_N, -1),
+                                       g.view(TRAIN_N, -1), beta, eta, bp)
+                    for x, u, g in zip(xs, us, gs)]
+
+        entry = {
+            "name": f"fused_dsgd_many[{len(xs)} leaves,bfloat16,pre={mode}]",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/fused_dsgd.cu, "
+                      "src/repro_torch/kernels/csrc/multi_tensor.cuh",
+            "replaces": "src/repro/kernels/fused_dsgd.py:50",
+            "launches": None,
+            "max_abs_err": 0.0,
+            "ms": time_ms(torch, fn, flush),
+            "device_ms": graph_ms(torch, fn, flush),
+            "plain_ms": time_ms(torch, plain, flush, runs=5, warmup=1),
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+        }
+        lib = ""
+        if mode == "1":
+            entry["library_ms"] = time_ms(torch, fused_sgd, flush)
+            entry["library_device_ms"] = graph_ms(torch, fused_sgd, flush)
+            entry["library_max_abs_diff"] = lib_err
+            lib = (f"; torch._fused_sgd_ {entry['library_ms']:.4f} ms, "
+                   f"device {entry['library_device_ms']:.4f} ms, max abs "
+                   f"diff from the kernel {lib_err:.3e}")
+        print(f"[dsgd] {entry['name']}: {entry['ms']:.4f} ms, device (as a "
+              f"graph) {entry['device_ms']:.4f} ms (bound {b_ms:.4f} ms by "
+              f"{b_by}, {numel * 10 / 1e9:.2f} GB; plain "
+              f"{entry['plain_ms']:.4f} ms{lib})")
+        entries.append((phase, entry))
+    del xs, us, gs, lx, lu
     torch.cuda.empty_cache()
     return entries
 
@@ -1137,8 +1293,9 @@ def phase_train(torch, dev, card, profile=False, compression=None):
     from repro_torch.compress import reference_leaves
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_fwd
-    from repro_torch.kernels.fused_dsgd import fused_dsgd
+    from repro_torch.kernels.fused_dsgd import fused_dsgd, fused_dsgd_many
     from repro_torch.kernels.quantized_gossip import quantize_ef
     from repro_torch.models import model as M
     from repro_torch.optim.decentralized import make_method
@@ -1181,20 +1338,53 @@ def phase_train(torch, dev, card, profile=False, compression=None):
     torch.cuda.reset_peak_memory_stats()
 
     fused_dsgd.launches = 0
+    fused_dsgd_many.launches = fused_dsgd_many.segments = 0
     flash_attention_fwd.launches = 0
     quantize_ef.launches = 0
+    # host seconds inside the grouped update's entry point per step, and
+    # the part of them Python's garbage collector took
+    host, gc_in, gc_open, inside = [], [], [], [False]
+    real = ops.fused_dsgd_steps
+
+    def timed(*args, **kw):
+        t = time.perf_counter()
+        inside[0] = True
+        gc_in.append(0.0)
+        try:
+            return real(*args, **kw)
+        finally:
+            inside[0] = False
+            host.append(time.perf_counter() - t)
+
+    def gc_clock(phase, info):
+        if phase == "start":
+            gc_open[:] = [time.perf_counter()]
+        elif gc_open and inside[0]:
+            gc_in[-1] += time.perf_counter() - gc_open[0]
+
+    ops.fused_dsgd_steps = timed
+    gc.callbacks.append(gc_clock)
     t0 = time.perf_counter()
-    with trace.cuda_marks() as marks:
-        res = simulate_decentralized(steps=TRAIN_STEPS, **kw)
-        torch.cuda.synchronize()
+    try:
+        with trace.cuda_marks() as marks:
+            res = simulate_decentralized(steps=TRAIN_STEPS, **kw)
+            torch.cuda.synchronize()
+    finally:
+        ops.fused_dsgd_steps = real
+        gc.callbacks.remove(gc_clock)
     wall = time.perf_counter() - t0
-    launches = {pre + "fused_dsgd": fused_dsgd.launches,
+    launches = {pre + "fused_dsgd": fused_dsgd_many.launches,
+                pre + "fused_dsgd-tensors": fused_dsgd_many.segments,
+                pre + "fused_dsgd-single": fused_dsgd.launches,
                 pre + "flash": flash_attention_fwd.launches,
                 "train-quantize_ef": quantize_ef.launches}
     peak = torch.cuda.max_memory_allocated()
 
     leaves = reference_leaves(params)
-    want = {pre + "fused_dsgd": TRAIN_STEPS * len(params),
+    dtypes = len({v.dtype for v in params.values()})
+    want = {pre + "fused_dsgd": TRAIN_STEPS * dtypes,
+            pre + "fused_dsgd-tensors": TRAIN_STEPS * len(params),
+            pre + "fused_dsgd-single": 0,
             pre + "flash": TRAIN_STEPS * cfg.num_layers * TRAIN_N,
             "train-quantize_ef": TRAIN_STEPS * len(leaves) if compression
             else 0}
@@ -1229,8 +1419,12 @@ def phase_train(torch, dev, card, profile=False, compression=None):
           f"tokens/s ({tokens} tokens per step); host clock "
           f"{wall / TRAIN_STEPS * 1e3:.2f} ms/step over the whole run")
     print(f"{tag} split per step (medians): forward+backward "
-          f"{med['forward+backward']:.2f} ms, update (fused kernels) "
-          f"{med['update']:.2f} ms, {mix_name} {med['mix']:.2f} ms")
+          f"{med['forward+backward']:.2f} ms, update (grouped kernel) "
+          f"{med['update']:.2f} ms, {mix_name} {med['mix']:.2f} ms; host "
+          f"time in ops.fused_dsgd_steps {statistics.median(host) * 1e3:.2f} "
+          f"ms/step (median of {len(host)}; per step "
+          f"{[round(t * 1e3, 2) for t in host]} ms, of which the garbage "
+          f"collector {[round(t * 1e3, 2) for t in gc_in]} ms)")
     print(f"{tag} losses {[round(float(x), 4) for x in losses]}; "
           f"consensus error after {TRAIN_STEPS} steps {cons:.3e}; peak "
           f"memory {peak / 2**30:.2f} GiB (max_memory_allocated)")
@@ -1242,8 +1436,11 @@ def phase_train(torch, dev, card, profile=False, compression=None):
           f"bf16); update >= {update_floor:.2f} ms/step "
           f"({update_bytes / 1e9:.1f} GB at 3.35 TB/s)")
     print(f"{tag} launches in {TRAIN_STEPS} steps: fused_dsgd "
-          f"{launches[pre + 'fused_dsgd']} (= {len(params)} tensors x "
-          f"{TRAIN_STEPS}), flash {launches[pre + 'flash']} (= "
+          f"{launches[pre + 'fused_dsgd']} (= {dtypes} dtype x "
+          f"{TRAIN_STEPS} steps) over "
+          f"{launches[pre + 'fused_dsgd-tensors']} tensors (= "
+          f"{len(params)} x {TRAIN_STEPS}), flash "
+          f"{launches[pre + 'flash']} (= "
           f"{cfg.num_layers} layers x {TRAIN_N} nodes x {TRAIN_STEPS})"
           + (f", quantize_ef {launches['train-quantize_ef']} (= "
              f"{len(leaves)} reference leaves x {TRAIN_STEPS})"
@@ -1479,6 +1676,8 @@ def phase_gossip_kernels(torch, dev):
                     wt = torch.tensor(w, device=dev)
                     lib_ms = time_ms(torch, lambda: torch.tensordot(
                         wt, stack, dims=1), flush)
+                    lib_dev = graph_ms(torch, lambda: torch.tensordot(
+                        wt, stack, dims=1), flush)
                     for row, fn, plain, line, phase in (
                             ("slots", lambda: gossip_mix_slots(bufs, w),
                              lambda: ref.gossip_mix_ref(bufs, w), 92,
@@ -1496,15 +1695,19 @@ def phase_gossip_kernels(torch, dev):
                             "launches": None,
                             "max_abs_err": 0.0,
                             "ms": time_ms(torch, fn, flush),
+                            "device_ms": graph_ms(torch, fn, flush),
                             "plain_ms": time_ms(torch, plain, flush),
                             "bound_ms": b_ms,
                             "bound_by": b_by,
                             "library_ms": lib_ms,
+                            "library_device_ms": lib_dev,
                         }
                         print(f"[gossip-mix] {entry['name']}: "
-                              f"{entry['ms']:.4f} ms (bound {b_ms:.4f} ms by "
-                              f"{b_by}; plain {entry['plain_ms']:.4f} ms; "
-                              f"tensordot {lib_ms:.4f} ms)")
+                              f"{entry['ms']:.4f} ms, device (as a graph) "
+                              f"{entry['device_ms']:.4f} ms (bound "
+                              f"{b_ms:.4f} ms by {b_by}; plain "
+                              f"{entry['plain_ms']:.4f} ms; tensordot "
+                              f"{lib_ms:.4f} ms, device {lib_dev:.4f} ms)")
                         entries.append((phase, entry))
                 del stack, bufs
                 torch.cuda.empty_cache()
@@ -1583,7 +1786,103 @@ def phase_gossip_kernels(torch, dev):
                 del qs, scales
                 torch.cuda.empty_cache()
         del own
+    entries += gossip_grouped(torch, dev, gen, flush)
     del flush
+    torch.cuda.empty_cache()
+    return entries
+
+
+def gossip_grouped(torch, dev, gen, flush):
+    """The grouped combine (``gossip_mix_slots_many``) over one rank's f32
+    work buffers of every gemma3-1b tensor, own + one received (S = 2),
+    f32 and bf16 outputs, and over a ragged list of mixed dtypes, bit for
+    bit against the plain version tensor by tensor; returns the JSON
+    entries of the two timed outputs."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gossip_mix import gossip_mix_slots_many
+
+    def check(name, lists, w, out_dtype):
+        before = (gossip_mix_slots_many.launches,
+                  gossip_mix_slots_many.segments)
+        got = gossip_mix_slots_many(lists, w, out_dtype)
+        torch.cuda.synchronize()
+        launches = gossip_mix_slots_many.launches - before[0]
+        segments = gossip_mix_slots_many.segments - before[1]
+        outs = out_dtype if isinstance(out_dtype, list) else \
+            [out_dtype] * len(lists)
+        same = all(torch.equal(_bits(torch, g), _bits(
+            torch, ref.gossip_mix_ref(bufs, w, out_dtype=d)))
+            for g, bufs, d in zip(got, lists, outs))
+        print(f"[gossip-mix] grouped {name} -> {out_dtype}: {launches} "
+              f"launch(es) over {segments} tensors, bitwise {same}")
+        if not same:
+            raise SystemExit(f"gossip_mix_slots_many {name} differs from "
+                             f"its plain version")
+        del got
+
+    # ragged: f32 and bf16 buffers, an empty tensor, an unaligned one,
+    # outputs of either type
+    lists = []
+    for shape, dtype in (((1, 1), torch.float32), ((1, 1152), torch.bfloat16),
+                         ((1, 0), torch.float32), ((7, 5), torch.bfloat16),
+                         ((1, 70001), torch.float32)):
+        lists.append([torch.randn(shape, generator=gen, device=dev,
+                                  dtype=dtype) for _ in range(3)])
+    lists.append([torch.randn(1 + 1152, generator=gen, device=dev)[1:]
+                  for _ in range(3)])            # 4 bytes off alignment
+    w3 = (torch.rand(3, generator=gen, device=dev) + 0.1).tolist()
+    for out in (None, torch.float32, torch.bfloat16,
+                [torch.bfloat16, torch.float32] * 3):
+        check("ragged (f32 + bf16, empty, unaligned), S=3", lists, w3, out)
+
+    S = 2
+    lists = [[torch.randn((1,) + shape, generator=gen, device=dev)
+              for _ in range(S)] for shape in gemma_shapes(torch)]
+    w = (torch.rand(S, generator=gen, device=dev) + 0.1).tolist()
+    numel = sum(b[0].numel() for b in lists)
+    name = f"gemma3-1b, one rank's {len(lists)} f32 work buffers, S={S}"
+    wt = torch.tensor(w, device=dev)
+    stacks = [torch.stack(b) for b in lists]
+    entries = []
+    for out in (torch.float32, torch.bfloat16):
+        check(name, lists, w, out)
+        dname = str(out).split(".")[1]
+        b_ms, b_by = bound_ms((4 * S + out.itemsize) * numel,
+                              (2 * S - 1) * numel, "float32")
+
+        def fn():
+            return gossip_mix_slots_many(lists, w, out)
+
+        def plain():
+            return [ref.gossip_mix_ref(b, w, out_dtype=out) for b in lists]
+
+        def library():
+            return [torch.tensordot(wt, st, dims=1).to(out) for st in stacks]
+
+        entry = {
+            "name": f"gossip_mix_slots_many[{len(lists)} tensors,"
+                    f"float32->{dname},S={S}]",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/gossip_mix.cu, "
+                      "src/repro_torch/kernels/csrc/multi_tensor.cuh",
+            "replaces": "src/repro/kernels/gossip_mix.py:92",
+            "launches": None,
+            "max_abs_err": 0.0,
+            "ms": time_ms(torch, fn, flush),
+            "device_ms": graph_ms(torch, fn, flush),
+            "plain_ms": time_ms(torch, plain, flush, runs=5, warmup=1),
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": time_ms(torch, library, flush, runs=5, warmup=1),
+            "library_device_ms": graph_ms(torch, library, flush, runs=5),
+        }
+        print(f"[gossip-mix] {entry['name']}: {entry['ms']:.4f} ms, device "
+              f"(as a graph) {entry['device_ms']:.4f} ms (bound {b_ms:.4f} "
+              f"ms by {b_by}; plain {entry['plain_ms']:.4f} ms; per-tensor "
+              f"tensordot {entry['library_ms']:.4f} ms, device "
+              f"{entry['library_device_ms']:.4f} ms)")
+        entries.append(("dist-gossip_mix", entry))
+    del lists, stacks
     torch.cuda.empty_cache()
     return entries
 
@@ -1649,8 +1948,9 @@ def _dist_rank(rank, device, opts, ref_paths, disp, n_leaves):
     from repro_torch import trace
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_fwd
-    from repro_torch.kernels.fused_dsgd import fused_dsgd
+    from repro_torch.kernels.fused_dsgd import fused_dsgd, fused_dsgd_many
     from repro_torch.kernels.gossip_mix import (gossip_mix_slots,
+                                                gossip_mix_slots_many,
                                                 gossip_mix_stacked)
     from repro_torch.kernels.quantized_gossip import (quantize_ef,
                                                       quantized_gossip_mix)
@@ -1659,15 +1959,20 @@ def _dist_rank(rank, device, opts, ref_paths, disp, n_leaves):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     counters = {"gossip_mix": gossip_mix_slots,
+                "gossip_mix_many": gossip_mix_slots_many,
                 "gossip_mix_stacked": gossip_mix_stacked,
-                "fused_dsgd": fused_dsgd, "flash": flash_attention_fwd,
-                "quantize_ef": quantize_ef,
+                "fused_dsgd": fused_dsgd, "fused_dsgd_many": fused_dsgd_many,
+                "flash": flash_attention_fwd, "quantize_ef": quantize_ef,
                 "quantized_gossip_mix": quantized_gossip_mix}
+    grouped = {"gossip_mix_many-tensors": gossip_mix_slots_many,
+               "fused_dsgd_many-tensors": fused_dsgd_many}
     digests = []
     real = _record_payloads(ops, digests, n_leaves if opts.compress else 0,
                             1)
     for c in counters.values():
         c.launches = 0
+    for c in grouped.values():
+        c.segments = 0
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     try:
@@ -1678,6 +1983,7 @@ def _dist_rank(rank, device, opts, ref_paths, disp, n_leaves):
         ops.quantize_payload = real
     wall = time.perf_counter() - t0
     launches = {k: c.launches for k, c in counters.items()}
+    launches.update({k: c.segments for k, c in grouped.items()})
     peak = torch.cuda.max_memory_allocated(device)
     spans = _step_spans(marks)
     del marks
@@ -1732,6 +2038,7 @@ def phase_dist(torch, dev, card, compression=None):
     from repro_torch.compress import reference_leaves
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import token_batches
+    from repro_torch.dist.gossip import BUCKET_BYTES, plan_buckets
     from repro_torch.kernels import ops
     from repro_torch.launch.distributed import spawn_local
     from repro_torch.launch.train import TrainOptions
@@ -1821,11 +2128,21 @@ def phase_dist(torch, dev, card, compression=None):
         wire = sum(compression.wire_bytes(sum(numel[k] for k in g))
                    for g in leaves)
     n_comp = len(leaves) * DIST_STEPS if compression else 0
-    want = {"gossip_mix": 0 if compression else len(numel) * DIST_STEPS,
-            "gossip_mix_stacked": 0,
-            "fused_dsgd": len(numel) * DIST_STEPS,
+    buckets = len(plan_buckets([4 * n for n in numel.values()],
+                               BUCKET_BYTES))
+    want = {"gossip_mix": 0,
+            "gossip_mix_many": 0 if compression else buckets * DIST_STEPS,
+            "gossip_mix_many-tensors": 0 if compression
+            else len(numel) * DIST_STEPS,
+            "gossip_mix_stacked": 0, "fused_dsgd": 0,
+            "fused_dsgd_many": DIST_STEPS,
+            "fused_dsgd_many-tensors": len(numel) * DIST_STEPS,
             "flash": cfg.num_layers * DIST_STEPS,
             "quantize_ef": n_comp, "quantized_gossip_mix": n_comp}
+    # a bucket holds S buffers per tensor until its combine, and its
+    # outputs: at most (S + 1) x the cap over the per-tensor mixer's peak
+    slots = 1 + max(len(rp.slots) for rp in plan.rounds)
+    peak_bound = DIST_PEAK_GIB * 2**30 + (slots + 1) * BUCKET_BYTES
     print(f"{tag} gemma3-1b full width in bf16, {TRAIN_N} ranks on "
           f"{dev} (gloo, each message staged through pinned host memory: "
           f"not NCCL's times), base k=1, dsgdm {TRAIN_MOMENTUM}, eta "
@@ -1842,6 +2159,9 @@ def phase_dist(torch, dev, card, compression=None):
         if res["launches"] != want:
             fails.append(f"rank {r} launches {res['launches']}, expected "
                          f"{want}")
+        if not compression and res["peak"] > peak_bound:
+            fails.append(f"rank {r} peak memory {res['peak'] / 2**30:.2f} "
+                         f"GiB over {peak_bound / 2**30:.2f} GiB")
         if not (res["on_card"] and res["device"].startswith("cuda")):
             fails.append(f"rank {r} ran on {res['device']}, or its tensors "
                          f"left the card")
@@ -1898,11 +2218,20 @@ def phase_dist(torch, dev, card, compression=None):
     if fails:
         raise SystemExit(f"{tag} failed:\n" + "\n".join(fails))
     total = {k: sum(res["launches"][k] for res in results)
-             for k in ("gossip_mix", "gossip_mix_stacked",
+             for k in ("gossip_mix", "gossip_mix_many", "gossip_mix_stacked",
                        "quantized_gossip_mix")}
+    peak = max(res["peak"] for res in results)
     if compression:
+        print(f"{tag} peak memory per rank at most {peak / 2**30:.2f} GiB")
         return {pre + "quantized_gossip_mix": total["quantized_gossip_mix"]}
-    return {pre + "gossip_mix": total["gossip_mix"],
+    print(f"{tag} combine launches {total['gossip_mix_many']} = {buckets} "
+          f"buckets of at most {BUCKET_BYTES >> 20} MiB x {DIST_STEPS} steps "
+          f"x {TRAIN_N} ranks, over {len(numel)} tensors per round; peak "
+          f"memory per rank at most {peak / 2**30:.2f} GiB, bound "
+          f"{peak_bound / 2**30:.2f} GiB = {DIST_PEAK_GIB} GiB (the "
+          f"per-tensor mixer's) + (S + 1 = {slots + 1}) x the cap")
+    return {pre + "gossip_mix": total["gossip_mix_many"]
+            + total["gossip_mix"],
             pre + "gossip_mix_stacked": total["gossip_mix_stacked"]}
 
 
@@ -2058,6 +2387,11 @@ def main() -> None:
                                       error_feedback=True, seed=0)))
     for phase, e in entries:
         e["launches"] = launches[phase]
+    idle = [e["name"] for phase, e in entries
+            if not e["launches"] and phase != "dist-gossip_mix_stacked"]
+    if idle:        # the stacked entry is on no ported path
+        raise SystemExit(f"kernels of a main path launched no time there: "
+                         f"{idle}")
     phase_cpu_vs_card(torch, dev)
     phase_train_cpu_vs_card(torch, dev)
     phase_compress_cpu_vs_card(torch, dev)

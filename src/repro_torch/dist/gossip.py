@@ -16,13 +16,22 @@ needed.
 A rank holds its own node's flat dict, every tensor with a leading node
 axis of size 1 (the reference's shard shape), so
 ``repro_torch.optim.decentralized`` runs unchanged through its
-callable-mixer branch.  Each float tensor becomes an f32 work buffer, the
-received buffers come in beside it, and ``ops.gossip_mix`` (the CUDA
-slots-combine kernel on the card) sums them in slot order; the result is
-cast back to the tensor's dtype.  With ``flatten=True`` one f32 buffer
-holds all float tensors, so each slot sends one message for the whole
-tree.  Tensors that are not floats pass through: a weighted average is
-meaningless for them.
+callable-mixer branch.  Each float tensor becomes an f32 work buffer,
+which is what travels, and the received buffers come in beside it.  The
+exchanges run tensor by tensor, as before, but the combines are
+deferred: tensors gather into a bucket until its f32 work buffers reach
+:data:`BUCKET_BYTES` (a larger tensor is a bucket of its own, see
+:func:`plan_buckets`), and each bucket is one
+``ops.gossip_mix_many`` call, on the card one grouped launch of the
+slots-combine kernel per dtype pair, which sums each tensor's buffers in
+slot order in f32 and writes the tensor's own dtype (a bf16 output is
+the f32 sum rounded once, the bits of a cast).  A bucket holds its work
+and received buffers until it is combined, so the mixer's memory rises
+by at most (S + 1) x :data:`BUCKET_BYTES` over a per-tensor combine,
+for S buffers per tensor.  With ``flatten=True`` one f32 buffer holds all
+float tensors, so each slot sends one message for the whole tree, and
+its combine is one segment.  Tensors that are not floats pass through: a
+weighted average is meaningless for them.
 
 Compressed gossip (``compression=``, DESIGN.md Sec. 13): each reference
 leaf (the blocks of one stacked leaf, back to back, padded once:
@@ -136,6 +145,26 @@ class _Wire:
         return recvs
 
 
+BUCKET_BYTES = 256 << 20     # f32 work buffers gathered per grouped combine
+
+
+def plan_buckets(sizes, cap: int) -> list[list[int]]:
+    """The mixer's buckets: the indices of tensors whose f32 work buffers
+    take ``sizes`` bytes, in order, cut so that a bucket's bytes stay
+    within ``cap``; a tensor larger than the cap is a bucket of its own
+    (``cap = 0``: one bucket per tensor)."""
+    buckets, cur, held = [], [], 0
+    for i, size in enumerate(sizes):
+        if cur and held + size > cap:
+            buckets.append(cur)
+            cur, held = [], 0
+        cur.append(i)
+        held += size
+    if cur:
+        buckets.append(cur)
+    return buckets
+
+
 def make_gossip_mixer(group, plan: SchedulePlan, *, flatten: bool = False,
                       compression=None):
     """Build this rank's ``mixer(tree, r) -> tree`` applying round
@@ -143,7 +172,9 @@ def make_gossip_mixer(group, plan: SchedulePlan, *, flatten: bool = False,
     rank i is the plan's node i.
 
     ``tree`` is this rank's flat dict, every tensor with a leading node
-    axis of size 1.  With ``compression`` (a ``CompressionConfig`` or a
+    axis of size 1.  The uncompressed mixer combines in buckets of at
+    most :data:`BUCKET_BYTES` of f32 work buffers (see the module's
+    docstring).  With ``compression`` (a ``CompressionConfig`` or a
     CLI string; identity and None mean uncompressed) the signature is
     ``mixer(tree, r, ef, t) -> (tree, ef)``: ``ef`` the EF21 residuals
     mirroring ``tree`` (None without error feedback), updated in place,
@@ -170,12 +201,13 @@ def make_gossip_mixer(group, plan: SchedulePlan, *, flatten: bool = False,
             return dist.get_global_rank(group, r)
     rounds = _rank_rounds(plan, me, to_global)
     wire = _Wire(group)
+    cap = BUCKET_BYTES
 
-    def combine(work: torch.Tensor, rnd: _Round) -> torch.Tensor:
+    def slots(work: torch.Tensor, rnd: _Round) -> list:
+        """The work buffer and what each slot of the round brings."""
         trace.mark("exchange")
-        recvs = [wire.exchange([work], slot)[0] for slot in rnd.slots]
-        trace.mark("combine")
-        return ops.gossip_mix([work, *recvs], rnd.weights)
+        return [work, *(wire.exchange([work], slot)[0]
+                        for slot in rnd.slots)]
 
     def mixer(tree: dict, r: int) -> dict:
         rnd = rounds[r % len(rounds)]
@@ -184,8 +216,11 @@ def make_gossip_mixer(group, plan: SchedulePlan, *, flatten: bool = False,
         if flatten and keys:
             flat = torch.cat([tree[k].reshape(-1).to(torch.float32)
                               for k in keys])
-            mixed = combine(flat, rnd)
+            bufs = slots(flat, rnd)
             del flat
+            trace.mark("combine")
+            mixed = ops.gossip_mix_many([bufs], rnd.weights)[0]
+            del bufs
             start = 0
             for k in keys:
                 x = tree[k]
@@ -193,9 +228,15 @@ def make_gossip_mixer(group, plan: SchedulePlan, *, flatten: bool = False,
                     x.shape).to(x.dtype)
                 start += x.numel()
             return out
-        for k in keys:
-            x = tree[k]
-            out[k] = combine(x.to(torch.float32), rnd).to(x.dtype)
+        for bucket in plan_buckets([4 * tree[k].numel() for k in keys],
+                                   cap):
+            names = [keys[i] for i in bucket]
+            work = [slots(tree[k].to(torch.float32), rnd) for k in names]
+            trace.mark("combine")
+            mixed = ops.gossip_mix_many(work, rnd.weights,
+                                        [tree[k].dtype for k in names])
+            del work
+            out.update(zip(names, mixed))
         return out
 
     if ccfg is None:

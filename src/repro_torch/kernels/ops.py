@@ -8,10 +8,14 @@ counterpart here.  Launches are counted on the kernel wrappers
 (``flash_attention.flash_attention_fwd.launches``,
 ``paged_flash_attention.paged_flash_attention_fwd.launches``,
 ``fused_dsgd.fused_dsgd.launches``,
+``fused_dsgd.fused_dsgd_many.launches``,
 ``quantized_gossip.quantize_ef.launches``,
 ``gossip_mix.gossip_mix_slots.launches``,
+``gossip_mix.gossip_mix_slots_many.launches``,
 ``gossip_mix.gossip_mix_stacked.launches``,
-``quantized_gossip.quantized_gossip_mix.launches``).
+``quantized_gossip.quantized_gossip_mix.launches``); the grouped entry
+points (``*_many``) also count the tensors their launches covered, in
+``segments``.
 """
 from __future__ import annotations
 
@@ -19,8 +23,9 @@ import torch
 
 from . import ref
 from .flash_attention import flash_attention_fwd
-from .fused_dsgd import fused_dsgd
-from .gossip_mix import gossip_mix_slots, gossip_mix_stacked
+from .fused_dsgd import fused_dsgd, fused_dsgd_many
+from .gossip_mix import (gossip_mix_slots, gossip_mix_slots_many,
+                         gossip_mix_stacked)
 from .paged_flash_attention import paged_flash_attention_fwd
 from .quantized_gossip import quantize_ef, quantized_gossip_mix as _qmix
 
@@ -76,6 +81,45 @@ def gossip_mix(bufs, weights):
     raise NotImplementedError(f"no gossip-mix kernel for device {dev}")
 
 
+def _one_device(tensors, what: str) -> torch.device:
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{what} takes tensors on one device, got "
+                         f"{sorted({str(t.device) for t in tensors})}")
+    return dev
+
+
+def gossip_mix_many(slot_lists, weights, out_dtype=None):
+    """The combine of :func:`gossip_mix` for many tensors of one round:
+    ``[sum_s weights[s] * bufs[s] for bufs in slot_lists]``.
+
+    slot_lists: T sequences of S buffers each (slot 0 the node's own), one
+    tensor's buffers of one shape, all on one device; weights: S floats.
+    out_dtype: None (each tensor's buffers' dtype), a dtype, or one per
+    tensor; the f32 sum is rounded to it once.  On the card it is one
+    grouped kernel launch per (input, output) dtype pair."""
+    lists = [list(b) for b in slot_lists]
+    if not lists:
+        return []
+    if any(not b for b in lists):
+        raise ValueError("gossip_mix_many needs at least one buffer per "
+                         "tensor")
+    dev = lists[0][0].device
+    if dev.type == "cuda":      # the wrapper checks every buffer
+        return gossip_mix_slots_many(lists, weights, out_dtype)
+    if dev.type == "cpu":
+        _one_device([b for bufs in lists for b in bufs], "gossip_mix_many")
+        for bufs in lists:
+            if any(b.shape != bufs[0].shape for b in bufs):
+                raise ValueError(f"one tensor's slots must be one shape, "
+                                 f"got {[tuple(b.shape) for b in bufs]}")
+        if out_dtype is None or isinstance(out_dtype, torch.dtype):
+            out_dtype = [out_dtype] * len(lists)
+        return [ref.gossip_mix_ref(bufs, weights, out_dtype=d)
+                for bufs, d in zip(lists, out_dtype, strict=True)]
+    raise NotImplementedError(f"no gossip-mix kernel for device {dev}")
+
+
 def quantized_gossip_mix(own, q_slots, scale_slots, weights):
     """Fused dequantize-and-combine for one compressed gossip round:
     ``w[0]*own + sum_s w[s+1]*(q_s * scale_s)`` (the reference's
@@ -117,6 +161,28 @@ def fused_dsgd_step(x, u, g, beta, eta, pre_scale=1.0):
             pre_scale = pre_scale.reshape((-1,) + (1,) * (x.ndim - 1))
         return ref.fused_dsgd_ref(x, u, g, beta, eta, pre_scale)
     raise NotImplementedError(f"no fused DSGD kernel for device {x.device}")
+
+
+def fused_dsgd_steps(xs, us, gs, beta, eta, pre_scale=1.0):
+    """:func:`fused_dsgd_step` over lists of leaves: returns the lists
+    ``(xs', us')``.  ``pre_scale`` is a scalar, or one vector over the
+    leading (node) axis that every leaf shares.  On the card it is one
+    grouped kernel launch per dtype present; on the CPU the plain
+    version, leaf by leaf."""
+    xs, us, gs = list(xs), list(us), list(gs)
+    if not len(xs) == len(us) == len(gs):
+        raise ValueError(f"{len(xs)} x, {len(us)} u, {len(gs)} g")
+    if not xs:
+        return [], []
+    dev = xs[0].device
+    if dev.type == "cuda":      # the wrapper checks every leaf
+        return fused_dsgd_many(xs, us, gs, beta, eta, pre_scale)
+    if dev.type == "cpu":
+        _one_device(xs + us + gs, "fused_dsgd_steps")
+        pairs = [fused_dsgd_step(x, u, g, beta, eta, pre_scale)
+                 for x, u, g in zip(xs, us, gs)]
+        return [x for x, _ in pairs], [u for _, u in pairs]
+    raise NotImplementedError(f"no fused DSGD kernel for device {dev}")
 
 
 # ---------------------------------------------------------------------------

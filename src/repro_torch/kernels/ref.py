@@ -43,7 +43,7 @@ def _f32_weights(weights) -> list[float]:
             for w in weights]
 
 
-def gossip_mix_ref(bufs, weights):
+def gossip_mix_ref(bufs, weights, out_dtype=None):
     """Weighted combine of the node's own buffer and the buffers it
     received (``ref.py:16-26``), the plain version of the gossip-mix
     kernel:
@@ -51,9 +51,10 @@ def gossip_mix_ref(bufs, weights):
         out = sum_s weights[s] * bufs[s]
 
     accumulated in f32 in slot order (``acc = w0*b0``, then ``acc = acc +
-    ws*bs``, one rounding per product and per sum), cast back to the
-    buffers' dtype.  ``bufs`` is a stacked ``(S, ...)`` tensor or a
-    sequence of S equal-shape tensors; ``weights`` S floats."""
+    ws*bs``, one rounding per product and per sum), cast once to
+    ``out_dtype`` (default: the buffers' dtype).  ``bufs`` is a stacked
+    ``(S, ...)`` tensor or a sequence of S equal-shape tensors;
+    ``weights`` S floats."""
     slots = list(bufs.unbind(0)) if isinstance(bufs, torch.Tensor) \
         else list(bufs)
     w = _f32_weights(weights)
@@ -62,7 +63,7 @@ def gossip_mix_ref(bufs, weights):
     acc = w[0] * slots[0].float()
     for ws, b in zip(w[1:], slots[1:]):
         acc = acc + ws * b.float()
-    return acc.to(slots[0].dtype)
+    return acc.to(out_dtype or slots[0].dtype)
 
 
 def quantized_gossip_mix_ref(own, q_slots, scale_slots, weights):

@@ -85,9 +85,10 @@ def _zeros_like(tree: dict) -> dict:
 # DSGD (+momentum): x^{r+1} = W (x^r - eta * u^r)     [paper Eq. (1)]
 #
 # DSGD-momentum has one body, the reference's fused one
-# (decentralized.py:146-162), on every device: each tensor's update is one
-# ops.fused_dsgd_step call (the CUDA kernel on the card, its plain version
-# on the CPU).  With a dense mixing matrix the per-node self-weight
+# (decentralized.py:146-162), on every device: the update of every tensor
+# is one ops.fused_dsgd_steps call (on the card one grouped launch of the
+# CUDA kernel per dtype, on the CPU its plain version leaf by leaf).  With
+# a dense mixing matrix the per-node self-weight
 # d = diag(W) is folded into the update's per-row pre_scale and the mix
 # runs with W~[i, j] = W[i, j] / d_j (columns with d_j = 0 are left as
 # they are), so W~ @ (d * half) == W @ half up to rounding.  With a
@@ -115,11 +116,11 @@ def DSGD(momentum: float = 0.0,
         return state
 
     def half_fused(params_n, grads_n, u_old, eta, pre):
-        half, u = {}, {}
-        for k, x in params_n.items():
-            half[k], u[k] = ops.fused_dsgd_step(x, u_old[k], grads_n[k],
-                                                momentum, eta, pre)
-        return half, u
+        keys = list(params_n)
+        half, u = ops.fused_dsgd_steps(
+            [params_n[k] for k in keys], [u_old[k] for k in keys],
+            [grads_n[k] for k in keys], momentum, eta, pre)
+        return dict(zip(keys, half)), dict(zip(keys, u))
 
     def step_plain(params_n, grads_n, state, W, eta):
         half = {k: x - eta * grads_n[k] for k, x in params_n.items()}

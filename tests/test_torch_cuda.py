@@ -25,9 +25,13 @@ whose rows the kernels' 16-byte copies cannot read are copied first.  The gossip
 combine (both entry points, f32 and bf16, 1 to 32 slots, aligned or
 not) and the quantized combine (int8 and fp8, every fp8 code, 0 to 3
 slots) equal their plain versions bit for bit: the same f32 steps in the
-same order.  The distributed mixer runs on the card in two gloo ranks
-(host staging) and launches one combine per tensor, or per reference
-leaf when compressed.
+same order.  So do the grouped launches of the fused DSGD and combine
+kernels over ragged lists (mixed dtypes, an unaligned leaf, an empty
+one, a 1,152-element leaf beside a 302 M-element one, more leaves than
+one table holds), one launch per dtype (pair) and table.  The
+distributed mixer runs on the card in two gloo ranks (host staging) and
+launches one grouped combine per bucket, or one quantized combine per
+reference leaf when compressed.
 """
 import pytest
 import torch
@@ -35,8 +39,10 @@ import torch
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import (SUPPORTED_DIMS,
                                                  flash_attention_fwd)
-from repro_torch.kernels.fused_dsgd import fused_dsgd
+from repro_torch.kernels import multi_tensor as mt
+from repro_torch.kernels.fused_dsgd import fused_dsgd, fused_dsgd_many
 from repro_torch.kernels.gossip_mix import (gossip_mix_slots,
+                                            gossip_mix_slots_many,
                                             gossip_mix_stacked)
 from repro_torch.kernels.paged_flash_attention import \
     paged_flash_attention_fwd
@@ -157,6 +163,156 @@ def test_fused_dsgd_matches_plain_bitwise(card, dtype, pre_mode, shape):
     for a, b in zip(got, want):
         assert a.dtype == dtype and a.shape == b.shape
         assert torch.equal(_bits(a), _bits(b))
+
+
+def _unaligned(shape, dtype, g, card):
+    """A contiguous tensor one element past its storage's start: 2 or 4
+    bytes off 16-byte alignment."""
+    n = 1
+    for d in shape:
+        n *= d
+    return torch.randn(n + 1, generator=g, device=card).to(dtype)[1:].view(
+        shape)
+
+
+def _dsgd_leaves(card, specs, seed):
+    """(x, u, g) lists from ``(shape, dtype, unaligned)`` specs."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    xs, us, gs = [], [], []
+    for shape, dtype, off in specs:
+        make = (lambda: _unaligned(shape, dtype, g, card)) if off else (
+            lambda: torch.randn(shape, generator=g, device=card).to(dtype))
+        xs.append(make())
+        us.append(make())
+        gs.append(make())
+    return xs, us, gs
+
+
+def _check_dsgd_many(xs, us, gs, pre):
+    want_launches = len({x.dtype for x in xs if x.numel()})
+    before = (fused_dsgd_many.launches, fused_dsgd_many.segments)
+    got_x, got_u = ops.fused_dsgd_steps(xs, us, gs, 0.9, 0.01, pre)
+    torch.cuda.synchronize()
+    assert fused_dsgd_many.launches - before[0] >= want_launches
+    assert fused_dsgd_many.segments - before[1] == sum(
+        1 for x in xs if x.numel())
+    for x, u, gr, gx, gu in zip(xs, us, gs, got_x, got_u):
+        bp = pre.reshape((-1,) + (1,) * (x.ndim - 1)) \
+            if isinstance(pre, torch.Tensor) else pre
+        wx, wu = ref.fused_dsgd_ref(x, u, gr, 0.9, 0.01, bp)
+        for a, b in ((gx, wx), (gu, wu)):
+            assert a.dtype == x.dtype and a.shape == x.shape
+            assert torch.equal(_bits(a), _bits(b))
+
+
+RAGGED = [((3, 1), torch.float32, False), ((3, 1152), torch.bfloat16, False),
+          ((3, 7, 5), torch.bfloat16, False), ((3, 0), torch.float32, False),
+          ((3, 257, 3), torch.float32, True), ((3, 1000), torch.bfloat16,
+                                               True),
+          ((3, 4, 65), torch.float32, False), ((3, 70001), torch.bfloat16,
+                                               False)]
+
+
+@pytest.mark.parametrize("pre_mode", ["one", "scalar", "row"])
+def test_fused_dsgd_many_ragged_list_matches_plain_bitwise(card, pre_mode):
+    xs, us, gs = _dsgd_leaves(card, RAGGED, 3)
+    pre = {"one": 1.0, "scalar": 0.37}.get(pre_mode)
+    if pre is None:
+        pre = torch.rand(3, device=card) + 0.2
+    before = fused_dsgd_many.launches
+    _check_dsgd_many(xs, us, gs, pre)
+    assert fused_dsgd_many.launches == before + 2    # f32 and bf16
+
+
+def test_fused_dsgd_many_small_leaf_beside_an_embedding(card):
+    """A norm scale beside gemma3-1b's embedding (302 M elements), bf16,
+    one launch, per-row pre."""
+    xs, us, gs = _dsgd_leaves(card, [((1, 1152), torch.bfloat16, False),
+                                     ((1, 262144 * 1152), torch.bfloat16,
+                                      False)], 4)
+    before = fused_dsgd_many.launches
+    _check_dsgd_many(xs, us, gs, torch.tensor([0.7], device=card))
+    assert fused_dsgd_many.launches == before + 1
+
+
+def test_fused_dsgd_many_splits_a_list_past_one_table(card):
+    n = mt.capacity(5) * 2 + 3
+    xs, us, gs = _dsgd_leaves(card, [((2, 9 + i % 5), torch.float32, False)
+                                     for i in range(n)], 5)
+    before = fused_dsgd_many.launches
+    _check_dsgd_many(xs, us, gs, torch.tensor([0.5, 0.9], device=card))
+    assert fused_dsgd_many.launches == before + 3
+
+
+def _mix_lists(card, specs, S, seed):
+    """S slot buffers per ``(shape, dtype, unaligned)`` spec, the last slot
+    zeros at weight 0."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    lists = []
+    for shape, dtype, off in specs:
+        bufs = [_unaligned(shape, dtype, g, card) if off else
+                torch.randn(shape, generator=g, device=card).to(dtype)
+                for _ in range(S)]
+        if S > 1:
+            bufs[-1].zero_()
+        lists.append(bufs)
+    w = (torch.rand(S, generator=g, device=card) + 0.1).tolist()
+    if S > 1:
+        w[-1] = 0.0
+    return lists, w
+
+
+def _check_mix_many(lists, w, out_dtype):
+    before = (gossip_mix_slots_many.launches, gossip_mix_slots_many.segments)
+    got = ops.gossip_mix_many(lists, w, out_dtype)
+    torch.cuda.synchronize()
+    outs = ([out_dtype] * len(lists) if not isinstance(out_dtype, list)
+            else out_dtype)
+    pairs = {(b[0].dtype, d or b[0].dtype) for b, d in zip(lists, outs)
+             if b[0].numel()}
+    assert gossip_mix_slots_many.launches - before[0] == len(pairs)
+    assert gossip_mix_slots_many.segments - before[1] == sum(
+        1 for b in lists if b[0].numel())
+    for bufs, d, o in zip(lists, outs, got):
+        want = ref.gossip_mix_ref(bufs, w, out_dtype=d)
+        assert o.dtype == want.dtype and o.shape == bufs[0].shape
+        assert torch.equal(_bits(o), _bits(want))
+
+
+@pytest.mark.parametrize("out", ["own", "float32", "bfloat16", "mixed"])
+@pytest.mark.parametrize("S", [1, 2, 3, 32])
+def test_gossip_mix_many_ragged_list_matches_plain_bitwise(card, S, out):
+    lists, w = _mix_lists(card, RAGGED, S, S)
+    out_dtype = {"own": None, "float32": torch.float32,
+                 "bfloat16": torch.bfloat16,
+                 "mixed": [torch.bfloat16, torch.float32] * 4}[out]
+    _check_mix_many(lists, w, out_dtype)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_gossip_mix_many_small_tensor_beside_an_embedding(card, out_dtype):
+    """One rank's f32 work buffers of a norm scale and of gemma3-1b's
+    embedding, own + one received: one launch."""
+    lists, w = _mix_lists(card, [((1, 1152), torch.float32, False),
+                                 ((1, 262144, 1152), torch.float32, False)],
+                          2, 9)
+    _check_mix_many(lists, w, out_dtype)
+
+
+def test_grouped_entry_points_reject_mixed_lists(card):
+    x = torch.randn(4, 32, device=card)
+    with pytest.raises(ValueError, match="one device"):
+        ops.fused_dsgd_steps([x, x.cpu()], [x, x.cpu()], [x, x.cpu()], 0.9,
+                             0.01)
+    with pytest.raises(ValueError, match="one device"):
+        ops.gossip_mix_many([[x, x], [x.cpu(), x.cpu()]], [0.5, 0.5])
+    with pytest.raises(ValueError, match="shape"):
+        ops.gossip_mix_many([[x, x[:2]]], [0.5, 0.5])
+    with pytest.raises(ValueError, match="slots"):
+        ops.gossip_mix_many([[x, x], [x]], [0.5, 0.5])
+    with pytest.raises(ValueError, match="first axis"):
+        ops.fused_dsgd_steps([x, x[0]], [x, x[0]], [x, x[0]], 0.9, 0.01,
+                             torch.ones(4, device=card))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -404,9 +560,9 @@ def test_quantized_gossip_mix_rejects_what_it_does_not_take(card):
 
 def test_dist_mixer_on_the_card_launches_once_per_tensor(card):
     """Two gloo ranks share the card (host staging): the mixer's rounds
-    equal W(r) X, with one slots-combine per float tensor, and the
-    int8 mixer's one quantize and one quantized combine per reference
-    leaf."""
+    equal W(r) X, with one grouped slots-combine for the bucket that
+    holds the three float tensors (no per-tensor combine), and the int8
+    mixer's one quantize and one quantized combine per reference leaf."""
     import numpy as np
     import torch_dist_ranks
     from repro_torch.launch.distributed import spawn_local
@@ -420,7 +576,8 @@ def test_dist_mixer_on_the_card_launches_once_per_tensor(card):
                           backend="gloo", device="cuda", timeout=300)
     for rank, res in enumerate(results):
         assert res["device"].startswith("cuda")
-        assert res["launches"] == {"gossip_mix_slots": 3,
+        assert res["launches"] == {"gossip_mix_slots": 0,
+                                   "gossip_mix_slots_many": 1,
                                    "quantize_ef": 2,
                                    "quantized_gossip_mix": 2}
         for key, x in tree.items():     # W(0) of Base-2 at n = 2: averaging

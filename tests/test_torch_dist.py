@@ -17,7 +17,9 @@ reference.
     ``tests/test_dist.py``), with and without ``flatten``; an int tensor
     passes through bit for bit; Base-2 at n = 3 runs in a subgroup of
     three ranks (one node idle each round); each rank sends the plan's
-    messages and no more;
+    messages and no more; the mixer's buckets (one grouped combine for
+    both float tensors) equal one bucket per tensor bit for bit, with the
+    same messages and bytes;
   * DSGD-momentum on reduced gemma3-1b (two pattern blocks, f32) for 4
     steps equals the reference's own dense simulation (its step under
     ``jit``) within 2e-4 (``tests/test_dist.py``), and int8 + EF21
@@ -249,6 +251,25 @@ def test_mixer_sends_the_plans_messages(ranks, case):
         per_send = 1 if flatten else 2          # one message per tensor
         assert res[case]["sent"] == {"messages": sends * per_send,
                                      "bytes": sends * f32}
+
+
+@pytest.mark.parametrize("case", MIX_CASES, ids=str)
+def test_bucketed_mixer_equals_one_combine_per_tensor(ranks, case):
+    n, flatten = case[1], case[3]
+    floats = sum(1 for v in ranks["tree"].values()
+                 if np.issubdtype(v.dtype, np.floating))
+    for res in ranks["mix"][:n]:
+        res = res[case]
+        assert res["sent"] == res["per-tensor sent"]
+        assert res["combines"] == [1] * len(res["rounds"])
+        assert res["per-tensor combines"] == [1 if flatten else floats] \
+            * len(res["rounds"])
+        for got, want in zip(res["rounds"], res["per-tensor rounds"]):
+            assert got.keys() == want.keys()
+            for key in got:
+                assert got[key].dtype == want[key].dtype
+                assert np.array_equal(got[key].view(np.uint8),
+                                      want[key].view(np.uint8))
 
 
 def test_ranks_outside_a_subgroup_take_no_part(ranks):

@@ -10,8 +10,10 @@ import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.data.synthetic import token_batches
+from repro_torch.dist import gossip
 from repro_torch.dist.gossip import make_gossip_mixer
 from repro_torch.dist.steps import make_train_step
+from repro_torch.kernels import ops
 from repro_torch.sim.engine import node_stack
 from repro_torch.topology import TopologySpec, build_schedule
 
@@ -20,28 +22,59 @@ def _numpy(tree):
     return {k: v.detach().cpu().numpy() for k, v in tree.items()}
 
 
+def _mixer_with_cap(cap, group, plan, flatten):
+    """The mixer built while ``gossip.BUCKET_BYTES`` is ``cap``."""
+    kept = gossip.BUCKET_BYTES
+    gossip.BUCKET_BYTES = cap
+    try:
+        return make_gossip_mixer(group, plan, flatten=flatten)
+    finally:
+        gossip.BUCKET_BYTES = kept
+
+
 def mixer_rounds(rank, device, tree_np, cases):
     """For each ``(name, n, k, flatten)`` case, this rank's mixed slice
-    after each round, every round applied to the same inputs.  A case of
-    n < world size runs in the subgroup of ranks 0..n-1; every rank
-    builds the subgroups, as ``new_group`` asks."""
+    after each round, every round applied to the same inputs, with the
+    mixer's bucket cap and with one bucket per tensor (a cap of 0), and
+    the grouped combines (``ops.gossip_mix_many`` calls) each made per
+    round.  A case of n < world size runs in the subgroup of ranks
+    0..n-1; every rank builds the subgroups, as ``new_group`` asks."""
     torch.set_num_threads(1)
     world = dist.get_world_size()
     groups = {n: dist.new_group(list(range(n)))
               for n in sorted({c[1] for c in cases}) if n < world}
+    calls = []
+    real = ops.gossip_mix_many
+
+    def counting(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+
+    ops.gossip_mix_many = counting
     out = {}
-    for name, n, k, flatten in cases:
-        if rank >= n:
-            continue
-        group = groups.get(n)
-        plan = build_schedule(TopologySpec(name=name, n=n,
-                                           k=k)).as_ppermute_plan()
-        mixer = make_gossip_mixer(group, plan, flatten=flatten)
-        mine = {key: torch.from_numpy(v[:n][rank:rank + 1]).to(device)
-                for key, v in tree_np.items()}
-        out[(name, n, k, flatten)] = {
-            "rounds": [_numpy(mixer(mine, r)) for r in range(len(plan))],
-            "sent": dict(mixer.stats)}
+    try:
+        for name, n, k, flatten in cases:
+            if rank >= n:
+                continue
+            group = groups.get(n)
+            plan = build_schedule(TopologySpec(name=name, n=n,
+                                               k=k)).as_ppermute_plan()
+            mine = {key: torch.from_numpy(v[:n][rank:rank + 1]).to(device)
+                    for key, v in tree_np.items()}
+            res = {}
+            for tag, cap in (("", gossip.BUCKET_BYTES), ("per-tensor ", 0)):
+                mixer = _mixer_with_cap(cap, group, plan, flatten)
+                rounds, combines = [], []
+                for r in range(len(plan)):
+                    calls.clear()
+                    rounds.append(_numpy(mixer(mine, r)))
+                    combines.append(len(calls))
+                res.update({tag + "rounds": rounds,
+                            tag + "sent": dict(mixer.stats),
+                            tag + "combines": combines})
+            out[(name, n, k, flatten)] = res
+    finally:
+        ops.gossip_mix_many = real
     return out
 
 
@@ -86,7 +119,8 @@ def card_mixer(rank, device, tree_np):
     """One round of Base-2 at n = 2 (an average) on the card, plain and
     int8-compressed, with the gossip kernels' launch counts."""
     from repro_torch.compress import CompressionConfig, init_ef
-    from repro_torch.kernels.gossip_mix import gossip_mix_slots
+    from repro_torch.kernels.gossip_mix import (gossip_mix_slots,
+                                                gossip_mix_slots_many)
     from repro_torch.kernels.quantized_gossip import (quantize_ef,
                                                       quantized_gossip_mix)
     plan = build_schedule(TopologySpec(name="base", n=2,
@@ -95,6 +129,7 @@ def card_mixer(rank, device, tree_np):
             for k, v in tree_np.items()}
     ccfg = CompressionConfig(codec="int8", chunk=64)
     counters = {"gossip_mix_slots": gossip_mix_slots,
+                "gossip_mix_slots_many": gossip_mix_slots_many,
                 "quantize_ef": quantize_ef,
                 "quantized_gossip_mix": quantized_gossip_mix}
     before = {k: c.launches for k, c in counters.items()}
