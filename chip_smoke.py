@@ -13,8 +13,9 @@ Phases (any failure exits non-zero and prints no result line):
 2. Each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it.  Times are CUDA-event medians of 25
    launches after warm-up, with the 50 MB L2 flushed before each launch.
-   The attention entries also carry ``device_ms`` and
-   ``library_device_ms``: the same calls replayed as CUDA graphs, so
+   The attention, fused DSGD, combine and quantize entries also
+   carry ``device_ms`` (and, where there is a library call,
+   ``library_device_ms``): the same calls replayed as CUDA graphs, so
    the host's time to prepare a launch drops out (at decode it exceeds
    the card's time).
    - Flash attention, at serving (full-width gemma3-1b: B=4, prompt
@@ -50,7 +51,14 @@ Phases (any failure exits non-zero and prints no result line):
      element index across 2^31 and one across 2^32, and fp8 entries in
      e4m3's subnormal range: q, scale and the residual bit for bit.  No
      PyTorch call computes hash stochastic rounding with a residual, so
-     its ``library_ms`` is null.
+     its ``library_ms`` is null.  Then the grouped launch
+     (``quantize_ef_many``) over a ragged list (C in {2, 6, 250, 256,
+     1024}, unaligned buffers, row offsets whose indices pass 2^32; with
+     err, without and mixed), a list longer than one table, and all 106
+     gemma3-1b reference leaves as one rank's chunk rows (rank 1's row
+     offsets; 1.0 B elements) and as the simulation's 3 nodes (3.0 B),
+     int8 with err, bit for bit leaf by leaf, timed (``device_ms`` as a
+     CUDA graph) against the plain loop.
    - The gossip combines (``[gossip-mix]``): both entry points of the
      slots combine at one rank's f32 work-buffer shapes (the embedding,
      an MLP gate, a norm scale), f32 and bf16, 1 to 3 slots with the
@@ -63,7 +71,12 @@ Phases (any failure exits non-zero and prints no result line):
      one rank's 340 f32 work buffers of gemma3-1b, S = 2, with f32 and
      bf16 outputs, and over a ragged list, bit for bit tensor by tensor;
      timed (``device_ms`` as a CUDA graph) against the per-tensor
-     ``tensordot`` loop.
+     ``tensordot`` loop.  And the grouped quantized combine
+     (``quantized_gossip_mix_many``) over a ragged list (C in {2, 6, 128,
+     250, 256, 384, 1024}, unaligned buffers, every payload byte, 0 to 3
+     and 31 payloads), a list longer than one table, and one rank's 106
+     reference leaves with one payload each (S = 1), int8 and fp8, bit for
+     bit, timed against the plain loop.
    - Paged flash attention (``[paged]``), at the continuous serving
      path's shapes (8 slots with ragged positions, page size 16, 553
      pages of one kv head of 256, block table 8 x 69), decode (Tq = 1)
@@ -97,8 +110,10 @@ Phases (any failure exits non-zero and prints no result line):
    events into forward+backward, update and mix.
    ``[train-compress]``: the same with int8 compressed gossip (chunk
    256, error feedback, seed 0), after one warm-up step, 6 timed steps
-   whose launches are counted (one quantize+EF per reference leaf, one
-   grouped fused update and 26 x 3 flash forwards per step), split into
+   whose launches are counted (one grouped quantize+EF per bucket of at
+   most 256 MiB of the reference leaves' f32 chunk rows, 29 over the 106
+   leaves, one grouped fused update and 26 x 3 flash forwards per step),
+   split into
    forward+backward, update and compressed mix, with the peak memory and
    the wire bytes per node per round against f32.
    ``[dist]``: the same training across processes: 3 ranks of one node
@@ -116,11 +131,14 @@ Phases (any failure exits non-zero and prints no result line):
    init| of its tensor; the bytes each rank sent equal
    the plan's messages times the f32 tree.  Split per step into
    forward+backward, update, exchange and combine, with each rank's
-   peak memory.  ``[dist-compress]``: the same with int8 + EF (106
-   quantize and 106 quantized combines per rank per step), step 0's
-   payloads equal to the simulation's rows of the node (sha256 of
-   each leaf's q and scales), and the EF residuals within 2^-5 |sim| +
-   2^-1 max|sim| of their tensor.
+   peak memory.  ``[dist-compress]``: the same with int8 + EF (14
+   grouped quantizes and 14 grouped quantized combines per rank per
+   step, one per 256 MiB bucket of the 106 reference leaves' chunk
+   rows), step 0's payloads equal to the simulation's rows of the node
+   (sha256 of each leaf's q and scales), the EF residuals within 2^-5
+   |sim| + 2^-1 max|sim| of their tensor, and each rank's peak memory
+   under the leaf-by-leaf mixer's 22.49 GiB plus (3.25 + S / 4)
+   buckets.
 5. The port on the card against the port on the CPU: reduced gemma3-1b
    serving in f32 (greedy tokens equal, prefill logits within 1e-4); the
    five methods on the paper MLP (losses within 1e-5) and reduced
@@ -195,6 +213,9 @@ CONT_MAXP = -(-(PROMPT + CONT_NEW + CONT_K) // CONT_PAGE)      # 69 pages
 # one node each, sharing the card through gloo
 DIST_STEPS, DIST_TIMEOUT, DIST_LOSS_TOL = 3, 600.0, 1e-2
 DIST_PEAK_GIB = 18.73     # peak per rank of the per-tensor mixer, measured
+# peak per rank of the leaf-by-leaf compressed mixer (int8 + EF: the 4 GB
+# of f32 residuals besides), measured on the H100 before the buckets
+DIST_COMPRESS_PEAK_GIB = 22.49
 # one rank's (R, C) views of its f32 work buffers (ops._as_2d of the
 # (1, ...) tensors) and the same reference leaves' chunk rows (one node's
 # blocks back to back: the embedding, 4 MLP gates, 4 norm scales)
@@ -787,7 +808,7 @@ def phase_quantize_kernels(torch, dev):
                   f"{(off + R) * C - 1} (mod 2^32 to {idx_max})")
         del x, err
 
-    entries = []
+    entries = quantize_grouped(torch, dev, gen, flush, key, inputs)
     for name, (R, C) in QUANT_SHAPES:
         x, err = inputs(R, C, None)
         for fmt in ("int8", "fp8"):
@@ -811,6 +832,8 @@ def phase_quantize_kernels(torch, dev):
             "max_abs_err": main_err,
             "ms": time_ms(torch, lambda: quantize_ef(
                 x, err, key, 0, fmt=COMPRESS_CODEC), flush),
+            "device_ms": graph_ms(torch, lambda: quantize_ef(
+                x, err, key, 0, fmt=COMPRESS_CODEC), flush),
             "plain_ms": time_ms(torch, lambda: ref.quantize_ef_ref(
                 x, err, key, 0, fmt=COMPRESS_CODEC), flush),
             "bound_ms": b_ms,
@@ -818,13 +841,167 @@ def phase_quantize_kernels(torch, dev):
             "library_ms": None,
         }
         print(f"[quantize] {entry['name']} ({R} x {C}): {entry['ms']:.4f} "
-              f"ms (bound {b_ms:.4f} ms by {b_by}; plain "
-              f"{entry['plain_ms']:.4f} ms)")
+              f"ms, device (as a graph) {entry['device_ms']:.4f} ms (bound "
+              f"{b_ms:.4f} ms by {b_by}; plain {entry['plain_ms']:.4f} ms)")
         entries.append(("train-quantize_ef", entry))
         del x, err
         torch.cuda.empty_cache()
     del flush
     torch.cuda.empty_cache()
+    return entries
+
+
+def leaf_rows(torch, nodes):
+    """Chunk rows of each of gemma3-1b's 106 reference leaves at ``nodes``
+    nodes: the compressed paths' (rows, CHUNK) buffers, each node's
+    blocks back to back, padded once."""
+    from repro_torch.compress import reference_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    sd = M.Model(get_config("gemma3-1b"), dtype=torch.bfloat16,
+                 device="meta").state_dict()
+    return [nodes * max(1, -(-len(g) * sd[g[0]].numel() // CHUNK))
+            for g in reference_leaves(sd)]
+
+
+def _unaligned_like(torch, t):
+    """A copy of ``t`` that starts one element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 16 // t.element_size(), dtype=t.dtype,
+                      device=t.device)
+    return buf[1:1 + t.numel()].view(t.shape).copy_(t)
+
+
+def quantize_grouped(torch, dev, gen, flush, key, inputs):
+    """The grouped quantize+EF (``quantize_ef_many``) bit for bit against
+    the plain version leaf by leaf: a ragged list (C in {2, 6, 250, 256,
+    1024}, unaligned buffers, zero rows, fp8's subnormal tail, row offsets
+    whose indices pass 2^32), with err, without and mixed, a list longer
+    than one table, and all 106 gemma3-1b reference leaves as one rank's
+    rows (rank 1's row offsets) and as the simulation's 3 nodes (int8
+    with err, the main paths' mode).  Returns the two gemma3-1b entries,
+    timed (``device_ms`` as a CUDA graph)."""
+    from repro_torch.dist.gossip import BUCKET_BYTES, plan_buckets
+    from repro_torch.kernels import multi_tensor as mt
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.quantized_gossip import quantize_ef_many
+
+    def check(name, xs, errs, offs, fmt, want_launches):
+        before = (quantize_ef_many.launches, quantize_ef_many.segments)
+        got = quantize_ef_many(xs, errs, key, offs, fmt=fmt)
+        torch.cuda.synchronize()
+        launches = quantize_ef_many.launches - before[0]
+        segments = quantize_ef_many.segments - before[1]
+        same = True
+        for i, x in enumerate(xs):
+            e = None if errs is None else errs[i]
+            # row slices of the plain version, each at its own row offset:
+            # the same bits, a fraction of the plain version's memory
+            step = max(1, (1 << 24) // x.shape[1])
+            for a in range(0, x.shape[0], step):
+                b = min(a + step, x.shape[0])
+                want = ref.quantize_ef_ref(
+                    x[a:b], None if e is None else e[a:b], key, offs[i] + a,
+                    fmt=fmt)
+                same &= all(torch.equal(g[i][a:b].view(torch.uint8),
+                                        w.view(torch.uint8))
+                            for g, w in zip(got, want))
+                del want
+        del got
+        mode = "no" if errs is None else (
+            "mixed" if any(e is None for e in errs) else "yes")
+        print(f"[quantize] grouped {name} {fmt} err={mode}: {launches} "
+              f"launch(es) over {segments} buffers, bitwise {same}")
+        if not same or launches != want_launches:
+            raise SystemExit(f"quantize_ef_many {name} {fmt}: bitwise {same}"
+                             f", {launches} launches (expected "
+                             f"{want_launches})")
+
+    # (R, C, row_offset, case, unaligned)
+    specs = [(15, 256, 0, None, False), (7, 2, 3, None, False),
+             (5, 6, 0, None, True), (33, 256, 11, None, True),
+             (9, 1024, 0, None, False), (21, 250, 3, None, False),
+             (24, 256, 0, "zero-rows", False),
+             (40, 256, 0, "subnormal", False),
+             (64, 256, (1 << 24) - 32, None, False),
+             (17, 256, 5 * (1 << 24) + 3, None, False),
+             (3, 1024, (1 << 22) - 1, None, True)]
+    xs, errs, offs = [], [], []
+    for R, C, off, case, unaligned in specs:
+        x, e = inputs(R, C, case)
+        if unaligned:
+            x, e = _unaligned_like(torch, x), _unaligned_like(torch, e)
+        xs.append(x)
+        errs.append(e)
+        offs.append(off)
+    mixed = [e if i % 2 else None for i, e in enumerate(errs)]
+    name = f"ragged ({len(xs)} buffers)"
+    for fmt in ("int8", "fp8"):
+        check(name, xs, errs, offs, fmt, 1)
+        check(name, xs, None, offs, fmt, 1)
+        check(name, xs, mixed, offs, fmt, 2)
+    n = 2 * mt.capacity(5, mt.ROW_META_WORDS) + 3
+    xs, errs = [], []
+    for i in range(n):
+        x, e = inputs(1 + i % 4, 256 if i % 3 else 6, None)
+        xs.append(x)
+        errs.append(e)
+    check(f"{n} buffers, past one table", xs, errs,
+          [4 * i for i in range(n)], "fp8", 3)
+    del xs, errs, mixed
+
+    entries = []
+    for nodes, label, phase in (
+            (1, "one rank", "dist-compress-quantize_ef_many"),
+            (TRAIN_N, f"{TRAIN_N} nodes", "train-compress-quantize_ef_many")):
+        rows = leaf_rows(torch, nodes)
+        # rank 1's rows at one rank; the stacked nodes from row 0
+        offs = rows if nodes == 1 else [0] * len(rows)
+        buckets = len(plan_buckets([4 * r * CHUNK for r in rows],
+                                   BUCKET_BYTES))
+        xs = [torch.randn(r, CHUNK, generator=gen, device=dev) for r in rows]
+        errs = [0.1 * torch.randn(r, CHUNK, generator=gen, device=dev)
+                for r in rows]
+        name = f"gemma3-1b, {len(rows)} reference leaves, {label}"
+        check(name, xs, errs, offs, COMPRESS_CODEC, 1)
+        numel = sum(rows) * CHUNK
+        b_ms, b_by = bound_ms(13 * numel + 4 * sum(rows), 23 * numel,
+                              "float32")
+
+        def fn():
+            return quantize_ef_many(xs, errs, ref.sr_key(0, 3), offs,
+                                    fmt=COMPRESS_CODEC)
+
+        def plain():
+            for x, e, off in zip(xs, errs, offs):
+                ref.quantize_ef_ref(x, e, ref.sr_key(0, 3), off,
+                                    fmt=COMPRESS_CODEC)
+
+        entry = {
+            "name": f"quantize_ef_many[{len(rows)} leaves,{label},"
+                    f"{COMPRESS_CODEC},err]",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/quantized_gossip.cu, "
+                      "src/repro_torch/kernels/csrc/multi_tensor.cuh",
+            "replaces": "src/repro/kernels/quantized_gossip.py:71",
+            "launches": None,
+            "segments": None,
+            "max_abs_err": 0.0,
+            "ms": time_ms(torch, fn, flush),
+            "device_ms": graph_ms(torch, fn, flush),
+            "plain_ms": time_ms(torch, plain, flush, runs=3, warmup=1),
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+        }
+        print(f"[quantize] {entry['name']} ({numel / 1e9:.3f} B elements, "
+              f"{len(rows)} buffers; the compressed path makes {buckets} "
+              f"calls of it at {BUCKET_BYTES >> 20} MiB buckets): "
+              f"{entry['ms']:.4f} ms, device (as a graph) "
+              f"{entry['device_ms']:.4f} ms (bound {b_ms:.4f} ms by {b_by}; "
+              f"plain {entry['plain_ms']:.4f} ms)")
+        entries.append((phase, entry))
+        del xs, errs
+        torch.cuda.empty_cache()
     return entries
 
 
@@ -1296,7 +1473,9 @@ def phase_train(torch, dev, card, profile=False, compression=None):
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.fused_dsgd import fused_dsgd, fused_dsgd_many
-    from repro_torch.kernels.quantized_gossip import quantize_ef
+    from repro_torch.dist.gossip import BUCKET_BYTES, plan_buckets
+    from repro_torch.kernels.quantized_gossip import (quantize_ef,
+                                                      quantize_ef_many)
     from repro_torch.models import model as M
     from repro_torch.optim.decentralized import make_method
     from repro_torch.sim.engine import (_consensus_error,
@@ -1341,6 +1520,7 @@ def phase_train(torch, dev, card, profile=False, compression=None):
     fused_dsgd_many.launches = fused_dsgd_many.segments = 0
     flash_attention_fwd.launches = 0
     quantize_ef.launches = 0
+    quantize_ef_many.launches = quantize_ef_many.segments = 0
     # host seconds inside the grouped update's entry point per step, and
     # the part of them Python's garbage collector took
     host, gc_in, gc_open, inside = [], [], [], [False]
@@ -1377,17 +1557,34 @@ def phase_train(torch, dev, card, profile=False, compression=None):
                 pre + "fused_dsgd-tensors": fused_dsgd_many.segments,
                 pre + "fused_dsgd-single": fused_dsgd.launches,
                 pre + "flash": flash_attention_fwd.launches,
-                "train-quantize_ef": quantize_ef.launches}
+                # the grouped kernel, which the per-shape rows of
+                # [quantize] call one buffer at a time
+                "train-quantize_ef": quantize_ef_many.launches,
+                "train-compress-quantize_ef_many":
+                    quantize_ef_many.launches,
+                "train-compress-quantize_ef_many-segments":
+                    quantize_ef_many.segments,
+                "train-quantize_ef-single": quantize_ef.launches}
     peak = torch.cuda.max_memory_allocated()
 
     leaves = reference_leaves(params)
     dtypes = len({v.dtype for v in params.values()})
+    # one grouped quantize per bucket of reference leaves (f32 chunk rows
+    # of all nodes) per step
+    buckets = len(plan_buckets(
+        [4 * TRAIN_N * CHUNK * max(1, -(-len(g) * params[g[0]].numel()
+                                        // CHUNK)) for g in leaves],
+        BUCKET_BYTES))
+    n_quant = TRAIN_STEPS * buckets if compression else 0
     want = {pre + "fused_dsgd": TRAIN_STEPS * dtypes,
             pre + "fused_dsgd-tensors": TRAIN_STEPS * len(params),
             pre + "fused_dsgd-single": 0,
             pre + "flash": TRAIN_STEPS * cfg.num_layers * TRAIN_N,
-            "train-quantize_ef": TRAIN_STEPS * len(leaves) if compression
-            else 0}
+            "train-quantize_ef": n_quant,
+            "train-compress-quantize_ef_many": n_quant,
+            "train-compress-quantize_ef_many-segments":
+                TRAIN_STEPS * len(leaves) if compression else 0,
+            "train-quantize_ef-single": 0}
     for phase, n in want.items():
         if launches[phase] != n:
             raise SystemExit(f"{phase} launched {launches[phase]} times in "
@@ -1442,8 +1639,11 @@ def phase_train(torch, dev, card, profile=False, compression=None):
           f"{len(params)} x {TRAIN_STEPS}), flash "
           f"{launches[pre + 'flash']} (= "
           f"{cfg.num_layers} layers x {TRAIN_N} nodes x {TRAIN_STEPS})"
-          + (f", quantize_ef {launches['train-quantize_ef']} (= "
-             f"{len(leaves)} reference leaves x {TRAIN_STEPS})"
+          + (f", quantize_ef_many {launches['train-quantize_ef']} (= "
+             f"{buckets} buckets of at most {BUCKET_BYTES >> 20} MiB x "
+             f"{TRAIN_STEPS} steps) over "
+             f"{launches['train-compress-quantize_ef_many-segments']} "
+             f"buffers (= {len(leaves)} reference leaves x {TRAIN_STEPS})"
              if compression else ""))
     if compression:
         # each reference leaf is one chunk-row payload, padded once
@@ -1771,6 +1971,9 @@ def phase_gossip_kernels(torch, dev):
                         "max_abs_err": 0.0,
                         "ms": time_ms(torch, lambda: quantized_gossip_mix(
                             own, qs, scales, w), flush),
+                        "device_ms": graph_ms(
+                            torch, lambda: quantized_gossip_mix(
+                                own, qs, scales, w), flush),
                         "plain_ms": time_ms(
                             torch, lambda: ref.quantized_gossip_mix_ref(
                                 own, qs, scales, w), flush),
@@ -1779,15 +1982,159 @@ def phase_gossip_kernels(torch, dev):
                         "library_ms": None,
                     }
                     print(f"[gossip-mix] {entry['name']} ({R} x {C}): "
-                          f"{entry['ms']:.4f} ms (bound {b_ms:.4f} ms by "
-                          f"{b_by}; plain {entry['plain_ms']:.4f} ms)")
+                          f"{entry['ms']:.4f} ms, device (as a graph) "
+                          f"{entry['device_ms']:.4f} ms (bound {b_ms:.4f} "
+                          f"ms by {b_by}; plain {entry['plain_ms']:.4f} ms)")
                     entries.append(("dist-compress-quantized_gossip_mix",
                                     entry))
                 del qs, scales
                 torch.cuda.empty_cache()
         del own
     entries += gossip_grouped(torch, dev, gen, flush)
+    entries += qmix_grouped(torch, dev, gen, flush)
     del flush
+    torch.cuda.empty_cache()
+    return entries
+
+
+def qmix_grouped(torch, dev, gen, flush):
+    """The grouped quantized combine (``quantized_gossip_mix_many``) bit
+    for bit against the plain version buffer by buffer: a ragged list (C
+    in {2, 6, 128, 250, 256, 384, 1024}, unaligned buffers, every payload
+    byte value) with 0 to 3 payloads and the most a table takes, int8 and
+    fp8, a list longer than one table, and one rank's 106 gemma3-1b
+    reference leaves with one received payload each (S = 1, the main
+    path's), int8 and fp8, timed (``device_ms`` as a CUDA graph) against
+    the plain loop.  Returns the two gemma3-1b entries."""
+    from repro_torch.kernels import multi_tensor as mt
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.quantized_gossip import (
+        MAX_MIX_SLOTS, quantize_ef_many, quantized_gossip_mix_many)
+
+    def nan_equal(got, want):
+        nan = torch.isnan(want)      # fp8's NaN codes decode to NaN
+        return (got.dtype == want.dtype and got.shape == want.shape
+                and torch.equal(torch.isnan(got), nan)
+                and torch.equal(_bits(torch, got)[~nan],
+                                _bits(torch, want)[~nan]))
+
+    def check(name, owns, q_lists, s_lists, w, want_launches):
+        before = (quantized_gossip_mix_many.launches,
+                  quantized_gossip_mix_many.segments)
+        got = quantized_gossip_mix_many(owns, q_lists, s_lists, w)
+        torch.cuda.synchronize()
+        launches = quantized_gossip_mix_many.launches - before[0]
+        segments = quantized_gossip_mix_many.segments - before[1]
+        same = all(nan_equal(g, ref.quantized_gossip_mix_ref(o, qs, ss, w))
+                   for g, o, qs, ss in zip(got, owns, q_lists, s_lists))
+        del got
+        print(f"[gossip-mix] grouped quantized {name}, S={len(w) - 1}: "
+              f"{launches} launch(es) over {segments} buffers, bitwise "
+              f"{same}")
+        if not same or launches != want_launches:
+            raise SystemExit(f"quantized_gossip_mix_many {name} S="
+                             f"{len(w) - 1}: bitwise {same}, {launches} "
+                             f"launches (expected {want_launches})")
+
+    def payloads(rows_cols, fmt, S, key0):
+        """S payloads per (R, C), as the quantizer makes them; the last
+        slot zeros (a slot this rank receives nothing in)."""
+        q_lists, s_lists = [[] for _ in rows_cols], [[] for _ in rows_cols]
+        for s in range(S):
+            xs = [torch.randn(R, C, generator=gen, device=dev)
+                  for R, C in rows_cols]
+            qs, scs, _ = quantize_ef_many(xs, None, key0 + s,
+                                          [0] * len(xs), fmt=fmt)
+            del xs, _
+            for i, (q, sc) in enumerate(zip(qs, scs)):
+                if S > 1 and s == S - 1:
+                    q.zero_()
+                    sc.zero_()
+                q_lists[i].append(q)
+                s_lists[i].append(sc)
+        return q_lists, s_lists
+
+    def weights(S):
+        w = (torch.rand(S + 1, generator=gen, device=dev) + 0.1).tolist()
+        if S > 1:
+            w[-1] = 0.0
+        return w
+
+    # ragged: (R, C, unaligned); every byte value in the first payload
+    specs = [(37, 256, False), (5, 2, False), (4, 6, True), (9, 128, False),
+             (11, 384, False), (6, 1024, False), (3, 250, False),
+             (13, 256, True), (1, 256, False)]
+    name = f"ragged ({len(specs)} buffers)"
+    for fmt in ("int8", "fp8"):
+        for S in (0, 1, 2, 3, MAX_MIX_SLOTS):
+            q_lists, s_lists = payloads([(R, C) for R, C, _ in specs], fmt,
+                                        S, 100 * S)
+            owns = [torch.randn(R, C, generator=gen, device=dev)
+                    for R, C, _ in specs]
+            if S:
+                q_lists[0][0].view(torch.uint8).view(-1)[:256] = \
+                    torch.arange(256, device=dev, dtype=torch.uint8)
+            for i, (_, _, unaligned) in enumerate(specs):
+                if unaligned:
+                    owns[i] = _unaligned_like(torch, owns[i])
+                    q_lists[i] = [_unaligned_like(torch, q)
+                                  for q in q_lists[i]]
+            check(f"{name} {fmt}", owns, q_lists, s_lists, weights(S), 1)
+            del owns, q_lists, s_lists
+    n = 2 * mt.capacity(4, mt.ROW_META_WORDS) + 1
+    shapes = [(1 + i % 3, 256 if i % 2 else 6) for i in range(n)]
+    q_lists, s_lists = payloads(shapes, "int8", 1, 7)
+    check(f"{n} buffers, past one table, int8",
+          [torch.randn(sh, generator=gen, device=dev) for sh in shapes],
+          q_lists, s_lists, weights(1), 3)
+    del q_lists, s_lists
+
+    rows = leaf_rows(torch, 1)
+    shapes = [(r, CHUNK) for r in rows]
+    owns = [torch.randn(sh, generator=gen, device=dev) for sh in shapes]
+    numel = sum(rows) * CHUNK
+    # own and out f32, one payload byte, one scale per row; 4 f32
+    # operations per element
+    b_ms, b_by = bound_ms(9 * numel + 4 * sum(rows), 4 * numel, "float32")
+    entries = []
+    for fmt in ("int8", "fp8"):
+        q_lists, s_lists = payloads(shapes, fmt, 1, 1)
+        w = weights(1)
+        name = f"gemma3-1b, one rank's {len(rows)} reference leaves {fmt}"
+        check(name, owns, q_lists, s_lists, w, 1)
+
+        def fn():
+            return quantized_gossip_mix_many(owns, q_lists, s_lists, w)
+
+        def plain():
+            for o, qs, ss in zip(owns, q_lists, s_lists):
+                ref.quantized_gossip_mix_ref(o, qs, ss, w)
+
+        entry = {
+            "name": f"quantized_gossip_mix_many[{len(rows)} leaves,one rank,"
+                    f"{fmt},S=1]",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/quantized_gossip.cu, "
+                      "src/repro_torch/kernels/csrc/multi_tensor.cuh",
+            "replaces": "src/repro/kernels/quantized_gossip.py:115",
+            "launches": None,
+            "segments": None,
+            "max_abs_err": 0.0,
+            "ms": time_ms(torch, fn, flush),
+            "device_ms": graph_ms(torch, fn, flush),
+            "plain_ms": time_ms(torch, plain, flush, runs=5, warmup=1),
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+        }
+        print(f"[gossip-mix] {entry['name']} ({numel / 1e9:.3f} B "
+              f"elements): {entry['ms']:.4f} ms, device (as a graph) "
+              f"{entry['device_ms']:.4f} ms (bound {b_ms:.4f} ms by {b_by}; "
+              f"plain {entry['plain_ms']:.4f} ms)")
+        entries.append(("dist-compress-quantized_gossip_mix_many", entry))
+        del q_lists, s_lists
+        torch.cuda.empty_cache()
+    del owns
     torch.cuda.empty_cache()
     return entries
 
@@ -1898,21 +2245,23 @@ def _payload_digest(q, scale):
 
 
 def _record_payloads(ops, digests, count, nodes):
-    """Wrap ``ops.quantize_payload`` so its first ``count`` calls leave
-    one digest per node's rows (``nodes`` equal row blocks) in
-    ``digests``; returns the function to restore."""
-    real = ops.quantize_payload
+    """Wrap ``ops.quantize_payload_many`` so that the first ``count``
+    buffers it quantizes leave one digest per node's rows (``nodes`` equal
+    row blocks) in ``digests``; returns the function to restore."""
+    real = ops.quantize_payload_many
 
-    def recording(x, err=None, *, fmt, key, row_offset=0):
-        out = real(x, err, fmt=fmt, key=key, row_offset=row_offset)
-        if len(digests) < count:
-            rows = x.shape[0] // nodes
-            digests.append([_payload_digest(out[0][r * rows:(r + 1) * rows],
-                                            out[1][r * rows:(r + 1) * rows])
-                            for r in range(nodes)])
+    def recording(xs, errs=None, *, fmt, key, row_offsets):
+        xs = list(xs)
+        out = real(xs, errs, fmt=fmt, key=key, row_offsets=row_offsets)
+        for x, q, sc in zip(xs, out[0], out[1]):
+            if len(digests) < count:
+                rows = x.shape[0] // nodes
+                digests.append([_payload_digest(
+                    q[r * rows:(r + 1) * rows], sc[r * rows:(r + 1) * rows])
+                    for r in range(nodes)])
         return out
 
-    ops.quantize_payload = recording
+    ops.quantize_payload_many = recording
     return real
 
 
@@ -1952,8 +2301,9 @@ def _dist_rank(rank, device, opts, ref_paths, disp, n_leaves):
     from repro_torch.kernels.gossip_mix import (gossip_mix_slots,
                                                 gossip_mix_slots_many,
                                                 gossip_mix_stacked)
-    from repro_torch.kernels.quantized_gossip import (quantize_ef,
-                                                      quantized_gossip_mix)
+    from repro_torch.kernels.quantized_gossip import (
+        quantize_ef, quantize_ef_many, quantized_gossip_mix,
+        quantized_gossip_mix_many)
     from repro_torch.launch.train import train_rank
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1963,9 +2313,14 @@ def _dist_rank(rank, device, opts, ref_paths, disp, n_leaves):
                 "gossip_mix_stacked": gossip_mix_stacked,
                 "fused_dsgd": fused_dsgd, "fused_dsgd_many": fused_dsgd_many,
                 "flash": flash_attention_fwd, "quantize_ef": quantize_ef,
-                "quantized_gossip_mix": quantized_gossip_mix}
+                "quantized_gossip_mix": quantized_gossip_mix,
+                "quantize_ef_many": quantize_ef_many,
+                "quantized_gossip_mix_many": quantized_gossip_mix_many}
     grouped = {"gossip_mix_many-tensors": gossip_mix_slots_many,
-               "fused_dsgd_many-tensors": fused_dsgd_many}
+               "fused_dsgd_many-tensors": fused_dsgd_many,
+               "quantize_ef_many-segments": quantize_ef_many,
+               "quantized_gossip_mix_many-segments":
+                   quantized_gossip_mix_many}
     digests = []
     real = _record_payloads(ops, digests, n_leaves if opts.compress else 0,
                             1)
@@ -1980,7 +2335,7 @@ def _dist_rank(rank, device, opts, ref_paths, disp, n_leaves):
             res = train_rank(opts, device)
             torch.cuda.synchronize()
     finally:
-        ops.quantize_payload = real
+        ops.quantize_payload_many = real
     wall = time.perf_counter() - t0
     launches = {k: c.launches for k, c in counters.items()}
     launches.update({k: c.segments for k, c in grouped.items()})
@@ -2038,6 +2393,7 @@ def phase_dist(torch, dev, card, compression=None):
     from repro_torch.compress import reference_leaves
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import token_batches
+    from repro_torch.compress.mixing import rows_bytes
     from repro_torch.dist.gossip import BUCKET_BYTES, plan_buckets
     from repro_torch.kernels import ops
     from repro_torch.launch.distributed import spawn_local
@@ -2061,6 +2417,10 @@ def phase_dist(torch, dev, card, compression=None):
     # and (compressed) step 0's payload digests recorded on the way
     init = M.init(cfg, seed=0, dtype=torch.bfloat16, device=dev).state_dict()
     leaves = reference_leaves(init)
+    # a rank's buckets of reference leaves (its own f32 chunk rows)
+    leaf_buckets = len(plan_buckets(
+        [rows_bytes([init[k][None] for k in g], CHUNK) for g in leaves],
+        BUCKET_BYTES))
     numel = {k: v.numel() for k, v in init.items() if v.is_floating_point()}
     per_node, sim_digests = [], []
 
@@ -2087,7 +2447,7 @@ def phase_dist(torch, dev, card, compression=None):
             device=dev)
         torch.cuda.synchronize()
     finally:
-        ops.quantize_payload = real
+        ops.quantize_payload_many = real
     sim_s = time.perf_counter() - t0
     sim_losses = torch.stack(per_node).reshape(DIST_STEPS,
                                                TRAIN_N).T.cpu().tolist()
@@ -2127,7 +2487,7 @@ def phase_dist(torch, dev, card, compression=None):
     if compression:
         wire = sum(compression.wire_bytes(sum(numel[k] for k in g))
                    for g in leaves)
-    n_comp = len(leaves) * DIST_STEPS if compression else 0
+    n_comp = leaf_buckets * DIST_STEPS if compression else 0
     buckets = len(plan_buckets([4 * n for n in numel.values()],
                                BUCKET_BYTES))
     want = {"gossip_mix": 0,
@@ -2138,11 +2498,23 @@ def phase_dist(torch, dev, card, compression=None):
             "fused_dsgd_many": DIST_STEPS,
             "fused_dsgd_many-tensors": len(numel) * DIST_STEPS,
             "flash": cfg.num_layers * DIST_STEPS,
-            "quantize_ef": n_comp, "quantized_gossip_mix": n_comp}
+            "quantize_ef": 0, "quantized_gossip_mix": 0,
+            "quantize_ef_many": n_comp, "quantized_gossip_mix_many": n_comp,
+            "quantize_ef_many-segments":
+                len(leaves) * DIST_STEPS if compression else 0,
+            "quantized_gossip_mix_many-segments":
+                len(leaves) * DIST_STEPS if compression else 0}
     # a bucket holds S buffers per tensor until its combine, and its
-    # outputs: at most (S + 1) x the cap over the per-tensor mixer's peak
+    # outputs: at most (S + 1) x the cap over the per-tensor mixer's peak;
+    # compressed, its chunk rows, err rows and residuals (f32) and its
+    # payloads: at most (3.25 + S / 4) x the cap over the leaf-by-leaf
+    # mixer's
     slots = 1 + max(len(rp.slots) for rp in plan.rounds)
-    peak_bound = DIST_PEAK_GIB * 2**30 + (slots + 1) * BUCKET_BYTES
+    if compression:
+        peak_bound = (DIST_COMPRESS_PEAK_GIB * 2**30
+                      + (3.25 + (slots - 1) / 4) * BUCKET_BYTES)
+    else:
+        peak_bound = DIST_PEAK_GIB * 2**30 + (slots + 1) * BUCKET_BYTES
     print(f"{tag} gemma3-1b full width in bf16, {TRAIN_N} ranks on "
           f"{dev} (gloo, each message staged through pinned host memory: "
           f"not NCCL's times), base k=1, dsgdm {TRAIN_MOMENTUM}, eta "
@@ -2159,7 +2531,7 @@ def phase_dist(torch, dev, card, compression=None):
         if res["launches"] != want:
             fails.append(f"rank {r} launches {res['launches']}, expected "
                          f"{want}")
-        if not compression and res["peak"] > peak_bound:
+        if res["peak"] > peak_bound:
             fails.append(f"rank {r} peak memory {res['peak'] / 2**30:.2f} "
                          f"GiB over {peak_bound / 2**30:.2f} GiB")
         if not (res["on_card"] and res["device"].startswith("cuda")):
@@ -2219,11 +2591,28 @@ def phase_dist(torch, dev, card, compression=None):
         raise SystemExit(f"{tag} failed:\n" + "\n".join(fails))
     total = {k: sum(res["launches"][k] for res in results)
              for k in ("gossip_mix", "gossip_mix_many", "gossip_mix_stacked",
-                       "quantized_gossip_mix")}
+                       "quantize_ef_many", "quantized_gossip_mix_many",
+                       "quantize_ef_many-segments",
+                       "quantized_gossip_mix_many-segments")}
     peak = max(res["peak"] for res in results)
     if compression:
-        print(f"{tag} peak memory per rank at most {peak / 2**30:.2f} GiB")
-        return {pre + "quantized_gossip_mix": total["quantized_gossip_mix"]}
+        print(f"{tag} quantize and quantized-combine launches "
+              f"{total['quantize_ef_many']} and "
+              f"{total['quantized_gossip_mix_many']} = {leaf_buckets} "
+              f"buckets of at most {BUCKET_BYTES >> 20} MiB x {DIST_STEPS} "
+              f"steps x {TRAIN_N} ranks, over {len(leaves)} reference "
+              f"leaves per step; peak memory per rank at most "
+              f"{peak / 2**30:.2f} GiB, bound {peak_bound / 2**30:.2f} GiB "
+              f"= {DIST_COMPRESS_PEAK_GIB} GiB (the leaf-by-leaf mixer's) + "
+              f"(3.25 + {slots - 1} / 4) x the cap")
+        qmix = total["quantized_gossip_mix_many"]
+        return {pre + "quantized_gossip_mix": qmix,
+                pre + "quantized_gossip_mix_many": qmix,
+                pre + "quantized_gossip_mix_many-segments":
+                    total["quantized_gossip_mix_many-segments"],
+                pre + "quantize_ef_many": total["quantize_ef_many"],
+                pre + "quantize_ef_many-segments":
+                    total["quantize_ef_many-segments"]}
     print(f"{tag} combine launches {total['gossip_mix_many']} = {buckets} "
           f"buckets of at most {BUCKET_BYTES >> 20} MiB x {DIST_STEPS} steps "
           f"x {TRAIN_N} ranks, over {len(numel)} tensors per round; peak "
@@ -2387,6 +2776,8 @@ def main() -> None:
                                       error_feedback=True, seed=0)))
     for phase, e in entries:
         e["launches"] = launches[phase]
+        if "segments" in e:
+            e["segments"] = launches[phase + "-segments"]
     idle = [e["name"] for phase, e in entries
             if not e["launches"] and phase != "dist-gossip_mix_stacked"]
     if idle:        # the stacked entry is on no ported path

@@ -17,9 +17,13 @@ the tensor <-> rows plumbing).  The contract is two functions:
   ``row_offset`` the global index of row 0.
 
 ``int8`` and ``fp8`` go through ``repro_torch.kernels.ops`` (the CUDA
-quantize+EF kernel on the card, its plain version on the CPU).  Their
-``fused_mix`` is True: the distributed runtime combines their received
-payloads with ``ops.quantized_gossip_mix`` instead of decoding them.  ``int4``
+quantize+EF kernel on the card, its plain version on the CPU).  They also
+have ``compress_many(cfg, x2ds, err2ds | None, key, row_offsets) ->
+(payloads, residuals)``, the same for a bucket of buffers in one grouped
+call (``ops.quantize_payload_many``), each buffer's bits those of
+``compress`` on it alone.  Their ``fused_mix`` is True: the distributed
+runtime combines their received payloads with
+``ops.quantized_gossip_mix_many`` instead of decoding them.  ``int4``
 and ``topk`` are plain PyTorch on both devices: the reference has no
 kernel for them.  ``identity`` is a registry entry for byte accounting;
 ``repro_torch.compress.config.resolve`` turns it into the uncompressed
@@ -41,8 +45,11 @@ class Codec:
     name: str
     compress: Callable
     decode: Callable
-    # the payload is {"q", "scale"} that ops.quantized_gossip_mix combines
+    # the payload is {"q", "scale"} that ops.quantized_gossip_mix(_many)
+    # combines
     fused_mix: bool = False
+    # a bucket of buffers in one grouped call, or None (one at a time)
+    compress_many: Callable | None = None
 
 
 CODECS: dict[str, Codec] = {}
@@ -92,12 +99,19 @@ def _make_quant(fmt: str) -> Codec:
             x, err, fmt=fmt, key=key, row_offset=row_offset)
         return {"q": q, "scale": scale}, resid
 
+    def compress_many(cfg, xs, errs, key, row_offsets):
+        qs, scales, resids = ops.quantize_payload_many(
+            xs, errs, fmt=fmt, key=key, row_offsets=row_offsets)
+        return ([{"q": q, "scale": sc} for q, sc in zip(qs, scales)],
+                resids)
+
     def decode(cfg, payload):
         hat = payload["q"].to(torch.float32)
         hat *= payload["scale"]
         return hat
 
-    return register_codec(Codec(fmt, compress, decode, fused_mix=True))
+    return register_codec(Codec(fmt, compress, decode, fused_mix=True,
+                                compress_many=compress_many))
 
 
 _make_quant("int8")

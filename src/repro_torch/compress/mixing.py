@@ -24,6 +24,13 @@ back in block order and padded once, as ``leaf_to_rows`` lays out the
 stacked leaf.  So every row, element index and hash bit is the
 reference's, and the payload and residual of a flat dict equal the
 reference's on its own stacked tree.
+
+The leaves are quantized in buckets: consecutive reference leaves whose
+f32 chunk rows (all n nodes) stay within :data:`BUCKET_BYTES` go through
+one ``codec.compress_many`` call (:func:`compress_bucket`), on the card
+one grouped launch of the quantize+EF kernel (int8 and fp8; the other
+codecs quantize leaf by leaf).  A leaf larger than the cap (the
+embedding at full width) is a bucket of its own.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ import torch
 
 from repro_torch import trace
 from repro_torch.convert import _BLOCKS
+from repro_torch.kernels.multi_tensor import BUCKET_BYTES, plan_buckets
 from repro_torch.kernels.ref import sr_key
 
 from .codecs import get_codec
@@ -81,6 +89,12 @@ def group_to_rows(xs, chunk: int) -> torch.Tensor:
     return out.reshape(n * rows, chunk)
 
 
+def rows_bytes(xs, chunk: int) -> int:
+    """Bytes of :func:`group_to_rows` of ``xs`` (f32 chunk rows)."""
+    p = xs[0][0].numel()
+    return 4 * xs[0].shape[0] * max(1, -(-len(xs) * p // chunk)) * chunk
+
+
 def rows_to_group(r2d: torch.Tensor, shape, count: int) -> list:
     """Inverse of :func:`group_to_rows`: ``count`` f32 views of ``shape``
     (n, *rest)."""
@@ -105,6 +119,17 @@ def reference_leaves(keys) -> list[list[str]]:
     return [[k for _, k in sorted(g)] for g in groups.values()]
 
 
+def compress_bucket(codec, cfg, x2ds, e2ds, key, row_offsets):
+    """A bucket's ``(payloads, residuals)``: one grouped call where the
+    codec has one (int8, fp8), else the bucket's one buffer alone."""
+    if codec.compress_many is not None:
+        return codec.compress_many(cfg, x2ds, e2ds, key, row_offsets)
+    payload, resid = codec.compress(cfg, x2ds[0],
+                                    None if e2ds is None else e2ds[0], key,
+                                    row_offsets[0])
+    return [payload], [resid]
+
+
 def compressed_dense_mix(W: torch.Tensor, tree: dict, ef: dict | None,
                          cfg: CompressionConfig, t: int):
     """One compressed gossip round against a dense (n, n) mixing matrix.
@@ -114,47 +139,67 @@ def compressed_dense_mix(W: torch.Tensor, tree: dict, ef: dict | None,
     step counter (an int) keying the stochastic rounding.  Returns
     ``(mixed, ef)``; non-float tensors pass through untouched.  Each
     reference leaf (:func:`reference_leaves`) is quantized once, so the
-    kernel sees the reference's stacked row counts.
+    kernel sees the reference's stacked row counts; a bucket of leaves
+    is quantized in one call (see the module's docstring), then each
+    leaf's residual is written, and its payload decoded and mixed, leaf
+    by leaf.
 
     Unlike the reference, the residual is written into ``ef``'s tensors
     in place and ``ef`` itself is returned: at full width the old and the
     new residual (f32, twice the bf16 parameters each) would not fit on
-    the card together.  One leaf's f32 temporaries are alive at a time."""
+    the card together.  A bucket's f32 temporaries are alive together:
+    the chunk rows of x and err, then the residuals beside them and the
+    payloads (1 byte per element for int8 and fp8), at most about 3.25 x
+    :data:`BUCKET_BYTES` for a bucket within the cap; a leaf past the cap
+    (the embedding; at n = 3 the MLP leaves too) is alone in its bucket
+    and holds what it would hold quantized leaf by leaf."""
     trace.mark("mix")
     codec = get_codec(cfg.codec)
     key = sr_key(cfg.seed, t)
     Wf = W.float()
     d = torch.diagonal(Wf)
     Woff = Wf - torch.diag(d)
-    out = {}
+    out, leaves = {}, []
     for names in reference_leaves(tree):
-        xs = [tree[k] for k in names]
-        shape = xs[0].shape
-        if not xs[0].is_floating_point():
-            out.update(zip(names, xs))
-            continue
-        es = None if ef is None else [ef[k] for k in names]
-        x2d = group_to_rows(xs, cfg.chunk)
-        e2d = None if es is None else group_to_rows(es, cfg.chunk)
-        payload, resid = codec.compress(cfg, x2d, e2d, key, 0)
-        del x2d, e2d
-        if es is not None:
-            for e, r in zip(es, rows_to_group(resid, shape, len(names))):
-                e.copy_(r)
-            del r       # the last view would keep the residual rows alive
-        del resid
-        hats = rows_to_group(codec.decode(cfg, payload), shape, len(names))
-        del payload
-        for k, x in zip(names, xs):
-            hat = hats.pop(0)   # the last view gone frees the decoded rows
-            mixed = torch.tensordot(Woff, hat, dims=([1], [0]))
-            del hat
-            self_term = x.to(torch.float32, copy=True)
-            self_term *= d.reshape((-1,) + (1,) * (x.ndim - 1))
-            mixed += self_term
-            del self_term
-            out[k] = mixed.to(x.dtype)
-            del mixed
+        if tree[names[0]].is_floating_point():
+            leaves.append(names)
+        else:
+            out.update((k, tree[k]) for k in names)
+    cap = BUCKET_BYTES if codec.compress_many is not None else 0
+    sizes = [rows_bytes([tree[k] for k in names], cfg.chunk)
+             for names in leaves]
+    for bucket in plan_buckets(sizes, cap):
+        group = [leaves[i] for i in bucket]
+        x2ds = [group_to_rows([tree[k] for k in names], cfg.chunk)
+                for names in group]
+        e2ds = None if ef is None else [
+            group_to_rows([ef[k] for k in names], cfg.chunk)
+            for names in group]
+        payloads, resids = compress_bucket(codec, cfg, x2ds, e2ds, key,
+                                           [0] * len(group))
+        del x2ds, e2ds
+        for names in group:
+            xs = [tree[k] for k in names]
+            shape = xs[0].shape
+            resid = resids.pop(0)
+            if ef is not None:
+                for k, r in zip(names, rows_to_group(resid, shape,
+                                                     len(names))):
+                    ef[k].copy_(r)
+                del r   # the last view would keep the residual rows alive
+            del resid
+            hats = rows_to_group(codec.decode(cfg, payloads.pop(0)), shape,
+                                 len(names))
+            for k, x in zip(names, xs):
+                hat = hats.pop(0)   # the last view frees the decoded rows
+                mixed = torch.tensordot(Woff, hat, dims=([1], [0]))
+                del hat
+                self_term = x.to(torch.float32, copy=True)
+                self_term *= d.reshape((-1,) + (1,) * (x.ndim - 1))
+                mixed += self_term
+                del self_term
+                out[k] = mixed.to(x.dtype)
+                del mixed
     return {k: out[k] for k in tree}, ef
 
 

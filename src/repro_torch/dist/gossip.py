@@ -37,11 +37,20 @@ Compressed gossip (``compression=``, DESIGN.md Sec. 13): each reference
 leaf (the blocks of one stacked leaf, back to back, padded once:
 ``compress.mixing.group_to_rows``) is quantized once per step, with
 ``row_offset = rank * rows``, so its payload bits equal the simulation's
-rows of this node.  The payload arrays (``q`` and ``scale``) go through
-the same exchange, and the combine is ``ops.quantized_gossip_mix`` (the
-CUDA kernel on the card) for int8 and fp8, decode-and-accumulate for the
-other codecs.  The EF21 residual is written into the ``ef`` tensors in
-place, as ``compress.compressed_dense_mix`` does.
+rows of this node.  For int8 and fp8 the leaves gather into buckets of
+at most :data:`BUCKET_BYTES` of f32 chunk rows (a larger leaf, the
+embedding, is a bucket of its own), and a bucket is quantized in one
+``ops.quantize_payload_many`` call and combined in one
+``ops.quantized_gossip_mix_many`` call: on the card one grouped launch
+of each kernel per bucket.  Between the two, each leaf's payload (``q``
+and ``scale``) goes through the same exchange as before, leaf by leaf
+and slot by slot: the same messages and bytes.  Until its combine a
+bucket holds its chunk rows and (until the residuals are written) their
+err rows and residuals, f32 each, and its payloads: at most about
+(3.25 + S/4) x the cap beside a leaf-by-leaf mixer, for S received
+payloads.  The other codecs take one leaf at a time and
+decode-and-accumulate.  The EF21 residual is written into the ``ef``
+tensors in place, as ``compress.compressed_dense_mix`` does.
 
 Messages travel as bytes.  Under the ``gloo`` backend, whose send and
 receive read host memory, a message on the card is staged through a
@@ -59,10 +68,12 @@ import torch.distributed as dist
 from repro_torch import trace
 from repro_torch.compress import get_codec
 from repro_torch.compress import resolve as resolve_compression
-from repro_torch.compress.mixing import (group_to_rows, reference_leaves,
+from repro_torch.compress.mixing import (compress_bucket, group_to_rows,
+                                         reference_leaves, rows_bytes,
                                          rows_to_group)
 from repro_torch.core.ppermute_plan import SchedulePlan
 from repro_torch.kernels import ops
+from repro_torch.kernels.multi_tensor import BUCKET_BYTES, plan_buckets
 from repro_torch.kernels.ref import _f32_weights, sr_key
 
 
@@ -143,26 +154,6 @@ class _Wire:
         for b, host in copy_in:
             b.copy_(host)
         return recvs
-
-
-BUCKET_BYTES = 256 << 20     # f32 work buffers gathered per grouped combine
-
-
-def plan_buckets(sizes, cap: int) -> list[list[int]]:
-    """The mixer's buckets: the indices of tensors whose f32 work buffers
-    take ``sizes`` bytes, in order, cut so that a bucket's bytes stay
-    within ``cap``; a tensor larger than the cap is a bucket of its own
-    (``cap = 0``: one bucket per tensor)."""
-    buckets, cur, held = [], [], 0
-    for i, size in enumerate(sizes):
-        if cur and held + size > cap:
-            buckets.append(cur)
-            cur, held = [], 0
-        cur.append(i)
-        held += size
-    if cur:
-        buckets.append(cur)
-    return buckets
 
 
 def make_gossip_mixer(group, plan: SchedulePlan, *, flatten: bool = False,
@@ -248,45 +239,63 @@ def make_gossip_mixer(group, plan: SchedulePlan, *, flatten: bool = False,
     def compressed_mixer(tree: dict, r: int, ef: dict | None, t: int):
         rnd = rounds[r % len(rounds)]
         key = sr_key(ccfg.seed, t)
-        out = {}
+        C = ccfg.chunk
+        out, leaves = {}, []
         for names in reference_leaves(tree):
-            xs = [tree[k] for k in names]
-            if not xs[0].is_floating_point():
-                out.update(zip(names, xs))
-                continue
-            shape = xs[0].shape
-            es = None if ef is None else [ef[k] for k in names]
+            if tree[names[0]].is_floating_point():
+                leaves.append(names)
+            else:
+                out.update((k, tree[k]) for k in names)
+        sizes = [rows_bytes([tree[k] for k in names], C) for names in leaves]
+        grouped = codec.compress_many is not None
+        for bucket in plan_buckets(sizes, cap if grouped else 0):
+            group = [leaves[i] for i in bucket]
             trace.mark("quantize")
-            own = group_to_rows(xs, ccfg.chunk)
-            e2d = None if es is None else group_to_rows(es, ccfg.chunk)
-            payload, resid = codec.compress(ccfg, own, e2d, key,
-                                            me * own.shape[0])
-            del e2d
-            if es is not None:
-                for e, part in zip(es, rows_to_group(resid, shape,
-                                                     len(names))):
-                    e.copy_(part)
-                del part
-            del resid
+            owns = [group_to_rows([tree[k] for k in names], C)
+                    for names in group]
+            e2ds = None if ef is None else [
+                group_to_rows([ef[k] for k in names], C) for names in group]
+            payloads, resids = compress_bucket(
+                codec, ccfg, owns, e2ds, key,
+                [me * own.shape[0] for own in owns])
+            del e2ds
+            if ef is not None:
+                for names, resid in zip(group, resids):
+                    shape = tree[names[0]].shape
+                    for k, part in zip(names, rows_to_group(resid, shape,
+                                                            len(names))):
+                        ef[k].copy_(part)
+                del resid, part
+            del resids
             trace.mark("exchange")
-            fields = sorted(payload)
-            recvs = [dict(zip(fields, wire.exchange(
-                [payload[f] for f in fields], slot))) for slot in rnd.slots]
-            del payload
+            recvs = []
+            for payload in payloads:
+                fields = sorted(payload)
+                recvs.append([dict(zip(fields, wire.exchange(
+                    [payload[f] for f in fields], slot)))
+                    for slot in rnd.slots])
+            del payloads, payload
             trace.mark("combine")
             if codec.fused_mix:
-                mixed = ops.quantized_gossip_mix(
-                    own, [rc["q"] for rc in recvs],
-                    [rc["scale"] for rc in recvs], rnd.weights)
+                mixed = ops.quantized_gossip_mix_many(
+                    owns, [[rc["q"] for rc in rcs] for rcs in recvs],
+                    [[rc["scale"] for rc in rcs] for rcs in recvs],
+                    rnd.weights)
             else:
-                mixed = rnd.weights[0] * own
-                for w, rc in zip(rnd.weights[1:], recvs):
-                    mixed = mixed + w * codec.decode(ccfg, rc)
-            del own, recvs
-            for k, x, part in zip(names, xs, rows_to_group(mixed, shape,
-                                                           len(names))):
-                out[k] = part.to(x.dtype)
-            del mixed, part
+                mixed = []
+                for own, rcs in zip(owns, recvs):
+                    m = rnd.weights[0] * own
+                    for w, rc in zip(rnd.weights[1:], rcs):
+                        m = m + w * codec.decode(ccfg, rc)
+                    mixed.append(m)
+                del m
+            del owns, recvs
+            for names, m in zip(group, mixed):
+                xs = [tree[k] for k in names]
+                for k, x, part in zip(names, xs, rows_to_group(
+                        m, xs[0].shape, len(names))):
+                    out[k] = part.to(x.dtype)
+            del mixed, m, part
         return {k: out[k] for k in tree}, ef
 
     compressed_mixer.stats = wire.stats

@@ -1,9 +1,10 @@
 // Segment tables for grouped launches: one kernel launch over a list of
 // tensors (the fused DSGD update over every leaf of a model, the gossip
-// combine over every tensor of a bucket).  Included by fused_dsgd.cu and
-// gossip_mix.cu; the Python side that builds the tables is
-// repro_torch/kernels/multi_tensor.py, and the two must agree on every
-// constant below.
+// combine over every tensor of a bucket, the quantize+EF pass and the
+// quantized combine over every reference leaf of a bucket).  Included by
+// fused_dsgd.cu, gossip_mix.cu and quantized_gossip.cu; the Python side
+// that builds the tables is repro_torch/kernels/multi_tensor.py, and the
+// two must agree on every constant below.
 //
 // The table.  A segment is one tensor: a record of `nptr` pointers (the
 // kernel's streams: inputs, then outputs) followed by kMeta words:
@@ -29,6 +30,19 @@
 // host staging, no copy on the stream and no pinned buffer kept alive
 // until the copy has run, and a CUDA graph captures it by value.
 //
+// Row tables, for the kernels with one scale per row of `cols` elements
+// (quantized_gossip.cu, one warp per row): a record is `nptr` pointers
+// and kRowMeta words, the four above and
+//   row_offset the global index of the segment's row 0 (an int64 as its
+//              64-bit two's complement), for the hash of the quantizer
+// and a chunk is whole rows of the segment: rows_per_chunk(cols) of
+// them, as many as fit kRowChunkElems elements but at least one per warp
+// of the block, so a chunk never splits a row or crosses a segment, and
+// a segment's last chunk may hold fewer rows.  Such a table holds up to
+// 3,968 / (nptr + 5) segments (396 quantize records with err, 440
+// combines of one payload).  The vector flag's rule is the kernel's own
+// (`vec_cols`, `max_cols` in fill_row_table).
+//
 // The grid is persistent: as many blocks as the SMs hold at the kernel's
 // occupancy (capped by the chunk count), each walking chunk ids with a
 // grid stride.  A block's chunk ids rise, so its segment is found by
@@ -48,6 +62,10 @@ constexpr int kTableWords = 3968;
 constexpr int kMaxWeights = 32;
 constexpr int kMeta = 4;          // numel, cols, chunk_end, vec
 constexpr int kNumel = 0, kCols = 1, kChunkEnd = 2, kVec = 3;
+constexpr int kRowMeta = 5;       // the four, then row_offset
+constexpr int kRowOffset = 4;
+constexpr int64_t kRowChunkElems = 4096;
+constexpr int kWarps = kThreads / 32;
 
 struct Table {
   uint64_t w[kTableWords];        // the records, back to back
@@ -95,6 +113,47 @@ __device__ __forceinline__ void for_each_chunk(const Table& t, F&& body) {
     const int64_t left = numel - begin;
     Chunk ch{rec, begin, left < chunk_elems<T>() ? left : chunk_elems<T>(),
              rec[t.nptr + kVec] != 0, (int64_t)rec[t.nptr + kCols]};
+    body(ch);
+  }
+}
+
+// Whole rows per chunk of a row table.
+__host__ __device__ constexpr int64_t rows_per_chunk(int64_t cols) {
+  return kRowChunkElems / cols > kWarps ? kRowChunkElems / cols : kWarps;
+}
+
+// One chunk of one segment of a row table: its record and its rows.
+struct RowChunk {
+  const uint64_t* rec;  // the segment's pointers, then its kRowMeta words
+  int64_t row0;         // first row of the chunk in the segment
+  int64_t rows;         // rows of the chunk
+  int64_t cols;
+  uint64_t row_offset;  // the global index of the segment's row 0
+  bool vec;
+};
+
+// Calls body(chunk) for each chunk of a row table of this block, in
+// rising order.
+template <typename F>
+__device__ __forceinline__ void for_each_row_chunk(const Table& t,
+                                                   F&& body) {
+  const int stride = t.nptr + kRowMeta;
+  const uint64_t* rec = t.w;
+  int64_t seg_first = 0;
+  for (int64_t c = blockIdx.x; c < t.chunks; c += gridDim.x) {
+    int64_t end = (int64_t)rec[t.nptr + kChunkEnd];
+    while (c >= end) {
+      seg_first = end;
+      rec += stride;
+      end = (int64_t)rec[t.nptr + kChunkEnd];
+    }
+    const int64_t cols = (int64_t)rec[t.nptr + kCols];
+    const int64_t rows = (int64_t)rec[t.nptr + kNumel] / cols;
+    const int64_t per = rows_per_chunk(cols);
+    const int64_t row0 = (c - seg_first) * per;
+    const int64_t left = rows - row0;
+    RowChunk ch{rec, row0, left < per ? left : per, cols,
+                rec[t.nptr + kRowOffset], rec[t.nptr + kVec] != 0};
     body(ch);
   }
 }
@@ -183,6 +242,43 @@ inline cudaError_t fill_table(Table& t, const uint64_t* words, int nseg,
     end += (numel + chunk - 1) / chunk;
     if ((int64_t)rec[nptr + kChunkEnd] != end) return cudaErrorInvalidValue;
     bool aligned = cols % vec == 0;
+    for (int k = 0; k < nptr; ++k) {
+      if (rec[k] == 0) return cudaErrorInvalidValue;
+      aligned = aligned && (rec[k] & 15u) == 0;
+    }
+    const uint64_t flag = rec[nptr + kVec];
+    if (flag > 1 || (flag == 1 && !aligned)) return cudaErrorInvalidValue;
+  }
+  for (int64_t i = 0; i < (int64_t)nseg * stride; ++i) t.w[i] = words[i];
+  t.nseg = nseg;
+  t.nptr = nptr;
+  t.chunks = end;
+  return cudaSuccess;
+}
+
+// Copies a row table's records into t after checking them: record
+// sizes, pointers, cols >= 1 and a divisor of numel, the chunk prefix
+// sums against rows_per_chunk, and the vector flag (every pointer 16-byte
+// aligned, cols a multiple of `vec_cols` and at most `max_cols`).
+// Returns cudaSuccess or cudaErrorInvalidValue.
+inline cudaError_t fill_row_table(Table& t, const uint64_t* words, int nseg,
+                                  int nptr, int64_t vec_cols,
+                                  int64_t max_cols) {
+  const int stride = nptr + kRowMeta;
+  if (words == nullptr || nseg < 1 || nptr < 1 ||
+      (int64_t)nseg * stride > kTableWords)
+    return cudaErrorInvalidValue;
+  int64_t end = 0;
+  for (int s = 0; s < nseg; ++s) {
+    const uint64_t* rec = words + (int64_t)s * stride;
+    const int64_t numel = (int64_t)rec[nptr + kNumel];
+    const int64_t cols = (int64_t)rec[nptr + kCols];
+    if (numel < 1 || cols < 1 || numel % cols != 0)
+      return cudaErrorInvalidValue;
+    const int64_t per = rows_per_chunk(cols);
+    end += (numel / cols + per - 1) / per;
+    if ((int64_t)rec[nptr + kChunkEnd] != end) return cudaErrorInvalidValue;
+    bool aligned = cols % vec_cols == 0 && cols <= max_cols;
     for (int k = 0; k < nptr; ++k) {
       if (rec[k] == 0) return cudaErrorInvalidValue;
       aligned = aligned && (rec[k] & 15u) == 0;

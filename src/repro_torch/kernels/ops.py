@@ -10,12 +10,18 @@ counterpart here.  Launches are counted on the kernel wrappers
 ``fused_dsgd.fused_dsgd.launches``,
 ``fused_dsgd.fused_dsgd_many.launches``,
 ``quantized_gossip.quantize_ef.launches``,
+``quantized_gossip.quantize_ef_many.launches``,
 ``gossip_mix.gossip_mix_slots.launches``,
 ``gossip_mix.gossip_mix_slots_many.launches``,
 ``gossip_mix.gossip_mix_stacked.launches``,
-``quantized_gossip.quantized_gossip_mix.launches``); the grouped entry
-points (``*_many``) also count the tensors their launches covered, in
-``segments``.
+``quantized_gossip.quantized_gossip_mix.launches``,
+``quantized_gossip.quantized_gossip_mix_many.launches``); the grouped
+entry points (``*_many``, and the quantized kernels' one-tensor calls)
+also count the tensors their launches covered, in ``segments``.  The
+grouped entry points (``fused_dsgd_steps``, ``gossip_mix_many``,
+``quantize_payload_many``, ``quantized_gossip_mix_many``) take a list of
+tensors: on the card one launch per table of segments (and per dtype or
+mode), on the CPU the plain version tensor by tensor.
 """
 from __future__ import annotations
 
@@ -27,7 +33,9 @@ from .fused_dsgd import fused_dsgd, fused_dsgd_many
 from .gossip_mix import (gossip_mix_slots, gossip_mix_slots_many,
                          gossip_mix_stacked)
 from .paged_flash_attention import paged_flash_attention_fwd
-from .quantized_gossip import quantize_ef, quantized_gossip_mix as _qmix
+from .quantized_gossip import (quantize_ef, quantize_ef_many,
+                               quantized_gossip_mix as _qmix,
+                               quantized_gossip_mix_many as _qmix_many)
 
 
 def _as_2d(a: torch.Tensor, *, lead_rows: bool = False):
@@ -137,6 +145,34 @@ def quantized_gossip_mix(own, q_slots, scale_slots, weights):
                               f"{own.device}")
 
 
+def quantized_gossip_mix_many(owns, q_lists, scale_lists, weights):
+    """:func:`quantized_gossip_mix` for many buffers of one round (the
+    distributed mixer's bucket of reference leaves): ``[w[0]*own + sum_s
+    w[s+1]*(q_s * scale_s) for each own]``.
+
+    owns: (R_i, C_i) f32, all on one device; q_lists / scale_lists: per
+    buffer its S received payloads and (R_i, 1) scales; weights: S + 1
+    floats.  On the card it is one grouped kernel launch per table and
+    payload dtype; on the CPU the plain version, buffer by buffer."""
+    owns, q_lists, scale_lists = list(owns), list(q_lists), list(scale_lists)
+    if not len(owns) == len(q_lists) == len(scale_lists):
+        raise ValueError(f"{len(owns)} own buffers, {len(q_lists)} payload "
+                         f"lists, {len(scale_lists)} scale lists")
+    if not owns:
+        return []
+    dev = owns[0].device
+    if dev.type == "cuda":      # the wrapper checks every buffer
+        return _qmix_many(owns, q_lists, scale_lists, weights)
+    if dev.type == "cpu":
+        _one_device(owns + [t for ts in q_lists + scale_lists for t in ts],
+                    "quantized_gossip_mix_many")
+        return [ref.quantized_gossip_mix_ref(own, list(qs), list(scs),
+                                             weights)
+                for own, qs, scs in zip(owns, q_lists, scale_lists)]
+    raise NotImplementedError(f"no quantized gossip-mix kernel for device "
+                              f"{dev}")
+
+
 # ---------------------------------------------------------------------------
 # fused DSGD(-momentum) update
 # ---------------------------------------------------------------------------
@@ -210,6 +246,39 @@ def quantize_payload(x, err=None, *, fmt: str, key: int, row_offset=0):
     if x.device.type == "cpu":
         return ref.quantize_ef_ref(x, err, key, row_offset, fmt=fmt)
     raise NotImplementedError(f"no quantize kernel for device {x.device}")
+
+
+def quantize_payload_many(xs, errs=None, *, fmt: str, key: int,
+                          row_offsets):
+    """:func:`quantize_payload` of many chunk-row buffers with one key
+    (the compressed mixers' bucket of reference leaves).
+
+    xs: (R_i, C_i) float32 buffers on one device; errs: None, or one per
+    buffer (a tensor or None); row_offsets: the global index of each
+    buffer's row 0.  Returns the lists ``(qs, scales, resids)``, each
+    buffer's bits those of :func:`quantize_payload` on it alone.  On the
+    card it is one grouped kernel launch per table and mode (with or
+    without err); on the CPU the plain version, buffer by buffer."""
+    if fmt not in QUANT_FORMATS:
+        raise ValueError(f"fmt must be one of {QUANT_FORMATS}, got {fmt!r}")
+    xs, row_offsets = list(xs), list(row_offsets)
+    errs = [None] * len(xs) if errs is None else list(errs)
+    if not len(xs) == len(errs) == len(row_offsets):
+        raise ValueError(f"{len(xs)} x, {len(errs)} err, "
+                         f"{len(row_offsets)} row offsets")
+    if not xs:
+        return [], [], []
+    dev = xs[0].device
+    if dev.type == "cuda":      # the wrapper checks every buffer
+        return quantize_ef_many(xs, errs, key, row_offsets, fmt=fmt)
+    if dev.type == "cpu":
+        _one_device(xs + [e for e in errs if e is not None],
+                    "quantize_payload_many")
+        outs = [ref.quantize_ef_ref(x, e, key, off, fmt=fmt)
+                for x, e, off in zip(xs, errs, row_offsets)]
+        return ([q for q, _, _ in outs], [sc for _, sc, _ in outs],
+                [r for _, _, r in outs])
+    raise NotImplementedError(f"no quantize kernel for device {dev}")
 
 
 # ---------------------------------------------------------------------------

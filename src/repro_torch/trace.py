@@ -11,9 +11,10 @@ call :func:`mark` at the phase boundaries of a step:
 
 The distributed train step (``repro_torch.dist.steps``) marks
 ``"step"``, ``"update"`` and ``"end"`` the same way; in place of
-``"mix"``, its gossip mixer marks each tensor's (compressed: each
-reference leaf's) phases, ``"quantize"``, ``"exchange"`` (the
-point-to-point messages) and ``"combine"``.
+``"mix"``, its gossip mixer marks each tensor's exchange and each
+bucket's combine (compressed: each bucket's ``"quantize"``, then its
+reference leaves' ``"exchange"`` (the point-to-point messages), then its
+``"combine"``).
 
 The continuous serving engine marks each dispatch with its name
 (``"prefill_<bucket>"``, ``"prefill_<bucket>x<n>"``, ``"decode"``) and

@@ -1,8 +1,8 @@
 """The kernel build's hash follows the headers a source includes: an edit
 to ``csrc/flash_core.cuh`` rebuilds both attention libraries and no
-other, and one to ``csrc/multi_tensor.cuh`` the fused DSGD and gossip
-combine libraries and no other.  Runs on the CPU: it computes library
-paths, it builds nothing."""
+other, and one to ``csrc/multi_tensor.cuh`` the fused DSGD, gossip
+combine and quantized gossip libraries and no other.  Runs on the CPU:
+it computes library paths, it builds nothing."""
 import shutil
 import subprocess
 import sys
@@ -24,17 +24,16 @@ def test_attention_sources_include_the_shared_core():
     for name in ("flash_attention", "paged_flash_attention"):
         assert [p.name for p in _build.sources(name)] == [
             f"{name}.cu", "flash_core.cuh"]
-    for name in ("fused_dsgd", "gossip_mix"):
+    for name in ("fused_dsgd", "gossip_mix", "quantized_gossip"):
         assert [p.name for p in _build.sources(name)] == [
             f"{name}.cu", "multi_tensor.cuh"]
-    assert [p.name for p in _build.sources("quantized_gossip")] == [
-        "quantized_gossip.cu"]
 
 
 @pytest.mark.parametrize("edit,changed", [
     ("flash_core.cuh", {"flash_attention", "paged_flash_attention"}),
     ("paged_flash_attention.cu", {"paged_flash_attention"}),
-    ("multi_tensor.cuh", {"fused_dsgd", "gossip_mix"}),
+    ("multi_tensor.cuh", {"fused_dsgd", "gossip_mix", "quantized_gossip"}),
+    ("quantized_gossip.cu", {"quantized_gossip"}),
 ])
 def test_editing_a_header_renames_every_library_that_includes_it(
         tmp_path, edit, changed):

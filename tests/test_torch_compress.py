@@ -20,6 +20,12 @@ Inputs come from numpy seeds and go through both sides.  Tolerances:
   alike), and the interpret-mode Pallas kernel within 4 f32 ulps of the
   terms' magnitude ``|w0 own| + sum_s |w_s q_s scale_s|``: XLA may
   contract its products and sums into FMAs (ROADMAP queue 3).
+- the grouped entry points (``ops.quantize_payload_many``,
+  ``ops.quantized_gossip_mix_many``) on the CPU equal the reference's
+  oracles leaf by leaf, bit for bit, each leaf at its own row offset, and
+  its interpret-mode kernels at the tolerances above; the bucketed
+  ``compressed_dense_mix`` equals one bucket per leaf bit for bit and the
+  reference on a reduced gemma3-1b at the tolerances above.
 """
 import jax
 import jax.numpy as jnp
@@ -37,7 +43,9 @@ from repro.optim.decentralized import mix as jmix
 from repro.topology import TopologySpec as JSpec
 from repro.topology import build_schedule as jbuild
 from repro_torch import compress as T
+from repro_torch.compress import mixing as tmixing
 from repro_torch.convert import tree_from_jax
+from repro_torch.kernels.multi_tensor import plan_buckets
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.optim.decentralized import mix
@@ -234,10 +242,11 @@ def test_quantize_ef_ref_matches_interpret_kernel(fmt, shape):
     np.testing.assert_allclose(r.numpy(), np.asarray(jr), rtol=0, atol=1e-6)
 
 
-def _qmix_inputs(fmt, S, R=9, C=256, seed=0):
+def _qmix_inputs(fmt, S, R=9, C=256, seed=0, sweep=True):
     """Payloads as the quantizer makes them, the last one of all zeros
-    (a slot this node receives nothing in, at weight 0); for fp8 the
-    first row holds every byte value of e4m3 except its two NaNs."""
+    (a slot this node receives nothing in, at weight 0); for fp8 (and
+    ``sweep``) the first row holds every byte value of e4m3 except its
+    two NaNs."""
     rng = np.random.default_rng(seed)
     own = rng.standard_normal((R, C)).astype(np.float32)
     qs, scales = [], []
@@ -245,7 +254,7 @@ def _qmix_inputs(fmt, S, R=9, C=256, seed=0):
         x = rng.standard_normal((R, C)).astype(np.float32)
         q, sc, _ = tref.quantize_ef_ref(torch.from_numpy(x), None,
                                         tref.sr_key(1, s), 0, fmt=fmt)
-        if fmt == "fp8" and s == 0:
+        if fmt == "fp8" and s == 0 and sweep:
             codes = np.asarray([b for b in range(256)
                                 if b & 0x7F != 0x7F], np.uint8)
             q = q.clone()
@@ -314,6 +323,148 @@ def test_quantize_payload_dispatches_by_device():
     assert all(_same_bits(a, b) for a, b in zip(got, want))
     with pytest.raises(ValueError, match="fmt"):
         ops.quantize_payload(x, fmt="int4", key=7)
+
+
+# ---------------------------------------------------------------------------
+# the grouped entry points on the CPU, leaf by leaf against the reference
+# ---------------------------------------------------------------------------
+
+# (R, C, row_offset) per buffer of a bucket: whole and partial chunks,
+# indices across 2^31 and 2^32 (the reference's int32 index wraps)
+MANY_SHAPES = [(5, 256, 0), (1, 8, 3), (7, 128, 2 ** 24 - 2), (3, 32, 5),
+               (4, 256, 2 ** 23 - 1), (2, 250, 17179868)]
+
+
+def _many_inputs(with_err, case=None):
+    xs, errs, offs = [], [], []
+    for i, (R, C, off) in enumerate(MANY_SHAPES):
+        x, err = _quant_inputs((R, C), with_err in (True, "some"), case)
+        if with_err == "some" and i % 2:
+            err = None
+        xs.append(x)
+        errs.append(err)
+        offs.append(off)
+    return xs, errs, offs
+
+
+@pytest.mark.parametrize("with_err", [False, True, "some"])
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_quantize_payload_many_matches_reference_per_leaf(fmt, with_err):
+    xs, errs, offs = _many_inputs(with_err)
+    key = tref.sr_key(2, 7)
+    got = ops.quantize_payload_many(
+        [torch.from_numpy(x) for x in xs],
+        [None if e is None else torch.from_numpy(e) for e in errs],
+        fmt=fmt, key=key, row_offsets=offs)
+    assert all(len(g) == len(xs) for g in got)
+    for x, e, off, q, s, r in zip(xs, errs, offs, *got):
+        jq, js, jr = jref.quantize_ef_ref(
+            jnp.asarray(x), None if e is None else jnp.asarray(e),
+            jnp.uint32(key), off, fmt=fmt)
+        assert _same_bits(q, jq) and _same_bits(s, js) and _same_bits(r, jr)
+    # the codec's grouped call: the same payloads and residuals
+    pays, res = T.get_codec(fmt).compress_many(
+        T.CompressionConfig(codec=fmt), [torch.from_numpy(x) for x in xs],
+        [None if e is None else torch.from_numpy(e) for e in errs], key,
+        offs)
+    for p, r, q, s, rr in zip(pays, res, *got):
+        assert _same_bits(p["q"], q) and _same_bits(p["scale"], s)
+        assert _same_bits(r, rr)
+
+
+@pytest.mark.parametrize("case", ["zero-rows", "subnormal"])
+def test_quantize_payload_many_edges_match_reference(case):
+    xs, errs, offs = _many_inputs(case == "zero-rows", case)
+    key = tref.sr_key(1, 4)
+    got = ops.quantize_payload_many(
+        [torch.from_numpy(x) for x in xs],
+        None if case == "subnormal" else [torch.from_numpy(e) for e in errs],
+        fmt="fp8", key=key, row_offsets=offs)
+    for x, e, off, q, s, r in zip(xs, errs, offs, *got):
+        jq, js, jr = jref.quantize_ef_ref(
+            jnp.asarray(x), None if e is None else jnp.asarray(e),
+            jnp.uint32(key), off, fmt="fp8")
+        assert _same_bits(q, jq) and _same_bits(s, js) and _same_bits(r, jr)
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_quantize_payload_many_matches_interpret_kernel(fmt):
+    xs, errs, offs = _many_inputs(True)
+    xs, errs, offs = xs[:4], errs[:4], offs[:4]
+    key = tref.sr_key(3, 9)
+    got = ops.quantize_payload_many(
+        [torch.from_numpy(x) for x in xs], [torch.from_numpy(e)
+                                            for e in errs],
+        fmt=fmt, key=key, row_offsets=offs)
+    for x, e, off, q, s, r in zip(xs, errs, offs, *got):
+        jq, js, jr = quantize_ef_pallas(jnp.asarray(x), jnp.asarray(e),
+                                        jnp.uint32(key), jnp.int32(off),
+                                        fmt=fmt, interpret=True)
+        assert _same_bits(q, jq) and _same_bits(s, js)
+        np.testing.assert_allclose(r.numpy(), np.asarray(jr), rtol=0,
+                                   atol=1e-6)
+
+
+def test_quantize_payload_many_takes_matching_lists():
+    x = torch.from_numpy(_rows(3, 16, 0))
+    assert ops.quantize_payload_many([], fmt="int8", key=1,
+                                     row_offsets=[]) == ([], [], [])
+    with pytest.raises(ValueError, match="row offsets"):
+        ops.quantize_payload_many([x, x], fmt="int8", key=1, row_offsets=[0])
+    with pytest.raises(ValueError, match="err"):
+        ops.quantize_payload_many([x, x], [x], fmt="int8", key=1,
+                                  row_offsets=[0, 0])
+    with pytest.raises(ValueError, match="fmt"):
+        ops.quantize_payload_many([x], fmt="int4", key=1, row_offsets=[0])
+    with pytest.raises(ValueError, match="one device"):
+        ops.quantize_payload_many([x, x.to("meta")], fmt="int8", key=1,
+                                  row_offsets=[0, 0])
+
+
+@pytest.mark.parametrize("S", [0, 1, 2, 3])
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_quantized_gossip_mix_many_matches_reference_per_leaf(fmt, S):
+    leaves = [_qmix_inputs(fmt, S, R, C, seed=R, sweep=C >= 256)
+              for R, C in ((9, 256), (3, 32), (1, 8), (4, 250))]
+    w = leaves[0][3]            # one round's weights for every leaf
+    got = ops.quantized_gossip_mix_many(
+        [torch.from_numpy(own) for own, *_ in leaves],
+        [qs for _, qs, _, _ in leaves], [scs for _, _, scs, _ in leaves],
+        w.tolist())
+    assert len(got) == len(leaves)
+    for (own, qs, scs, _), g in zip(leaves, got):
+        jq = [_jpayload(q) for q in qs]
+        js = [jnp.asarray(sc.numpy()) for sc in scs]
+        want = jref.quantized_gossip_mix_ref(jnp.asarray(own), jq, js,
+                                             jnp.asarray(w))
+        assert g.dtype == torch.float32
+        assert _same_bits(g, np.asarray(want, np.float32))
+        assert _same_bits(g, ops.quantized_gossip_mix(
+            torch.from_numpy(own), qs, scs, w.tolist()))
+        if S:
+            kern = np.asarray(quantized_gossip_mix_slots_pallas(
+                jnp.asarray(own), tuple(jq), tuple(js), jnp.asarray(w),
+                interpret=True))
+            terms = np.abs(w[0] * own) + sum(
+                np.abs(w[s + 1] * q.float().numpy() * sc.numpy())
+                for s, (q, sc) in enumerate(zip(qs, scs)))
+            ulps = np.abs(g.numpy().astype(np.float64) - kern) / np.spacing(
+                np.maximum(terms, 1e-30).astype(np.float32))
+            assert ulps.max() <= 4
+
+
+def test_quantized_gossip_mix_many_takes_matching_lists():
+    own, qs, scales, w = _qmix_inputs("int8", 2)
+    o = torch.from_numpy(own)
+    assert ops.quantized_gossip_mix_many([], [], [], w.tolist()) == []
+    with pytest.raises(ValueError, match="lists"):
+        ops.quantized_gossip_mix_many([o, o], [qs], [scales], w.tolist())
+    with pytest.raises(ValueError):
+        ops.quantized_gossip_mix_many([o], [qs[:1]], [scales[:1]],
+                                      w.tolist())
+    with pytest.raises(ValueError, match="one device"):
+        ops.quantized_gossip_mix_many([o, o.to("meta")], [qs, qs],
+                                      [scales, scales], w.tolist())
 
 
 # ---------------------------------------------------------------------------
@@ -479,6 +630,59 @@ def test_compressed_dense_mix_on_stacked_leaves_matches_reference(case,
         np.testing.assert_allclose(out[key].numpy(), want[key].numpy(),
                                    rtol=0, atol=1e-6)
         assert ef2[key] is ef[key] and _same_bits(ef[key], want_ef[key]), key
+
+
+@pytest.mark.parametrize("cap", [0, 20000, None])
+@pytest.mark.parametrize("codec", ["int8", "fp8"])
+def test_bucketed_compressed_dense_mix_matches_reference(monkeypatch, codec,
+                                                         cap):
+    """Reduced gemma3-1b, n = 3: buckets of reference leaves (one per
+    leaf at cap 0, several leaves each at a 20,000-byte cap, one bucket
+    at the default cap) quantized in one grouped call each; the mix
+    within 1e-6 of the reference's and the residuals bit for bit, and
+    every cap's results equal bit for bit."""
+    n, t = 3, 2
+    kw = dict(codec=codec, chunk=32, error_feedback=True)
+    jtree = _stacked_tree("reduced gemma3-1b", n)
+    jef = jax.tree.map(lambda a: 0.05 * np.random.default_rng(5)
+                       .standard_normal(a.shape).astype(np.float32), jtree)
+    W = np.asarray(jbuild(JSpec(name="base", n=n, k=1)).W(t), np.float32)
+    jout, jef2 = J.compressed_dense_mix(
+        jnp.asarray(W), jax.tree.map(jnp.asarray, jtree),
+        jax.tree.map(jnp.asarray, jef), J.CompressionConfig(**kw), t)
+    want = tree_from_jax(jax.tree.map(np.asarray, jout), node_axis=True)
+    want_ef = tree_from_jax(jax.tree.map(np.asarray, jef2), node_axis=True)
+    tree = tree_from_jax(jtree, node_axis=True)
+    if cap is not None:
+        monkeypatch.setattr(tmixing, "BUCKET_BYTES", cap)
+    calls = []
+    real = ops.quantize_payload_many
+
+    def counting(xs, *args, **kw):
+        calls.append(len(list(xs)))
+        return real(xs, *args, **kw)
+
+    monkeypatch.setattr(ops, "quantize_payload_many", counting)
+    runs = []
+    for c in (tmixing.BUCKET_BYTES, 0):
+        monkeypatch.setattr(tmixing, "BUCKET_BYTES", c)
+        calls.clear()
+        ef = tree_from_jax(jef, node_axis=True)
+        out, ef2 = T.compressed_dense_mix(torch.from_numpy(W), tree, ef,
+                                          T.CompressionConfig(**kw), t)
+        leaves = [g for g in T.reference_leaves(tree)]
+        sizes = [tmixing.rows_bytes([tree[k] for k in g], 32)
+                 for g in leaves]
+        assert calls == [len(b) for b in plan_buckets(sizes, c)]
+        runs.append((out, ef2))
+    (out, ef2), (out0, ef0) = runs
+    assert len(calls) == len(leaves) > 1
+    for key in tree:
+        np.testing.assert_allclose(out[key].numpy(), want[key].numpy(),
+                                   rtol=0, atol=1e-6)
+        assert _same_bits(ef2[key], want_ef[key]), key
+        assert _same_bits(out[key], out0[key]) and _same_bits(ef2[key],
+                                                              ef0[key])
 
 
 def test_identity_mix_is_the_plain_mix():

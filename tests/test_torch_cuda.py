@@ -30,8 +30,14 @@ kernels over ragged lists (mixed dtypes, an unaligned leaf, an empty
 one, a 1,152-element leaf beside a 302 M-element one, more leaves than
 one table holds), one launch per dtype (pair) and table.  The
 distributed mixer runs on the card in two gloo ranks (host staging) and
-launches one grouped combine per bucket, or one quantized combine per
-reference leaf when compressed.
+launches one grouped combine per bucket, or when compressed one grouped
+quantize and one grouped quantized combine per bucket of reference
+leaves.  The grouped quantize+EF and quantized combine kernels equal
+their plain versions bit for bit over ragged lists (C = 2, 6, 128-1024,
+the vector and scalar loops, unaligned buffers, row offsets whose
+indices pass 2^32, zero rows, fp8's subnormal tail, every payload byte,
+0 to 31 slots, more buffers than one table holds), one launch per table
+and mode.
 """
 import pytest
 import torch
@@ -46,8 +52,9 @@ from repro_torch.kernels.gossip_mix import (gossip_mix_slots,
                                             gossip_mix_stacked)
 from repro_torch.kernels.paged_flash_attention import \
     paged_flash_attention_fwd
-from repro_torch.kernels.quantized_gossip import (quantize_ef,
-                                                  quantized_gossip_mix)
+from repro_torch.kernels.quantized_gossip import (
+    MAX_MIX_SLOTS, quantize_ef, quantize_ef_many, quantized_gossip_mix,
+    quantized_gossip_mix_many)
 
 pytestmark = pytest.mark.cuda
 
@@ -393,6 +400,197 @@ def test_quantize_ef_rejects_what_it_does_not_take(card):
         quantize_ef(x, None, 1, fmt="int4")
 
 
+# (R, C, row_offset, case, unaligned) per buffer: the vector loop (C =
+# 256, aligned) and the scalar loop (C = 2, 6, 1024, 250; unaligned
+# starts), row offsets whose indices cross 2^31 and 2^32 and pass 2^32
+# many times, zero rows and fp8's subnormal tail
+QUANT_RAGGED = [
+    (15, 256, 0, None, False), (7, 2, 3, None, False), (5, 6, 0, None, True),
+    (33, 256, 11, None, True), (9, 1024, 0, None, False),
+    (21, 250, 3, None, False), (24, 256, 0, "zero-rows", False),
+    (40, 256, 0, "subnormal", False),
+    (64, 256, (1 << 23) - 32, None, False),       # indices cross 2^31
+    (64, 256, (1 << 24) - 32, None, False),       # and 2^32
+    (17, 256, 5 * (1 << 24) + 3, None, False),    # past 2^32, five times
+    (3, 1024, (1 << 22) - 1, None, True)]
+
+
+def _quant_list(card, specs, seed):
+    xs, errs, offs = [], [], []
+    for i, (R, C, off, case, unaligned) in enumerate(specs):
+        x, err = _quant_case(card, R, C, seed + i, case)
+        if unaligned:       # one f32 past a 16-byte boundary
+            x = _unaligned((R, C), torch.float32, torch.Generator(
+                device=card).manual_seed(i), card).copy_(x)
+            err = _unaligned((R, C), torch.float32, torch.Generator(
+                device=card).manual_seed(i), card).copy_(err)
+        xs.append(x)
+        errs.append(err)
+        offs.append(off)
+    return xs, errs, offs
+
+
+def _check_quantize_many(xs, errs, offs, fmt, key, launches):
+    before = (quantize_ef_many.launches, quantize_ef_many.segments)
+    got = ops.quantize_payload_many(xs, errs, fmt=fmt, key=key,
+                                    row_offsets=offs)
+    torch.cuda.synchronize()
+    assert quantize_ef_many.launches == before[0] + launches
+    assert quantize_ef_many.segments == before[1] + sum(
+        1 for x in xs if x.numel())
+    errs = errs if errs is not None else [None] * len(xs)
+    for x, e, off, *outs in zip(xs, errs, offs, *got):
+        want = ref.quantize_ef_ref(x, e, key, off, fmt=fmt)
+        for a, b in zip(outs, want):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.parametrize("with_err", [False, True])
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_quantize_ef_many_ragged_list_matches_plain_bitwise(card, fmt,
+                                                            with_err):
+    xs, errs, offs = _quant_list(card, QUANT_RAGGED, 20)
+    _check_quantize_many(xs, errs if with_err else None, offs, fmt,
+                         ref.sr_key(5, 2), 1)
+
+
+def test_quantize_ef_many_mixed_err_launches_once_per_mode(card):
+    xs, errs, offs = _quant_list(card, QUANT_RAGGED[:6], 30)
+    errs[1] = errs[4] = None
+    _check_quantize_many(xs, errs, offs, "int8", 77, 2)
+
+
+def test_quantize_ef_many_splits_a_list_past_one_table(card):
+    n = mt.capacity(5, mt.ROW_META_WORDS) * 2 + 3
+    specs = [(1 + i % 4, 256 if i % 3 else 6, 4 * i, None, False)
+             for i in range(n)]
+    xs, errs, offs = _quant_list(card, specs, 40)
+    _check_quantize_many(xs, errs, offs, "fp8", 9, 3)
+
+
+def test_quantize_ef_many_on_gemma3_1b_norm_and_gate_rows(card):
+    """A norm scale's and an MLP gate's chunk rows of one rank (1 and
+    124,416 rows of 256) beside each other, rank 1's row offsets."""
+    xs, errs, offs = _quant_list(card, [(18, 256, 18, None, False),
+                                        (124416, 256, 124416, None, False)],
+                                 50)
+    _check_quantize_many(xs, errs, offs, "int8", ref.sr_key(0, 3), 1)
+
+
+def test_quantize_ef_many_rejects_what_it_does_not_take(card):
+    x = torch.randn(4, 32, device=card)
+    with pytest.raises(TypeError, match="float32"):
+        quantize_ef_many([x, x.double()], None, 1, [0, 0], fmt="int8")
+    with pytest.raises(ValueError, match="shape"):
+        quantize_ef_many([x, x], [x, x[:, :16].contiguous()], 1, [0, 0],
+                         fmt="int8")
+    with pytest.raises(ValueError, match="one device"):
+        quantize_ef_many([x, x.cpu()], None, 1, [0, 0], fmt="int8")
+    with pytest.raises(ValueError, match="row offsets"):
+        quantize_ef_many([x, x], None, 1, [0], fmt="int8")
+    with pytest.raises(ValueError, match="contiguous"):
+        quantize_ef_many([x, x.t()], None, 1, [0, 0], fmt="fp8")
+    with pytest.raises(ValueError, match="fmt"):
+        quantize_ef_many([x], None, 1, [0], fmt="int4")
+    assert quantize_ef_many([], None, 1, [], fmt="int8") == ([], [], [])
+
+
+def _qmix_list(card, fmt, S, specs, seed):
+    """Per ``(R, C, unaligned)`` spec: own, S payloads (every byte value
+    in the first buffer's first slot, the last slot zeros at weight 0)
+    and their scales; and the round's S + 1 weights."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    owns, q_lists, s_lists = [], [], []
+    for i, (R, C, unaligned) in enumerate(specs):
+        own, qs, scales, _ = _qmix_case(card, fmt, S, R, C, seed + i)
+        if i:           # the byte sweep once is enough
+            qs = [ref.quantize_ef_ref(torch.randn(R, C, generator=g,
+                                                  device=card), None, i + s,
+                                      0, fmt=fmt)[0]
+                  if not (S > 1 and s == S - 1) else q
+                  for s, q in enumerate(qs)]
+        if unaligned:
+            own = _unaligned((R, C), torch.float32, g, card).copy_(own)
+            qs = [torch.empty(R * C + 1, dtype=torch.uint8, device=card)[1:]
+                  .view(q.dtype).view(R, C).copy_(q) for q in qs]
+        owns.append(own)
+        q_lists.append(qs)
+        s_lists.append(scales)
+    w = (torch.rand(S + 1, generator=g, device=card) + 0.1).tolist()
+    if S > 1:
+        w[-1] = 0.0
+    return owns, q_lists, s_lists, w
+
+
+def _check_qmix_many(owns, q_lists, s_lists, w, launches):
+    before = (quantized_gossip_mix_many.launches,
+              quantized_gossip_mix_many.segments)
+    got = ops.quantized_gossip_mix_many(owns, q_lists, s_lists, w)
+    torch.cuda.synchronize()
+    assert quantized_gossip_mix_many.launches == before[0] + launches
+    assert quantized_gossip_mix_many.segments == before[1] + sum(
+        1 for o in owns if o.numel())
+    for own, qs, scs, o in zip(owns, q_lists, s_lists, got):
+        want = ref.quantized_gossip_mix_ref(own, qs, scs, w)
+        assert o.dtype == torch.float32 and o.shape == want.shape
+        nan = torch.isnan(want)     # fp8's two NaN codes decode to NaN
+        assert torch.equal(torch.isnan(o), nan)
+        assert torch.equal(_bits(o)[~nan], _bits(want)[~nan])
+
+
+# (R, C, unaligned): the vector loop (C a multiple of 128, aligned: one,
+# two and three 128-column spans, 1024) and the scalar loop (C = 2, 6,
+# 250, unaligned starts)
+QMIX_RAGGED = [(37, 256, False), (5, 2, False), (4, 6, True),
+               (9, 128, False), (11, 384, False), (6, 1024, False),
+               (3, 250, False), (13, 256, True), (1, 256, False)]
+
+
+@pytest.mark.parametrize("S", [0, 1, 2, 3, 5])
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_quantized_gossip_mix_many_ragged_list_matches_plain_bitwise(
+        card, fmt, S):
+    owns, q_lists, s_lists, w = _qmix_list(card, fmt, S, QMIX_RAGGED, S)
+    _check_qmix_many(owns, q_lists, s_lists, w, 1)
+
+
+def test_quantized_gossip_mix_many_takes_the_most_slots(card):
+    owns, q_lists, s_lists, w = _qmix_list(card, "fp8", MAX_MIX_SLOTS,
+                                           QMIX_RAGGED[:3], 8)
+    _check_qmix_many(owns, q_lists, s_lists, w, 1)
+
+
+def test_quantized_gossip_mix_many_splits_a_list_past_one_table(card):
+    n = mt.capacity(4, mt.ROW_META_WORDS) * 2 + 1
+    owns, q_lists, s_lists, w = _qmix_list(
+        card, "int8", 1, [(1 + i % 3, 256 if i % 2 else 6, False)
+                          for i in range(n)], 3)
+    _check_qmix_many(owns, q_lists, s_lists, w, 3)
+
+
+def test_quantized_gossip_mix_many_rejects_what_it_does_not_take(card):
+    own, qs, scales, w = _qmix_case(card, "int8", 2)
+    with pytest.raises(ValueError, match="payloads"):
+        quantized_gossip_mix_many([own, own], [qs, qs[:1]],
+                                  [scales, scales[:1]], w)
+    with pytest.raises(ValueError, match="lists"):
+        quantized_gossip_mix_many([own, own], [qs], [scales], w)
+    with pytest.raises(TypeError, match="float32"):
+        quantized_gossip_mix_many([own, own.to(torch.bfloat16)], [qs, qs],
+                                  [scales, scales], w)
+    with pytest.raises(ValueError, match="shape"):
+        quantized_gossip_mix_many([own, own[:3].contiguous()], [qs, qs],
+                                  [scales, scales], w)
+    with pytest.raises(ValueError, match="one device"):
+        quantized_gossip_mix_many([own, own.cpu()], [qs, qs],
+                                  [scales, scales], w)
+    with pytest.raises(ValueError, match="0 to 31"):
+        quantized_gossip_mix_many([own], [qs * 16], [scales * 16],
+                                  [0.1] * 33)
+    assert quantized_gossip_mix_many([], [], [], w) == []
+
+
 def test_compressed_mix_on_the_card_launches_once_per_tensor(card):
     from repro_torch.compress import CompressionConfig, compressed_dense_mix
     g = torch.Generator(device=card).manual_seed(4)
@@ -405,10 +603,12 @@ def test_compressed_mix_on_the_card_launches_once_per_tensor(card):
     ef = {k: torch.zeros_like(v, dtype=torch.float32)
           for k, v in tree.items()}
     ef_cpu = {k: v.cpu() for k, v in ef.items()}
-    before = quantize_ef.launches
+    before = (quantize_ef_many.launches, quantize_ef_many.segments)
     out, _ = compressed_dense_mix(W, tree, ef, cfg, 3)
     torch.cuda.synchronize()
-    assert quantize_ef.launches == before + 2
+    # both tensors in one bucket: one grouped launch over two segments
+    assert (quantize_ef_many.launches, quantize_ef_many.segments) \
+        == (before[0] + 1, before[1] + 2)
     want, _ = compressed_dense_mix(W.cpu(), {k: v.cpu()
                                              for k, v in tree.items()},
                                    ef_cpu, cfg, 3)
@@ -423,8 +623,9 @@ def test_compressed_mix_on_the_card_launches_once_per_tensor(card):
 
 
 def test_compressed_mix_on_the_card_launches_once_per_reference_leaf(card):
-    """The blocks of one stacked reference leaf are quantized in one
-    launch, with the CPU's payload."""
+    """The blocks of one stacked reference leaf are quantized as one
+    segment, with the CPU's payload: one grouped launch over the two
+    reference leaves of the bucket."""
     from repro_torch.compress import CompressionConfig, compressed_dense_mix
     g = torch.Generator(device=card).manual_seed(5)
     tree = {f"stack.blocks.{b}.0.w": torch.randn(3, 7, 13, generator=g,
@@ -435,10 +636,11 @@ def test_compressed_mix_on_the_card_launches_once_per_reference_leaf(card):
     cfg = CompressionConfig(codec="fp8", chunk=32)
     ef = {k: torch.zeros_like(v) for k, v in tree.items()}
     ef_cpu = {k: v.cpu() for k, v in ef.items()}
-    before = quantize_ef.launches
+    before = (quantize_ef_many.launches, quantize_ef_many.segments)
     compressed_dense_mix(W, tree, ef, cfg, 1)
     torch.cuda.synchronize()
-    assert quantize_ef.launches == before + 2
+    assert (quantize_ef_many.launches, quantize_ef_many.segments) \
+        == (before[0] + 1, before[1] + 2)
     compressed_dense_mix(W.cpu(), {k: v.cpu() for k, v in tree.items()},
                          ef_cpu, cfg, 1)
     for k in tree:
@@ -562,7 +764,8 @@ def test_dist_mixer_on_the_card_launches_once_per_tensor(card):
     """Two gloo ranks share the card (host staging): the mixer's rounds
     equal W(r) X, with one grouped slots-combine for the bucket that
     holds the three float tensors (no per-tensor combine), and the int8
-    mixer's one quantize and one quantized combine per reference leaf."""
+    mixer's one grouped quantize and one grouped quantized combine for
+    the bucket that holds its two reference leaves."""
     import numpy as np
     import torch_dist_ranks
     from repro_torch.launch.distributed import spawn_local
@@ -578,8 +781,10 @@ def test_dist_mixer_on_the_card_launches_once_per_tensor(card):
         assert res["device"].startswith("cuda")
         assert res["launches"] == {"gossip_mix_slots": 0,
                                    "gossip_mix_slots_many": 1,
-                                   "quantize_ef": 2,
-                                   "quantized_gossip_mix": 2}
+                                   "quantize_ef": 0,
+                                   "quantized_gossip_mix": 0,
+                                   "quantize_ef_many": 1,
+                                   "quantized_gossip_mix_many": 1}
         for key, x in tree.items():     # W(0) of Base-2 at n = 2: averaging
             np.testing.assert_allclose(res["mixed"][key][0], x.mean(axis=0),
                                        rtol=0, atol=1e-6)

@@ -20,6 +20,12 @@ reference.
     messages and no more; the mixer's buckets (one grouped combine for
     both float tensors) equal one bucket per tensor bit for bit, with the
     same messages and bytes;
+  * the compressed mixer (int8, fp8, int4; chunk 64, error feedback):
+    its buckets of reference leaves (one grouped quantize and one grouped
+    quantized combine per round for int8 and fp8) equal one bucket per
+    leaf bit for bit, mixed values and residuals, and both send the
+    plan's messages (one per payload field and leaf) and bytes (the
+    codec's wire bytes per leaf);
   * DSGD-momentum on reduced gemma3-1b (two pattern blocks, f32) for 4
     steps equals the reference's own dense simulation (its step under
     ``jit``) within 2e-4 (``tests/test_dist.py``), and int8 + EF21
@@ -77,6 +83,8 @@ MIX_CASES = [(name, n, k, flatten)
                                 ("one_peer_exp", 4, None), ("ring", 4, None),
                                 ("base", 3, 1))
              for flatten in (False, True)]
+CMIX_CASES = [("int8", "base", 4, 1), ("fp8", "base", 4, 3),
+              ("int8", "base", 3, 1), ("int4", "base", 4, 1)]
 STEPS, ETA, B, SEQ, BLOCKS = 4, 0.05, 2, 16, 2
 METHOD_STEPS = 3
 INT8 = dict(codec="int8", chunk=256, error_feedback=True, seed=0)
@@ -97,6 +105,23 @@ def _mix_inputs():
     return {"a": rng.standard_normal((N, 4, 6)).astype(np.float32),
             "b": rng.standard_normal((N, 3)).astype(np.float32),
             "count": rng.integers(-2**40, 2**40, (N, 2))}
+
+
+def _cmix_inputs():
+    """A flat dict with one reference leaf of two blocks, two leaves of
+    one tensor each, an int tensor; and EF residuals for it."""
+    rng = np.random.default_rng(1)
+    tree = {"a": rng.standard_normal((N, 4, 100)).astype(np.float32),
+            "stack.blocks.0.0.w": rng.standard_normal((N, 5, 70)).astype(
+                np.float32),
+            "stack.blocks.1.0.w": rng.standard_normal((N, 5, 70)).astype(
+                np.float32),
+            "b": rng.standard_normal((N, 3)).astype(np.float32),
+            "count": rng.integers(-2**40, 2**40, (N, 2))}
+    ef = {k: (0.05 * rng.standard_normal(v.shape)).astype(np.float32)
+          for k, v in tree.items() if k != "count"}
+    ef["count"] = tree["count"]
+    return tree, ef
 
 
 def _batches(step, vocab):
@@ -142,13 +167,16 @@ def ranks(tmp_path_factory):
                   SEQ))]
     train_cases += [(f"method-{m}", (one_block, 1, None, METHOD_STEPS, ETA,
                                      B, SEQ, m)) for m in METHOD_NAMES]
+    ctree = _cmix_inputs()
     per_rank = D.spawn_local(
-        torch_dist_ranks.all_cases, N, args=(tree, MIX_CASES, train_cases),
+        torch_dist_ranks.all_cases, N,
+        args=(tree, MIX_CASES, train_cases, ctree, CMIX_CASES),
         backend="gloo", device="cpu", timeout=300,
         init_method=f"file://{store}/store")
     out = {name: [r[name] for r in per_rank] for name in per_rank[0]}
     out["one-block"] = one_block
     out["tree"] = tree
+    out["ctree"] = ctree[0]
     grad_fn = jax.jit(jax.vmap(jax.grad(
         lambda p, b: JM.loss_fn(jcfg, p, b)[0])))
     out["ref-dsgdm"] = _reference_training(jcfg, jparams, grad_fn, None)
@@ -270,6 +298,47 @@ def test_bucketed_mixer_equals_one_combine_per_tensor(ranks, case):
                 assert got[key].dtype == want[key].dtype
                 assert np.array_equal(got[key].view(np.uint8),
                                       want[key].view(np.uint8))
+
+
+@pytest.mark.parametrize("case", CMIX_CASES, ids=str)
+def test_bucketed_compressed_mixer_equals_one_bucket_per_leaf(ranks, case):
+    codec, n = case[0], case[2]
+    grouped = codec in ("int8", "fp8")
+    for res in ranks["cmix"][:n]:
+        res = res[case]
+        # int8 / fp8: one grouped quantize and one grouped combine for the
+        # round's one bucket, or one of each per float reference leaf
+        assert res["calls"] == [[1, 1] if grouped else [0, 0]] \
+            * len(res["rounds"])
+        assert res["per-leaf calls"] == [[3, 3] if grouped else [0, 0]] \
+            * len(res["rounds"])
+        assert res["sent"] == res["per-leaf sent"]
+        for got, want in zip(res["rounds"], res["per-leaf rounds"]):
+            for g, w in zip(got, want):     # mixed values, residuals
+                assert g.keys() == w.keys()
+                for key in g:
+                    assert g[key].dtype == w[key].dtype
+                    assert np.array_equal(g[key].view(np.uint8),
+                                          w[key].view(np.uint8)), key
+
+
+@pytest.mark.parametrize("case", CMIX_CASES, ids=str)
+def test_compressed_mixer_sends_the_plans_messages(ranks, case):
+    codec, name, n, k = case
+    plan = jbuild(JSpec(name, n, k)).as_ppermute_plan()
+    cfg = CompressionConfig(codec=codec, chunk=64)
+    tree = ranks["ctree"]
+    leaves = [["a"], ["stack.blocks.0.0.w", "stack.blocks.1.0.w"], ["b"]]
+    wire = sum(cfg.wire_bytes(sum(tree[key][0].size for key in g))
+               for g in leaves)
+    for rank, res in enumerate(ranks["cmix"][:n]):
+        sends = sum(1 for rp in plan.rounds for sp in rp.slots
+                    for src, _ in sp.perm if src == rank)
+        assert res[case]["sent"] == {"messages": sends * 2 * len(leaves),
+                                     "bytes": sends * wire}
+        for mixed, _ in res[case]["rounds"]:
+            assert np.array_equal(mixed["count"],
+                                  tree["count"][rank:rank + 1])
 
 
 def test_ranks_outside_a_subgroup_take_no_part(ranks):

@@ -55,7 +55,8 @@ def _records(table, nptr):
 
 @pytest.mark.parametrize("name,value", [
     ("kThreads", mt.THREADS), ("kUnroll", mt.UNROLL),
-    ("kTableWords", mt.TABLE_WORDS), ("kMeta", mt.META_WORDS)])
+    ("kTableWords", mt.TABLE_WORDS), ("kMeta", mt.META_WORDS),
+    ("kRowMeta", mt.ROW_META_WORDS), ("kRowChunkElems", mt.ROW_CHUNK_ELEMS)])
 def test_constants_match_the_header(name, value):
     m = re.search(rf"\b{name} = (\d+)", HEADER)
     assert m and int(m.group(1)) == value
@@ -141,6 +142,110 @@ def test_segments_take_one_pointer_count():
         mt.build_tables([((16, 32), 4, 0), ((16,), 4, 0)], 4)
     with pytest.raises(ValueError, match=">= 0"):
         mt.build_tables([((16,), -1, 0)], 4)
+
+
+# ---------------------------------------------------------------------------
+# row tables (the quantize+EF and quantized combine kernels)
+# ---------------------------------------------------------------------------
+
+QUANT_RULE = (256, 256)          # quantized_gossip.cu's vector rows
+MIX_RULE = (128, (1 << 63) - 1)
+
+
+@pytest.mark.parametrize("cols,per", [(1, 4096), (2, 2048), (6, 682),
+                                      (256, 16), (512, 8), (1024, 8),
+                                      (4096, 8), (70001, 8)])
+def test_rows_per_chunk_fills_the_budget_and_every_warp(cols, per):
+    assert mt.rows_per_chunk(cols) == per
+    assert per >= mt.WARPS == 8
+    assert per * cols <= mt.ROW_CHUNK_ELEMS or per == mt.WARPS
+
+
+def test_row_tables_cut_whole_rows_and_carry_row_offsets():
+    segs = [((16, 32), 16, 256, 0), ((48, 64), 17, 256, 3 << 32),
+            ((80, 96), 5, 6, 7), ((112, 128), 2049, 2, -3),
+            ((144, 160), 9, 1024, 1)]
+    (table,) = mt.build_row_tables(segs, *QUANT_RULE)
+    size = 2 + mt.ROW_META_WORDS
+    w = list(table.words)
+    recs = [w[i:i + size] for i in range(0, len(w), size)]
+    # chunks: 16/16 = 1; 17/16 -> 2; 5 rows of 6 -> 1; 2049/2048 -> 2;
+    # 9 rows of 1024, 8 per chunk -> 2
+    # a record: 2 pointers, numel, cols, chunk_end, vec, row_offset
+    assert [r[4] for r in recs] == [1, 3, 4, 6, 8]
+    assert [r[2] for r in recs] == [16 * 256, 17 * 256, 30, 4098, 9216]
+    assert [r[3] for r in recs] == [256, 256, 6, 2, 1024]
+    assert [r[6] for r in recs] == [0, 3 << 32, 7, (1 << 64) - 3, 1]
+    assert table.chunks == 8 and table.segments == 5
+
+
+def test_row_vector_flag_follows_each_kernels_rule():
+    a = torch.empty(4096).data_ptr()
+    assert a % 16 == 0
+    segs = [((a, a), 4, 256, 0), ((a, a + 4), 4, 256, 0),
+            ((a, a), 4, 512, 0), ((a, a), 4, 384, 0), ((a, a), 4, 250, 0),
+            ((a, a + 32), 4, 128, 0)]
+    for rule, want in ((QUANT_RULE, [1, 0, 0, 0, 0, 0]),
+                       (MIX_RULE, [1, 0, 1, 1, 0, 1])):
+        (table,) = mt.build_row_tables(segs, *rule)
+        w = list(table.words)
+        size = 2 + mt.ROW_META_WORDS
+        assert [w[i + 5] for i in range(0, len(w), size)] == want
+    assert mt.row_vector_ok((a,), 256, *QUANT_RULE)
+    assert not mt.row_vector_ok((a + 8,), 256, *QUANT_RULE)
+
+
+@pytest.mark.parametrize("nptr", [4, 5, 8])
+def test_a_row_list_past_one_table_splits(nptr):
+    cap = mt.capacity(nptr, mt.ROW_META_WORDS)
+    assert cap * (nptr + mt.ROW_META_WORDS) <= mt.TABLE_WORDS
+    segs = [((16 * (i + 1),) * nptr, 1 + i % 16, 256, i)
+            for i in range(2 * cap + 1)]       # one chunk of rows each
+    tables = mt.build_row_tables(segs, *QUANT_RULE)
+    assert [t.segments for t in tables] == [cap, cap, 1]
+    for t in tables:
+        assert len(t.words) <= mt.TABLE_WORDS
+        assert t.words[nptr + 2] == 1          # prefix sums restart
+        assert t.chunks == t.segments
+    # 396 quantize records with err, 440 with one payload, 305 with three
+    assert mt.capacity(5, mt.ROW_META_WORDS) == 396
+    assert mt.capacity(4, mt.ROW_META_WORDS) == 440
+    assert mt.capacity(8, mt.ROW_META_WORDS) == 305
+
+
+def test_row_tables_leave_out_empty_buffers_and_reject_bad_ones():
+    segs = [((16,), 0, 256, 0), ((32,), 3, 256, 0), ((48,), 0, 2, 0)]
+    (table,) = mt.build_row_tables(segs, *QUANT_RULE)
+    assert table.segments == 1 and table.words[0] == 32
+    assert mt.build_row_tables([((16,), 0, 256, 0)], *QUANT_RULE) == []
+    with pytest.raises(ValueError, match="cols"):
+        mt.build_row_tables([((16,), 3, 0, 0)], *QUANT_RULE)
+    with pytest.raises(ValueError, match="pointers"):
+        mt.build_row_tables([((16,), 3, 2, 0), ((16, 32), 3, 2, 0)],
+                            *QUANT_RULE)
+
+
+def test_gemma3_1b_reference_leaf_buckets():
+    """The compressed mixers' buckets of gemma3-1b's 106 reference leaves
+    at the default cap: 29 for the simulation's 3 nodes, 14 for one
+    rank's rows; the embedding alone in its bucket, and every leaf past
+    the cap too."""
+    from repro_torch.compress import reference_leaves
+    from repro_torch.compress.mixing import rows_bytes
+    shapes = _shapes(reduced=False)
+    leaves = reference_leaves(shapes)
+    assert len(leaves) == 106
+    for n, want in ((3, 29), (1, 14)):
+        sizes = [rows_bytes([torch.empty((n,) + shapes[k], device="meta")
+                             for k in g], 256) for g in leaves]
+        buckets = mt.plan_buckets(sizes, mt.BUCKET_BYTES)
+        assert len(buckets) == want
+        big = [b for b in buckets if sum(sizes[i] for i in b)
+               > mt.BUCKET_BYTES]
+        assert all(len(b) == 1 for b in big)
+        assert [leaves.index(["embed.table"])] in buckets
+        if n == 1:      # at n = 3 the MLP leaves pass the cap too
+            assert len(big) == 1
 
 
 # ---------------------------------------------------------------------------

@@ -22,14 +22,31 @@ def _numpy(tree):
     return {k: v.detach().cpu().numpy() for k, v in tree.items()}
 
 
-def _mixer_with_cap(cap, group, plan, flatten):
+def _mixer_with_cap(cap, group, plan, flatten, compression=None):
     """The mixer built while ``gossip.BUCKET_BYTES`` is ``cap``."""
     kept = gossip.BUCKET_BYTES
     gossip.BUCKET_BYTES = cap
     try:
-        return make_gossip_mixer(group, plan, flatten=flatten)
+        return make_gossip_mixer(group, plan, flatten=flatten,
+                                 compression=compression)
     finally:
         gossip.BUCKET_BYTES = kept
+
+
+def _counting(names, calls):
+    """Wrap ``ops.<name>`` for each name so that each call appends its
+    name to ``calls``; returns the functions to restore."""
+    real = {name: getattr(ops, name) for name in names}
+
+    def wrap(name):
+        def counting(*args, **kw):
+            calls.append(name)
+            return real[name](*args, **kw)
+        return counting
+
+    for name in names:
+        setattr(ops, name, wrap(name))
+    return real
 
 
 def mixer_rounds(rank, device, tree_np, cases):
@@ -78,6 +95,56 @@ def mixer_rounds(rank, device, tree_np, cases):
     return out
 
 
+def compressed_mixer_rounds(rank, device, tree_np, ef_np, cases):
+    """For each ``(codec, name, n, k)`` case, this rank's mixed slice and
+    new EF residuals after each round of the compressed mixer (chunk 64,
+    error feedback, t = the round), every round from the same inputs, with
+    the mixer's bucket cap and with one bucket per reference leaf (a cap
+    of 0); the messages and bytes sent, and the grouped calls each round
+    made (``ops.quantize_payload_many``, ``ops.quantized_gossip_mix_many``).
+    A case of n < world size runs in the subgroup of ranks 0..n-1."""
+    from repro_torch.compress import CompressionConfig
+    torch.set_num_threads(1)
+    world = dist.get_world_size()
+    groups = {n: dist.new_group(list(range(n)))
+              for n in sorted({c[2] for c in cases}) if n < world}
+    calls = []
+    names = ("quantize_payload_many", "quantized_gossip_mix_many")
+    real = _counting(names, calls)
+    out = {}
+    try:
+        for codec, name, n, k in cases:
+            if rank >= n:
+                continue
+            ccfg = CompressionConfig(codec=codec, chunk=64,
+                                     error_feedback=True, seed=3)
+            plan = build_schedule(TopologySpec(name=name, n=n,
+                                               k=k)).as_ppermute_plan()
+            mine = {key: torch.from_numpy(v[:n][rank:rank + 1]).to(device)
+                    for key, v in tree_np.items()}
+            res = {}
+            for tag, cap in (("", gossip.BUCKET_BYTES), ("per-leaf ", 0)):
+                mixer = _mixer_with_cap(cap, groups.get(n), plan, False,
+                                        ccfg)
+                rounds, made = [], []
+                for r in range(len(plan)):
+                    # a copy: the mixer writes the residuals in place
+                    ef = {key: torch.from_numpy(v[:n][rank:rank + 1]).to(
+                        device, copy=True) for key, v in ef_np.items()}
+                    calls.clear()
+                    mixed, ef = mixer(mine, r, ef, r)
+                    rounds.append((_numpy(mixed), _numpy(ef)))
+                    made.append([calls.count(c) for c in names])
+                res.update({tag + "rounds": rounds,
+                            tag + "sent": dict(mixer.stats),
+                            tag + "calls": made})
+            out[(codec, name, n, k)] = res
+    finally:
+        for name, fn in real.items():
+            setattr(ops, name, fn)
+    return out
+
+
 def train(rank, device, params_np, num_blocks, compression, steps, eta, B,
           T, method="dsgdm"):
     """This rank's node of ``method`` (DSGD-momentum by default) on
@@ -105,11 +172,16 @@ def train(rank, device, params_np, num_blocks, compression, steps, eta, B,
             "sent": dict(bundle.mixer.stats)}
 
 
-def all_cases(rank, device, tree_np, mix_cases, train_cases):
-    """Every case of the test module in one spawn: the mixer cases, then
+def all_cases(rank, device, tree_np, mix_cases, train_cases,
+              ctree=None, cmix_cases=()):
+    """Every case of the test module in one spawn: the mixer cases, the
+    compressed mixer cases (``ctree`` its tree and EF residuals), then
     one training run per ``(name, train arguments)`` of
     ``train_cases``."""
     out = {"mix": mixer_rounds(rank, device, tree_np, mix_cases)}
+    if cmix_cases:
+        out["cmix"] = compressed_mixer_rounds(rank, device, *ctree,
+                                              cmix_cases)
     for name, args in train_cases:
         out[name] = train(rank, device, *args)
     return out
@@ -121,8 +193,9 @@ def card_mixer(rank, device, tree_np):
     from repro_torch.compress import CompressionConfig, init_ef
     from repro_torch.kernels.gossip_mix import (gossip_mix_slots,
                                                 gossip_mix_slots_many)
-    from repro_torch.kernels.quantized_gossip import (quantize_ef,
-                                                      quantized_gossip_mix)
+    from repro_torch.kernels.quantized_gossip import (
+        quantize_ef, quantize_ef_many, quantized_gossip_mix,
+        quantized_gossip_mix_many)
     plan = build_schedule(TopologySpec(name="base", n=2,
                                        k=1)).as_ppermute_plan()
     mine = {k: torch.from_numpy(v[rank:rank + 1]).to(device)
@@ -131,7 +204,9 @@ def card_mixer(rank, device, tree_np):
     counters = {"gossip_mix_slots": gossip_mix_slots,
                 "gossip_mix_slots_many": gossip_mix_slots_many,
                 "quantize_ef": quantize_ef,
-                "quantized_gossip_mix": quantized_gossip_mix}
+                "quantized_gossip_mix": quantized_gossip_mix,
+                "quantize_ef_many": quantize_ef_many,
+                "quantized_gossip_mix_many": quantized_gossip_mix_many}
     before = {k: c.launches for k, c in counters.items()}
     mixed = make_gossip_mixer(None, plan)(mine, 0)
     compressed, _ = make_gossip_mixer(None, plan, compression=ccfg)(
