@@ -27,7 +27,11 @@ Phases (any failure exits non-zero and prints no result line):
      serving shapes, bit for bit in bf16 and f32, local and global: a
      5-row verify window with per-batch q_start equals 5 one-row calls,
      and a decode row split over 2 to 17 blocks (and the wrapper's own
-     choice) equals kv_splits=1.
+     choice) equals kv_splits=1.  Through ``ops.sdpa_decode`` at the
+     fixed-batch verify positions (1024, 1041, 1064, 1087 in a cache of
+     1092), the 5-row verify equals the direct call and 5 one-row calls
+     bit for bit, and its timed entry (local and global, with NaN past
+     each request's k_valid) reports ``[spec]``'s launches.
      ``library_ms`` times PyTorch's ``scaled_dot_product_attention`` on
      the same inputs as a yardstick; the port never calls it.
    - Fused DSGD-momentum, at the training path's leaf shapes (the
@@ -94,6 +98,18 @@ Phases (any failure exits non-zero and prints no result line):
    generation, then one timed greedy generation whose kernel launches
    are counted (26 layers x 64 model passes); then prefill and the 63
    decode steps each alone, timed, their launches counted apart.
+   ``[spec]``: the same cell through the fixed-batch engine with
+   ``speculate_k=4``, self-speculative (a draft of 2 of 4 pattern
+   blocks, 14 layers) and with a 1-block draft model of gemma3-1b's
+   widths (8 layers, random weights from seed 2), beside the plain
+   engine: after a warm-up, three timed generations of each, in turn,
+   the flash kernel's launches asserted in every one (26 + rounds x 82;
+   26 + 8 + rounds x 66; 26 x 64) with no plain attention or SDPA call;
+   acceptance, tokens per round, passes per token, peak memory, each
+   round split by CUDA events (snapshot, drafts, verify, accept and
+   restore), and the tokens against ``[main]``'s; then a 5-row verify
+   against 5 one-row steps from the prompt's state, layer by layer, to
+   tell the products' rounding from the kernel's.
    ``[continuous]``: the continuous-batching engine over a paged cache,
    the same weights: a seeded Poisson trace of 32 requests (rate 0.5,
    prompts 64-1024 tokens) through 8 slots, page size 16, 64 greedy
@@ -152,12 +168,17 @@ Phases (any failure exits non-zero and prints no result line):
    ``[continuous-cpu-vs-card]``: the continuous engine on reduced
    gemma3-1b in f32 over a short trace, plain and with speculate_k = 2:
    greedy tokens and statistics equal on the CPU and the card.
+   ``[spec-cpu-vs-card]``: the fixed-batch engine on reduced gemma3-1b
+   (2 blocks) in f32 with speculate_k = 2, self-speculative and with a
+   1-block draft model: tokens and SpecStats equal on the CPU and the
+   card, speculative tokens equal to plain ones on the card.
 6. Consensus on the card: ``optim.mix`` over one period of Base-2 at
    n = 3 and Base-3 at n = 21 reaches a relative consensus error
    <= 1e-10; the ring's after as many rounds is printed beside it.
 7. ``--profile`` only: profiler traces of one decode step, one
-   continuous (paged) decode step and one training step, kernel time by
-   name (what bounds a step).
+   continuous (paged) decode step, one self-speculative generation of
+   ``[spec]`` (per round) and one training step, kernel time by name
+   (what bounds a step).
 
 The line before the last is a JSON object with one entry per kernel
 and main-path shape; the last line is
@@ -182,6 +203,13 @@ PEAK_FLOPS = {"bfloat16": 989e12,   # dense tensor-core bf16
 # gemma3-1b serving path (src/repro_torch/configs/gemma3_1b.py)
 BATCH, PROMPT, NEW = 4, 1024, 64
 SEQ = PROMPT + NEW
+# the fixed-batch speculative path on the same cell: k = 4 drafts per
+# round, a self-speculative draft of 2 of the 4 pattern blocks; its cache
+# holds k rows more, and its verify windows sit at per-request positions
+SPEC_K, SPEC_DRAFT = 4, 2
+SPEC_SEQ = SEQ + SPEC_K                                         # 1092
+SPEC_STARTS = (PROMPT, PROMPT + 17, PROMPT + 40, SPEC_SEQ - SPEC_K - 1)
+SPEC_REPS = 3       # timed generations per engine, taken in turn
 HEADS, KV_HEADS, HEAD_DIM, LOCAL_WINDOW = 4, 1, 256, 512
 # gemma3-1b training path: n nodes x B sequences of T tokens per step
 TRAIN_N, TRAIN_B, TRAIN_SEQ, TRAIN_STEPS = 3, 2, 1024, 6
@@ -456,8 +484,96 @@ def phase_flash_kernels(torch, dev):
                   f"{entry['device_ms']:.4f} ms, sdpa "
                   f"{entry['library_device_ms']} ms)")
             entries.append((phase, entry))
+    entries += verify_entries(torch, dev, gen, flush)
     del flush
     flash_row_contract(torch, dev, gen, flash_attention_fwd)
+    return entries
+
+
+def verify_entries(torch, dev, gen, flush):
+    """Row 1 at the fixed-batch verify shape, through ``ops.sdpa_decode``
+    as the engine calls it: B=4, k + 1 = 5 rows at per-request positions
+    (``SPEC_STARTS``), a cache of 1092 positions, each request's tail past
+    its k_valid NaN; local and global layers, bf16 timed, f32 checked.
+    Returns ("spec", JSON entry) per layer: [spec] counts its launches.
+    The plain version is ``grouped_sdpa_decode_ref``; ``library_ms`` is
+    SDPA with an explicit (B, 1, 5, 1092) boolean mask on the same
+    inputs, the tails zeroed (SDPA would read the NaN)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+
+    B, Tq, S, D = BATCH, SPEC_K + 1, SPEC_SEQ, HEAD_DIM
+    qs = torch.tensor(SPEC_STARTS, dtype=torch.int32, device=dev)
+    kv = qs + Tq
+    qpos = qs[:, None].long() + torch.arange(Tq, device=dev)    # (B, Tq)
+    kpos = torch.arange(S, device=dev)
+    valid = kpos[None, :] < kv[:, None]                         # (B, S)
+    entries = []
+    for layer, window in (("local", LOCAL_WINDOW), ("global", None)):
+        mask = (kpos <= qpos[..., None]) & valid[:, None, :]
+        if window:
+            mask &= kpos > qpos[..., None] - window
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            q = torch.randn(B, Tq, HEADS, D, generator=gen, device=dev)
+            k, v = (torch.randn(B, S, KV_HEADS, D, generator=gen,
+                                device=dev) for _ in range(2))
+            k, v = (torch.where(valid[..., None, None], t, float("nan"))
+                    for t in (k, v))
+            q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+            kw = dict(q_start=qs, k_valid_len=kv, window=window)
+            want = ref.grouped_sdpa_decode_ref(q, k, v, **kw)
+            got = ops.sdpa_decode(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err, worst, ok = check_close(torch, got, want)
+            print(f"[kernels] verify@ragged,{layer} {dname} {err:.3e} "
+                  f"{worst:.3f} (ops.sdpa_decode; "
+                  f"{_launch_line(flash_attention_fwd)})")
+            if not ok:
+                raise SystemExit(f"sdpa_decode verify,{layer} {dname}: max "
+                                 f"abs err {err}, {worst} x its tolerance")
+            if dtype != torch.bfloat16:
+                continue
+            fa = lambda: ops.sdpa_decode(q, k, v, **kw)  # noqa: E731
+            plain = lambda: ref.grouped_sdpa_decode_ref(  # noqa: E731
+                q, k, v, **kw)
+            kk, vv = (torch.where(valid[..., None, None], t, 0)
+                      for t in (k, v))
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, vv))
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=mask[:, None], scale=D ** -0.5,
+                enable_gqa=True)
+            nbytes = flops = 0.0
+            for q0 in SPEC_STARTS:
+                nb, fl = attention_work(B=1, Tq=Tq, H=HEADS, KV=KV_HEADS,
+                                        D=D, Dv=D, q0=q0, k_valid=q0 + Tq,
+                                        window=window, elt=q.element_size())
+                nbytes, flops = nbytes + nb, flops + fl
+            b_ms, b_by = bound_ms(nbytes, flops, dname)
+            entry = {
+                "name": f"flash_attention[verify@ragged,{layer},{dname}]",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/flash_attention.cu, "
+                          "src/repro_torch/kernels/csrc/flash_core.cuh",
+                "replaces": "src/repro/kernels/flash_attention.py:310",
+                "launches": None,
+                "max_abs_err": err,
+                "ms": time_ms(torch, fa, flush),
+                "plain_ms": time_ms(torch, plain, flush),
+                "bound_ms": b_ms,
+                "bound_by": b_by,
+                "library_ms": time_ms(torch, lib, flush),
+                "device_ms": graph_ms(torch, fa, flush),
+                "library_device_ms": graph_ms(torch, lib, flush),
+            }
+            print(f"[kernels] {entry['name']}: {entry['ms']:.4f} ms (bound "
+                  f"{b_ms:.5f} ms by {b_by}; plain {entry['plain_ms']:.4f} "
+                  f"ms; sdpa {entry['library_ms']:.4f} ms; device, as a "
+                  f"graph: {entry['device_ms']:.4f} ms, sdpa "
+                  f"{entry['library_device_ms']:.4f} ms)")
+            entries.append(("spec", entry))
     return entries
 
 
@@ -508,6 +624,39 @@ def flash_row_contract(torch, dev, gen, flash):
                                      f"{splits} splits differ from one")
             print(f"[kernels] decode@{SEQ - 2},{layer} {dname}: the chosen "
                   f"split ({plan}) and splits 2, 5, 17 == unsplit bitwise")
+            sdpa_decode_row_contract(torch, dev, gen, flash, layer, window,
+                                     dtype)
+
+
+def sdpa_decode_row_contract(torch, dev, gen, flash, layer, window, dtype):
+    """The same contract through ``ops.sdpa_decode`` at the fixed-batch
+    engine's verify positions (``SPEC_STARTS``, a cache of 1092): the
+    5-row verify equals the wrapper's direct call and the 5 one-row calls
+    a plain decode step makes, bit for bit."""
+    from repro_torch.kernels import ops
+    dname = str(dtype).split(".")[1]
+    qs = torch.tensor(SPEC_STARTS, dtype=torch.int32, device=dev)
+    q = torch.randn(BATCH, SPEC_K + 1, HEADS, HEAD_DIM, generator=gen,
+                    device=dev).to(dtype)
+    k, v = (torch.randn(BATCH, SPEC_SEQ, KV_HEADS, HEAD_DIM, generator=gen,
+                        device=dev).to(dtype) for _ in range(2))
+    kw = dict(q_start=qs, k_valid_len=qs + SPEC_K + 1, window=window)
+    verify = ops.sdpa_decode(q, k, v, **kw)
+    plan = _launch_line(flash)
+    same = torch.equal(_bits(torch, verify),
+                       _bits(torch, flash(q, k, v, **kw)))
+    for i in range(SPEC_K + 1):
+        one = ops.sdpa_decode(q[:, i:i + 1], k, v, q_start=qs + i,
+                              k_valid_len=qs + i + 1, window=window)
+        same &= torch.equal(_bits(torch, one),
+                            _bits(torch, verify[:, i:i + 1]))
+    if not same:
+        raise SystemExit(f"sdpa_decode {layer} {dname}: the verify at "
+                         f"{list(SPEC_STARTS)} differs from the direct call "
+                         f"or from its one-row calls")
+    print(f"[kernels] sdpa_decode verify@{list(SPEC_STARTS)},{layer} "
+          f"{dname}: == the direct call and == 5 one-row calls bitwise "
+          f"({plan})")
 
 
 def _bits(torch, t):
@@ -1423,7 +1572,284 @@ def phase_main_path(torch, dev, card):
     print(f"[main] first tokens: {toks[:, :8].tolist()}; the phases alone "
           f"give the engine's tokens: "
           f"{torch.equal(torch.stack(steps, 1), toks)}")
-    return launches, params, engine, tokens
+    return launches, params, engine, tokens, res.tokens
+
+
+def phase_spec(torch, dev, card, params, tokens, plain):
+    """``[spec]``: the fixed-batch engine speculating on the ``[main]``
+    cell (B=4 prompts of 1024, 64 greedy tokens, k = 4), self-speculative
+    through 2 of the 4 pattern blocks and through a 1-block draft model
+    of gemma3-1b's widths (random weights, seed 2), beside the plain
+    engine.  After a warm-up of each, ``SPEC_REPS`` rounds of one timed
+    generation per engine, in turn; in each, the flash kernel's launches
+    counted from zero and every plain attention or SDPA call counted
+    (there must be none), the speculative rounds split by CUDA events.
+    Tokens against ``[main]``'s plain greedy ``plain``.  Returns the
+    launches of the two speculative engines' first timed runs."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch import trace
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.models import model as M
+    from repro_torch.serve import make_engine
+
+    cfg = params.cfg
+    dcfg = dataclasses.replace(cfg, num_blocks=1)
+    dparams = M.init(dcfg, seed=2, dtype=torch.bfloat16, device=dev)
+    L, pro, blk = cfg.num_layers, len(cfg.prologue), len(cfg.pattern)
+    batch = {"tokens": tokens}
+    kw = dict(batch=BATCH, prompt_len=PROMPT, max_new=NEW,
+              param_dtype=torch.bfloat16, cache_dtype=torch.bfloat16,
+              device=dev)
+    engines = {
+        "plain": (make_engine(cfg, **kw), None),
+        "self": (make_engine(cfg, speculate_k=SPEC_K,
+                             draft_layers=SPEC_DRAFT, **kw), None),
+        "draft_cfg": (make_engine(cfg, speculate_k=SPEC_K, draft_cfg=dcfg,
+                                  **kw), dparams)}
+    for eng, dp in engines.values():
+        eng.generate(params, batch, draft_params=dp)          # warm-up
+    torch.cuda.synchronize()
+
+    def want_launches(name, rounds):
+        if name == "plain":
+            return L * NEW, L
+        if name == "self":
+            # prefill: every layer; a round: k draft steps through the
+            # prologue and SPEC_DRAFT blocks, one verify through all
+            return L, SPEC_K * (pro + SPEC_DRAFT * blk) + L
+        # prefill: the target's layers and the draft's; a round: k
+        # draft steps and the write-only step through the draft's
+        # layers, one verify through the target's
+        return L + dcfg.num_layers, (SPEC_K + 1) * dcfg.num_layers + L
+
+    runs = {name: [] for name in engines}
+    plain_calls = [0]
+    saved = (ref.grouped_sdpa_ref, ref.grouped_sdpa_decode_ref,
+             F.scaled_dot_product_attention)
+
+    def counted(fn):
+        def call(*a, **k):
+            plain_calls[0] += 1
+            return fn(*a, **k)
+        return call
+    ref.grouped_sdpa_ref, ref.grouped_sdpa_decode_ref, \
+        F.scaled_dot_product_attention = (counted(f) for f in saved)
+    try:
+        for _ in range(SPEC_REPS):
+            for name, (eng, dp) in engines.items():
+                torch.cuda.reset_peak_memory_stats()
+                flash_attention_fwd.launches = 0
+                t0 = time.perf_counter()
+                with trace.cuda_marks() as marks:
+                    res = eng.generate_with_state(params, batch,
+                                                  draft_params=dp)
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                rounds = 0 if res.spec is None \
+                    else int(res.spec.rounds.max())      # the loop's
+                fixed, per_round = want_launches(name, rounds)
+                want = fixed + rounds * per_round if rounds else fixed
+                if flash_attention_fwd.launches != want or plain_calls[0]:
+                    raise SystemExit(
+                        f"[spec] {name}: flash attention launched "
+                        f"{flash_attention_fwd.launches} times, expected "
+                        f"{want} (= {fixed} + {rounds} rounds x "
+                        f"{per_round}); {plain_calls[0]} plain or SDPA "
+                        f"calls")
+                runs[name].append(dict(
+                    wall=wall, launches=want, res=res,
+                    peak=torch.cuda.max_memory_allocated(),
+                    spans=_step_spans(marks, start="round")))
+                del marks
+    finally:
+        ref.grouped_sdpa_ref, ref.grouped_sdpa_decode_ref, \
+            F.scaled_dot_product_attention = saved
+    walls = {n: sorted(r["wall"] for r in rs) for n, rs in runs.items()}
+    base = statistics.median(walls["plain"])
+    for name, rs in runs.items():
+        res, wall = rs[0]["res"], statistics.median(walls[name])
+        toks = res.tokens
+        if toks.shape != (BATCH, NEW) or not bool(
+                ((toks >= 0) & (toks < cfg.vocab_size)).all()) \
+                or not bool((res.lengths == NEW).all()) \
+                or any(not torch.equal(r["res"].tokens, toks) for r in rs):
+            raise SystemExit(f"[spec] {name}: bad or unsteady tokens, shape "
+                             f"{tuple(toks.shape)}")
+        diff = (toks != plain).nonzero().tolist()
+        head = (f"[spec] {card}, {name}: generation {wall * 1e3:.2f} ms "
+                f"(median of {len(rs)}: "
+                f"{', '.join(f'{w * 1e3:.2f}' for w in walls[name])}), "
+                f"{BATCH * NEW / wall:.1f} tokens/s end to end, "
+                f"{base / wall:.4f}x the plain engine's speed; peak memory "
+                f"{max(r['peak'] for r in rs) / 2**30:.2f} GiB "
+                f"(max_memory_allocated); tokens equal to [main]'s: "
+                f"{BATCH * NEW - len(diff)} of {BATCH * NEW}, first "
+                f"divergence (request, column): "
+                f"{min(diff, key=lambda rc: rc[1]) if diff else None}")
+        print(head)
+        if res.spec is None:
+            print(f"[spec] plain: flash attention launches {rs[0]['launches']}"
+                  f" (= {L} layers x {NEW} model passes), plain or SDPA "
+                  f"calls 0")
+            continue
+        sp = res.spec
+        rounds = int(sp.rounds.max())
+        fixed, per_round = want_launches(name, rounds)
+        drafted, accepted = int(sp.drafted.sum()), int(sp.accepted.sum())
+        n_rounds = int(sp.rounds.sum())
+        later = BATCH * (NEW - 1)           # tokens after the first
+        depth = dcfg.num_layers if name == "draft_cfg" \
+            else pro + SPEC_DRAFT * blk
+        print(f"[spec] {name} (draft {depth} layers, verify {L}): {rounds} "
+              f"rounds ({n_rounds} request rounds), drafted {drafted}, "
+              f"accepted {accepted}, acceptance "
+              f"{accepted / max(drafted, 1):.4f}, "
+              f"{later / max(n_rounds, 1):.4f} tokens per round, "
+              f"{n_rounds * (SPEC_K + 1) / later:.4f} sequential passes "
+              f"per token (plain: 1); flash attention launches "
+              f"{rs[0]['launches']} (= {fixed} prefill + {rounds} rounds x "
+              f"{per_round}), plain or SDPA calls 0")
+        spans = [sp_ for r in rs for sp_ in r["spans"]]
+        split = {p: statistics.median(r[p] for r in spans)
+                 for p in ("round", "draft", "verify", "accept")}
+        print(f"[spec] {name}: per round (median of {len(spans)}, CUDA "
+              f"events) {sum(split.values()):.3f} ms: snapshot "
+              f"{split['round']:.3f}, {SPEC_K} draft steps "
+              f"{split['draft']:.3f}, verify {split['verify']:.3f}, accept "
+              f"+ restore {split['accept']:.3f}")
+    out = {"spec": sum(runs[n][0]["launches"] for n in ("self",
+                                                         "draft_cfg"))}
+    del runs, engines
+    spec_attribution(torch, dev, params, tokens, plain)
+    del dparams
+    torch.cuda.empty_cache()
+    return out
+
+
+def spec_attribution(torch, dev, params, tokens, plain):
+    """Where a verify pass and one-row passes part, from the same state:
+    after the prompt, feed ``plain``'s first 5 tokens as one 5-row verify
+    (a (B,) index) and as 5 one-row steps, recording each attention call's
+    q, fresh K/V rows and output.  A layer whose inputs are equal bit for
+    bit but whose attention rows are not would be the kernel; inputs that
+    differ were made by the products (cuBLAS may round a 20-row and a
+    4-row product apart)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    cfg = params.cfg
+    T = SPEC_K + 1
+    real = ops.sdpa_decode
+    with torch.inference_mode():
+        _, base = M.prefill(cfg, params, {"tokens": tokens}, SPEC_SEQ,
+                            torch.bfloat16)
+        pos = torch.full((BATCH,), PROMPT, dtype=torch.int64, device=dev)
+        runs = []
+        for rows in (T, 1):
+            caches = {"prologue": [{"attn": {n: c["attn"][n].clone()
+                                             for n in ("k", "v")}}
+                                   for c in base["prologue"]],
+                      "blocks": [[{"attn": {n: c["attn"][n].clone()
+                                            for n in ("k", "v")}}
+                                  for c in blk] for blk in base["blocks"]]}
+            seen = []
+
+            def record(q, k, v, **kw):
+                out = real(q, k, v, **kw)
+                at = kw["q_start"][:, None] + torch.arange(q.shape[1],
+                                                           device=dev)
+                rows = torch.arange(BATCH, device=dev)[:, None]
+                seen.append((q, k[rows, at], v[rows, at], out))
+                return out
+            ops.sdpa_decode = record
+            try:
+                lg = [M.decode_step(cfg, params, caches,
+                                    plain[:, i:i + rows], pos + i)[0]
+                      for i in range(0, T, rows)]
+            finally:
+                ops.sdpa_decode = real
+            runs.append((torch.cat(lg, dim=1), seen))
+    (lv, sv), (l1, s1) = runs
+    L = cfg.num_layers
+    in_diff = out_diff_same_in = 0
+    first_in = None
+    for layer in range(L):
+        one = [torch.cat([s1[i * L + layer][j] for i in range(T)], dim=1)
+               for j in range(4)]
+        same_in = all(torch.equal(_bits(torch, a), _bits(torch, b))
+                      for a, b in zip(sv[layer][:3], one[:3]))
+        if same_in:
+            out_diff_same_in += not torch.equal(_bits(torch, sv[layer][3]),
+                                                _bits(torch, one[3]))
+        else:
+            in_diff += 1
+            first_in = layer if first_in is None else first_in
+    agree = int((lv.argmax(-1) == l1.argmax(-1)).sum())
+    print(f"[spec] a 5-row verify vs 5 one-row steps from the prompt's "
+          f"state: logits max abs diff {float((lv - l1).abs().max()):.3e}, "
+          f"argmax equal {agree} of {BATCH * T}; the attention inputs (q "
+          f"and the fresh K/V rows, made by the products) differ bitwise at "
+          f"{in_diff} of {L} layers (first: {first_in}); attention rows "
+          f"differ at {out_diff_same_in} layers whose inputs are equal")
+    if out_diff_same_in:
+        raise SystemExit("[spec] the flash kernel's verify rows differ from "
+                         "its one-row calls on equal inputs")
+
+
+def phase_spec_cpu_vs_card(torch, dev):
+    """``[spec-cpu-vs-card]``: the fixed-batch engine on reduced gemma3-1b
+    (2 pattern blocks) in f32, with speculate_k = 2, self-speculative
+    and with a 1-block draft model: tokens and SpecStats equal on the
+    CPU and the card, and the speculative tokens equal the plain ones on
+    the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serve import make_engine
+
+    cfg = get_config("gemma3-1b").reduced(num_blocks=2)
+    dcfg = dataclasses.replace(cfg, num_blocks=1)
+    models = {}
+    for key, c, seed in (("target", cfg, 3), ("draft", dcfg, 4)):
+        cpu = M.init(c, seed=seed, dtype=torch.float32, device="cpu")
+        card = M.Model(c, dtype=torch.float32, device=dev)
+        card.load_state_dict(cpu.state_dict())
+        models[key] = {"cpu": cpu, "card": card}
+    tokens = torch.randint(0, cfg.vocab_size, (3, 16),
+                           generator=torch.Generator().manual_seed(6))
+    res = {}
+    for mode, kw in (("plain", {}),
+                     ("self", dict(speculate_k=2)),
+                     ("draft_cfg", dict(speculate_k=2, draft_cfg=dcfg))):
+        for side, d in (("cpu", torch.device("cpu")), ("card", dev)):
+            eng = make_engine(cfg, batch=3, prompt_len=16, max_new=12,
+                              param_dtype=torch.float32,
+                              cache_dtype=torch.float32, device=d, **kw)
+            r = eng.generate_with_state(
+                models["target"][side], {"tokens": tokens.to(d)},
+                draft_params=models["draft"][side] if "draft_cfg" in kw
+                else None)
+            res[mode, side] = (r.tokens.cpu(), None if r.spec is None
+                               else [t.cpu() for t in r.spec])
+        if mode == "plain":
+            continue
+        (tc, sc), (tg, sg) = res[mode, "cpu"], res[mode, "card"]
+        same = torch.equal(tc, tg) and all(torch.equal(a, b)
+                                           for a, b in zip(sc, sg))
+        lossless = torch.equal(tg, res["plain", "card"][0])
+        rounds, drafted, accepted = (int(t.sum()) for t in sg)
+        print(f"[spec-cpu-vs-card] reduced gemma3-1b f32, {mode}, k=2: "
+              f"tokens and SpecStats equal on cpu and card {same} "
+              f"({rounds} rounds, accepted {accepted} of {drafted}); "
+              f"speculative tokens == plain tokens on the card {lossless}")
+        if not (same and lossless):
+            raise SystemExit(f"[spec-cpu-vs-card] {mode}: card and cpu "
+                             f"differ, or speculation changed the tokens")
 
 
 def phase_cpu_vs_card(torch, dev):
@@ -2265,14 +2691,15 @@ def _record_payloads(ops, digests, count, nodes):
     return real
 
 
-def _step_spans(marks):
+def _step_spans(marks, start="step"):
     """Per step, the CUDA-event time (ms) of each span, keyed by the mark
     that opens it and summed over its repeats: "step" is the forward and
     backward, "update" the fused update, "quantize", "exchange" and
-    "combine" the mixer's per-tensor (or per-leaf) phases."""
+    "combine" the mixer's per-tensor (or per-leaf) phases.  ``start``
+    names the mark that opens a step (a speculative round's "round")."""
     steps, cur = [], None
     for name, ev in marks:
-        if name == "step":
+        if name == start:
             cur = [(name, ev)]
         elif cur is not None:
             cur.append((name, ev))
@@ -2658,6 +3085,7 @@ def phase_profile(torch, dev, params, engine, tokens):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import model as M
+    from repro_torch.serve import make_engine
 
     cfg = engine.cfg
     with torch.inference_mode():
@@ -2698,6 +3126,24 @@ def phase_profile(torch, dev, params, engine, tokens):
     print_kernel_times(prof, "continuous decode step (8 slots, paged)", wall,
                        4)
     del eng
+    # one self-speculative generation of the [spec] cell, per round
+    spec = make_engine(cfg, batch=BATCH, prompt_len=PROMPT, max_new=NEW,
+                       speculate_k=SPEC_K, draft_layers=SPEC_DRAFT,
+                       param_dtype=torch.bfloat16,
+                       cache_dtype=torch.bfloat16, device=dev)
+    spec.generate(params, {"tokens": tokens})               # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = spec.generate_with_state(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rounds = int(res.spec.rounds.max())
+    print_kernel_times(prof, f"self-speculative generation, per round "
+                       f"({rounds} rounds, prefill included)",
+                       wall / rounds, rounds)
+    del spec, res
     torch.cuda.empty_cache()
 
 
@@ -2757,12 +3203,14 @@ def main() -> None:
     entries += phase_quantize_kernels(torch, dev)
     entries += phase_paged_kernels(torch, dev)
     entries += phase_gossip_kernels(torch, dev)
-    launches, params, engine, tokens = phase_main_path(torch, dev, card)
+    launches, params, engine, tokens, plain = phase_main_path(torch, dev,
+                                                              card)
+    launches.update(phase_spec(torch, dev, card, params, tokens, plain))
     launches.update(phase_continuous(torch, dev, card, params))
     launches.update(phase_continuous(torch, dev, card, params, spec=True))
     if args.profile:
         phase_profile(torch, dev, params, engine, tokens)
-    del params, engine, tokens
+    del params, engine, tokens, plain
     torch.cuda.empty_cache()
     launches.update(phase_train(torch, dev, card, profile=args.profile))
     launches.update(phase_train(
@@ -2787,6 +3235,7 @@ def main() -> None:
     phase_train_cpu_vs_card(torch, dev)
     phase_compress_cpu_vs_card(torch, dev)
     phase_continuous_cpu_vs_card(torch, dev)
+    phase_spec_cpu_vs_card(torch, dev)
     phase_consensus(torch, dev)
     print(card)
     print(json.dumps({"kernels": [e for _, e in entries]}))

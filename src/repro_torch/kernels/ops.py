@@ -338,6 +338,34 @@ def sdpa(q, k, v, *, causal: bool = True, window=None, softcap=None,
     raise NotImplementedError(f"no attention kernel for device {q.device}")
 
 
+def sdpa_decode(q, k, v, *, q_start, k_valid_len, causal: bool = True,
+                window=None, softcap=None, scale=None):
+    """Dense-cache decode / verify attention with per-request query
+    positions — the entry point ``models.attention`` sends the fixed-batch
+    speculative engine's draft steps and its (k+1)-row verify through (the
+    reference's ``ops.sdpa_decode``, ``ops.py:340``).
+
+    q: (B, Tq, H, hd);  k, v: (B, S, KV, hd[, hd_v]) with H % KV == 0;
+    q_start / k_valid_len: ints or (B,) tensors, per request (after the
+    first round every request sits at its own position).  Serving only:
+    the reference has no gradient here, and an input that requires one
+    raises.  A row's result does not depend on Tq, on the card (the
+    kernel's row contract) and on the CPU (the plain version computes row
+    by row)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError("sdpa_decode has no gradient (the reference's "
+                           "is VJP-free); call it under no_grad or "
+                           "inference_mode")
+    kw = dict(q_start=q_start, k_valid_len=k_valid_len, causal=causal,
+              window=window, softcap=softcap, scale=scale)
+    if q.device.type == "cuda":
+        return flash_attention_fwd(q, k, v, **kw)
+    if q.device.type == "cpu":
+        return ref.grouped_sdpa_decode_ref(q, k, v, **kw)
+    raise NotImplementedError(f"no attention kernel for device {q.device}")
+
+
 def paged_sdpa(q, k_pages, v_pages, block_table, *, q_start, k_valid_len,
                causal: bool = True, window=None, softcap=None, scale=None):
     """Attention over a paged KV cache in the model stack's layout — the

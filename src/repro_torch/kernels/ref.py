@@ -183,20 +183,42 @@ def paged_sdpa_ref(q, k_pages, v_pages, block_table, *, q_start,
     ``k_valid_len`` are ints or (B,) tensors: query i of slot b sits at
     ``q_start[b] + i``.
 
-    The pages are gathered into the dense view (indexing), then each query
-    row runs exactly :func:`grouped_sdpa_ref`'s math as a Tq = 1 call.
-    So against a dense cache holding the same bits the result is
-    :func:`grouped_sdpa_ref`'s, row by row, bit for bit; and a row's
-    result does not depend on Tq (a (k+1)-row verify window equals k+1
-    one-row calls bit for bit), which one batched product over all rows
-    would not give on the CPU."""
-    B, Tq, H, hd = q.shape
-    _, ps, KV, _ = k_pages.shape
+    The pages are gathered into the dense view (indexing), then
+    :func:`grouped_sdpa_decode_ref` runs each query row as a Tq = 1 call
+    of :func:`grouped_sdpa_ref`.  So against a dense cache holding the
+    same bits the result is :func:`grouped_sdpa_ref`'s, row by row, bit
+    for bit; and a row's result does not depend on Tq (a (k+1)-row verify
+    window equals k+1 one-row calls bit for bit)."""
+    B = q.shape[0]
+    _, ps, KV, hd = k_pages.shape
     hd_v = v_pages.shape[-1]
     S = block_table.shape[1] * ps
     tbl = block_table.long()
     k = k_pages[tbl].reshape(B, S, KV, hd)
     v = v_pages[tbl].reshape(B, S, KV, hd_v)
+    return grouped_sdpa_decode_ref(q, k, v, q_start=q_start,
+                                   k_valid_len=k_valid_len, causal=causal,
+                                   window=window, softcap=softcap,
+                                   scale=scale)
+
+
+def grouped_sdpa_decode_ref(q, k, v, *, q_start, k_valid_len,
+                            causal: bool = True, window=None, softcap=None,
+                            scale=None):
+    """Dense-cache decode / verify attention with per-request query
+    positions — the plain version of ``ops.sdpa_decode`` (``ref.py:144``).
+
+    q: (B, Tq, H, hd);  k, v: (B, S, KV, hd[, hd_v]) with H % KV == 0;
+    ``q_start`` and ``k_valid_len`` are ints or (B,) tensors: query i of
+    request b sits at ``q_start[b] + i`` and sees the cache prefix
+    ``[0, k_valid_len[b])``.  Each query row runs :func:`grouped_sdpa_ref`
+    as a Tq = 1 call, so a (k+1)-row verify window equals k+1 one-row
+    calls bit for bit, which one product over all rows would not promise
+    on the CPU: the reference scans rows for the same reason.  Value rows
+    at or past ``k_valid_len`` are zeroed, as the kernel does (the
+    reference multiplies them by zero probabilities instead, so a NaN
+    there reaches its output)."""
+    Tq = q.shape[1]
     q_start = torch.as_tensor(q_start, device=q.device).reshape(-1)
     k_valid = torch.as_tensor(k_valid_len, device=q.device).reshape(-1)
     return torch.cat([grouped_sdpa_ref(

@@ -19,10 +19,17 @@ requests admitted into decode slots as they free up:
         --page-size 16 --prompt-len 1024 --gen 64 \
         [--speculate-k 4 --draft-layers 2] [--prefill-batch 2]
 
+The fixed-batch engine speculates too, self-speculatively or through a
+separate draft model (random weights from ``--seed`` + 1, reduced with
+``--reduced``):
+
+    python -m repro_torch.launch.serve --arch gemma3-1b --batch 4 \
+        --prompt-len 1024 --gen 64 --speculate-k 4 \
+        [--draft-layers 2 | --draft-config gemma3-1b]
+
 Every shape (prompt padding, the bucket list, the trace's prompt range)
 comes from :func:`plan_shapes`.  Runs on the card unless ``--device cpu``
-is given; without a card it exits with an error.  The fixed-batch
-engine's ``--speculate-k`` is not ported yet.
+is given; without a card it exits with an error.
 """
 from __future__ import annotations
 
@@ -61,7 +68,7 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain PyTorch versions)")
-    # speculative decoding (DESIGN.md Sec. 15), continuous engine only
+    # speculative decoding (DESIGN.md Sec. 15)
     ap.add_argument("--speculate-k", type=int, default=0,
                     help="draft k tokens per round and verify them in one "
                          "pass (0 = plain decoding)")
@@ -69,6 +76,10 @@ def main(argv=None) -> None:
                     help="[speculative] early-exit depth of the "
                          "self-speculative draft in pattern blocks "
                          "(0 = num_blocks // 2)")
+    ap.add_argument("--draft-config", default="",
+                    help="[speculative, fixed-batch] arch name of a "
+                         "separate draft model (mutually exclusive with "
+                         "--draft-layers)")
     # continuous-batching frontend
     ap.add_argument("--continuous", action="store_true",
                     help="continuous-batching paged engine instead of the "
@@ -87,11 +98,10 @@ def main(argv=None) -> None:
                     help="[continuous] admit up to this many same-bucket "
                          "requests per prefill call")
     args = ap.parse_args(argv)
-    if args.speculate_k and not args.continuous:
-        raise NotImplementedError(
-            "--speculate-k of the fixed-batch engine is not ported to "
-            "repro_torch yet (see ROADMAP.md); the continuous engine "
-            "speculates: add --continuous")
+    if args.draft_config and args.continuous:
+        raise SystemExit("--draft-config is fixed-batch only; the "
+                         "continuous engine speculates self-speculatively "
+                         "(--draft-layers)")
 
     import torch
 
@@ -127,13 +137,24 @@ def main(argv=None) -> None:
     gen.manual_seed(args.seed + 1)       # prompts: a stream of their own
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, padded_len),
                                      generator=gen, device=device)}
+    draft_cfg = draft_params = None
+    if args.draft_config:
+        draft_cfg = get_config(args.draft_config)
+        if args.reduced:
+            draft_cfg = draft_cfg.reduced()
+        draft_params = M.init(draft_cfg, seed=args.seed + 1, dtype=dtype,
+                              device=device)
     engine = make_engine(cfg, batch=B, prompt_len=padded_len,
                          max_new=args.gen, sampling=sampling, eos_id=eos_id,
-                         param_dtype=dtype, cache_dtype=dtype, device=device)
+                         param_dtype=dtype, cache_dtype=dtype,
+                         speculate_k=args.speculate_k,
+                         draft_layers=args.draft_layers or None,
+                         draft_cfg=draft_cfg, device=device)
 
     def timed():
         t0 = time.perf_counter()
-        res = engine.generate_with_state(params, batch, seed=args.seed)
+        res = engine.generate_with_state(params, batch, seed=args.seed,
+                                         draft_params=draft_params)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         return res, time.perf_counter() - t0
@@ -153,6 +174,14 @@ def main(argv=None) -> None:
     if eos_id is not None:
         print(f"done mask: {res.done.tolist()}  "
               f"lengths: {res.lengths.tolist()}")
+    if res.spec is not None:
+        rounds = int(res.spec.rounds.sum())
+        drafted = int(res.spec.drafted.sum())
+        accepted = int(res.spec.accepted.sum())
+        print(f"speculative: k={args.speculate_k}, {rounds} rounds, "
+              f"acceptance {accepted}/{drafted} "
+              f"({accepted / max(drafted, 1):.2f}); "
+              f"{n_tok / max(rounds, 1):.2f} tokens per sequential pass")
 
 
 def _run_continuous(args, cfg, params, sampling, eos_id, dtype,

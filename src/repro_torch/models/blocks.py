@@ -91,10 +91,14 @@ class Stack(nn.Module):
     def forward(self, x, *, caches=None, cache_index=None, decode_mode="dus",
                 block_table=None, num_blocks_limit=None):
         """caches: ``{"prologue": [...], "blocks": [[...] per block]}``
-        (updated in place).  ``num_blocks_limit`` runs the prologue and
-        only the first n pattern blocks, the self-speculative draft's
-        early exit (``blocks.py:166-226``): the other blocks' caches are
-        left as they are.  Returns ``(x, caches)``."""
+        (updated in place, except in the ``"append_free"`` mode).
+        ``cache_index`` (an int, or a (B,) tensor of per-request or
+        per-slot positions), ``decode_mode`` and ``block_table`` go to
+        every layer's attention as they are.  ``num_blocks_limit`` runs
+        the prologue and only the first n pattern blocks, the
+        self-speculative draft's early exit (``blocks.py:166-226``): the
+        other blocks' caches are left as they are.  Returns ``(x,
+        caches)``."""
         blocks = self.blocks
         if num_blocks_limit is not None:
             if not 0 <= num_blocks_limit <= len(blocks):

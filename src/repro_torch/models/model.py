@@ -4,6 +4,10 @@
     loss, aux = loss_fn(cfg, params, batch)            # training
     logits, caches = prefill(cfg, params, batch, max_seq, cache_dtype)
     logits, caches = decode_step(cfg, params, caches, tokens, index)
+    logits, caches = decode_step(cfg, params, caches, tokens,
+                                 index_vector)               # verify window
+    logits, caches = decode_step(cfg, params, caches, tokens, index,
+                                 decode_mode="append_free")  # writes nothing
     pools = init_paged_cache(cfg, layout, cache_dtype)    # paged serving
     logits, pools = decode_step(cfg, params, pools, tokens, index_vector,
                                 decode_mode="paged", block_table=table)
@@ -15,7 +19,7 @@ param-tree paths with the stacked pattern blocks split per block
 The simulation engine trains through that dict, one node's slice at a
 time.  Caches and page pools are updated in place.  Encoder-decoder,
 frontend, multi-token-prediction and untied-head models are not ported
-yet, nor is the ``"append_free"`` decode mode.
+yet.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ from repro_torch.device import resolve_device
 from .blocks import Stack, stack_cache_init, stack_paged_cache_init
 from .layers import Dense, Embed, RMSNorm, chunked_ce_loss
 
-DECODE_MODES = ("dus", "paged")
+DECODE_MODES = ("dus", "append_free", "paged")
 
 
 class Model(nn.Module):
@@ -193,11 +197,16 @@ def decode_step(cfg: ArchConfig, params: Model, caches, tokens, index, *,
                 decode_mode="dus", block_table=None, draft_layers=None):
     """tokens: (B, T) at positions ``index .. index + T - 1`` (the cache
     holds [0, index)); T = 1 decodes, T = k + 1 is a speculative verify
-    window.  ``decode_mode="dus"`` takes an int ``index`` and dense caches;
-    ``"paged"`` takes page pools, a (B,) tensor ``index`` of per-slot
-    positions and ``block_table`` (B, max_pages) int32.  ``draft_layers``
-    runs the self-speculative early exit (the first n pattern blocks).
-    Returns (logits (B, T, V), caches)."""
+    window.  ``decode_mode="dus"`` takes dense caches and an int
+    ``index``, or a (B,) tensor of per-request positions (the fixed-batch
+    speculative engine's draft steps and verify window);
+    ``"append_free"`` takes an int ``index`` and T = 1, attends over the
+    frozen cache and the fresh token and returns the caches untouched
+    (with a (B,) index or T > 1 it writes as ``"dus"``, as the
+    reference's); ``"paged"`` takes page pools, a (B,) tensor ``index`` of
+    per-slot positions and ``block_table`` (B, max_pages) int32.
+    ``draft_layers`` runs the self-speculative early exit (the first n
+    pattern blocks).  Returns (logits (B, T, V), caches)."""
     if decode_mode not in DECODE_MODES:
         raise NotImplementedError(
             f"decode_mode {decode_mode!r} is not ported to repro_torch yet "

@@ -4,13 +4,15 @@ layer."""
 from repro_torch.models.model import PagedCacheLayout
 
 from .continuous import ContinuousEngine, RequestResult
-from .engine import GenerationBundle, GenerationResult, make_engine
+from .engine import (GenerationBundle, GenerationResult, SpecStats,
+                     decode_logits_scan, make_engine)
 from .paged import PagePool, Request, bucket_for, poisson_trace, \
     prompt_buckets
 from .sampling import (SamplingParams, modified_logits, sample_token,
                        sampling_probs, speculative_accept, stream_generator)
 
-__all__ = ["GenerationBundle", "GenerationResult", "make_engine",
+__all__ = ["GenerationBundle", "GenerationResult", "SpecStats",
+           "decode_logits_scan", "make_engine",
            "SamplingParams", "modified_logits", "sample_token",
            "sampling_probs", "speculative_accept", "stream_generator",
            "ContinuousEngine", "RequestResult", "PagedCacheLayout",

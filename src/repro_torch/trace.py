@@ -18,7 +18,9 @@ reference leaves' ``"exchange"`` (the point-to-point messages), then its
 
 The continuous serving engine marks each dispatch with its name
 (``"prefill_<bucket>"``, ``"prefill_<bucket>x<n>"``, ``"decode"``) and
-then ``"end"``.
+then ``"end"``.  The fixed-batch engine marks each speculative round's
+phases: ``"round"`` (the window snapshot), ``"draft"``, ``"verify"``,
+``"accept"`` (the accept rule and the restore), then ``"end"``.
 
 Outside :func:`cuda_marks` a mark is one global lookup and does
 nothing.  Inside it, each mark records a CUDA event on the current

@@ -23,6 +23,7 @@ import torch
 
 from repro.configs import get_config as jget_config
 from repro.kernels.ops import KernelConfig
+from repro.models import attention as jattention
 from repro.models import model as JM
 from repro.serve import ContinuousEngine as JEngine
 from repro.serve import Request as JRequest
@@ -35,8 +36,8 @@ from repro_torch.convert import (paged_cache_from_jax, paged_cache_to_numpy,
 from repro_torch.models import model as M
 from repro_torch.serve import (ContinuousEngine, PagedCacheLayout, PagePool,
                                Request, SamplingParams, bucket_for,
-                               poisson_trace, prompt_buckets,
-                               speculative_accept)
+                               decode_logits_scan, poisson_trace,
+                               prompt_buckets, speculative_accept)
 
 REF = KernelConfig(backend="ref")
 LAYOUT = dict(page_size=4, num_pages=19, max_pages_per_slot=6)
@@ -157,18 +158,6 @@ def test_paged_cache_has_the_reference_pools():
 # the paged decode mode
 # ---------------------------------------------------------------------------
 
-def _scan(cfg, params, caches, tokens, index0, **kw):
-    """Teacher-forced decode, one position per call: logits (B, T, V)."""
-    out = []
-    with torch.inference_mode():
-        for t in range(tokens.shape[1]):
-            idx = index0 + t
-            lg, caches = M.decode_step(cfg, params, caches,
-                                       tokens[:, t:t + 1], idx, **kw)
-            out.append(lg[:, 0])
-    return torch.stack(out, dim=1)
-
-
 def test_decode_logits_scan_dense_vs_paged():
     """Paged scoring equals dense scoring bit for bit (the reference's
     contract, ``test_decode_logits_scan_dense_vs_paged``) and the
@@ -178,13 +167,15 @@ def test_decode_logits_scan_dense_vs_paged():
     lay = PagedCacheLayout(page_size=8, num_pages=12, max_pages_per_slot=4)
     tokens = np.random.default_rng(7).integers(0, cfg.vocab_size, (B, T))
     dense = M.init_cache(cfg, B, lay.max_seq, torch.float32, "cpu")
-    ld = _scan(cfg, params, dense, torch.from_numpy(tokens), 0)
+    ld, _ = decode_logits_scan(cfg, params, dense, torch.from_numpy(tokens),
+                               0)
     pools = M.init_paged_cache(cfg, lay, torch.float32, "cpu")
     table = np.stack([PagePool(12).alloc(4) for _ in range(B)])
     table[1] = [5, 6, 7, 8]
-    lp = _scan(cfg, params, pools, torch.from_numpy(tokens),
-               torch.zeros(B, dtype=torch.int64), decode_mode="paged",
-               block_table=torch.from_numpy(table.astype(np.int32)))
+    lp, _ = decode_logits_scan(
+        cfg, params, pools, torch.from_numpy(tokens),
+        torch.zeros(B, dtype=torch.int64), decode_mode="paged",
+        block_table=torch.from_numpy(table.astype(np.int32)))
     assert torch.equal(lp, ld)
     jpools = JM.init_paged_cache(jcfg, JM.PagedCacheLayout(
         page_size=8, num_pages=12, max_pages_per_slot=4), jnp.float32)
@@ -230,13 +221,15 @@ def test_draft_layers_run_the_first_blocks_only():
 
 
 def test_unported_decode_modes_raise():
+    """Every decode mode of the reference is ported (``"append_free"`` and
+    a dense vector cache_index: tests/test_torch_spec.py); a mode the
+    reference lacks raises, naming the ported ones."""
     _, cfg, _, params = _setup()
+    assert M.DECODE_MODES == jattention.DECODE_MODES
     caches = M.init_cache(cfg, 1, 8, torch.float32, "cpu")
     tok = torch.zeros((1, 1), dtype=torch.int64)
     with pytest.raises(NotImplementedError, match="append_free"):
-        M.decode_step(cfg, params, caches, tok, 0, decode_mode="append_free")
-    with pytest.raises(NotImplementedError, match="vector cache_index"):
-        M.decode_step(cfg, params, caches, tok, torch.tensor([0]))
+        M.decode_step(cfg, params, caches, tok, 0, decode_mode="ring")
 
 
 # ---------------------------------------------------------------------------

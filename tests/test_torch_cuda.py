@@ -37,7 +37,12 @@ their plain versions bit for bit over ragged lists (C = 2, 6, 128-1024,
 the vector and scalar loops, unaligned buffers, row offsets whose
 indices pass 2^32, zero rows, fp8's subnormal tail, every payload byte,
 0 to 31 slots, more buffers than one table holds), one launch per table
-and mode.
+and mode.  ``ops.sdpa_decode`` (the fixed-batch speculative engine's
+draft steps and verify) launches the dense kernel at per-request
+positions, within flash attention's tolerance of the plain
+``grouped_sdpa_decode_ref``, its verify window equal to one-row calls bit
+for bit; the fixed-batch engine's tokens and speculative counters on the
+card are the CPU's, with the flash launches its rounds make.
 """
 import pytest
 import torch
@@ -985,3 +990,120 @@ def test_continuous_engine_on_the_card_matches_the_cpu(card):
         for rid, r in out["cpu"]["results"].items():
             assert out["card"]["results"][rid].tokens == r.tokens, (kw, rid)
         assert out["card"]["stats"] == out["cpu"]["stats"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Tq,window,softcap", [(1, None, None), (5, 512, None),
+                                               (5, None, None),
+                                               (3, 40, 30.0)])
+def test_sdpa_decode_matches_plain_at_ragged_positions(card, dtype, Tq,
+                                                       window, softcap):
+    """``ops.sdpa_decode`` on the card launches the dense kernel once at
+    per-request positions (one request at position 0) and matches the
+    plain ``grouped_sdpa_decode_ref``; each request's cache tail past its
+    k_valid holds NaN, which neither reads."""
+    g = torch.Generator(device=card).manual_seed(Tq + (window or 0))
+    B, S, H, KV, D = 4, 1092, 4, 1, 256
+    q = torch.randn(B, Tq, H, D, generator=g, device=card).to(dtype)
+    k = torch.randn(B, S, KV, D, generator=g, device=card).to(dtype)
+    v = torch.randn(B, S, KV, D, generator=g, device=card).to(dtype)
+    q_start = torch.tensor([0, 400, 1024, S - Tq], device=card)
+    for b, n in enumerate((q_start + Tq).tolist()):
+        k[b, n:] = float("nan")
+        v[b, n:] = float("nan")
+    kw = dict(q_start=q_start, k_valid_len=q_start + Tq, window=window,
+              softcap=softcap)
+    before = flash_attention_fwd.launches
+    with torch.inference_mode():
+        got = ops.sdpa_decode(q, k, v, **kw)
+    assert flash_attention_fwd.launches == before + 1
+    _assert_close(got, ref.grouped_sdpa_decode_ref(q, k, v, **kw))
+    assert not bool(got.isnan().any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 512])
+def test_sdpa_decode_verify_window_equals_one_row_calls(card, dtype, window):
+    """The fixed-batch engine's verify at gemma3-1b's serving shape (B=4,
+    k + 1 = 5 rows, a cache of 1092 positions, per-request positions)
+    equals the 5 one-row calls of plain decoding bit for bit."""
+    g = torch.Generator(device=card).manual_seed(7 + (window or 0))
+    B, S, H, KV, D = 4, 1092, 4, 1, 256
+    q = torch.randn(B, 5, H, D, generator=g, device=card).to(dtype)
+    k = torch.randn(B, S, KV, D, generator=g, device=card).to(dtype)
+    v = torch.randn(B, S, KV, D, generator=g, device=card).to(dtype)
+    pos = torch.tensor([1024, 1041, 1063, S - 5], device=card)
+    with torch.inference_mode():
+        verify = ops.sdpa_decode(q, k, v, q_start=pos, k_valid_len=pos + 5,
+                                 window=window)
+        for i in range(5):
+            one = ops.sdpa_decode(q[:, i:i + 1], k, v, q_start=pos + i,
+                                  k_valid_len=pos + i + 1, window=window)
+            assert torch.equal(_bits(verify[:, i:i + 1]), _bits(one)), i
+
+
+def _spec_models(card, cfg, seed):
+    from repro_torch.models import model as M
+    cpu = M.init(cfg, seed=seed, dtype=torch.float32, device="cpu")
+    dev = M.Model(cfg, dtype=torch.float32, device=card)
+    dev.load_state_dict(cpu.state_dict())
+    return cpu, dev
+
+
+def test_fixed_batch_speculation_on_the_card_matches_the_cpu(card):
+    """Reduced gemma3-1b in f32 (2 pattern blocks): the fixed-batch
+    engine's greedy tokens, lengths and SpecStats on the card are the
+    CPU's, self-speculative and with a 1-block draft model; its tokens
+    are the plain engine's; and every attention call goes to the flash
+    kernel, as many launches as the rounds make (prefill: one per layer;
+    a round: k draft steps of the draft's layers, the draft model's
+    write-only step, one verify over every layer)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.serve import make_engine
+    cfg = get_config("gemma3-1b").reduced(num_blocks=2)
+    dcfg = dataclasses.replace(cfg, num_blocks=1)
+    target = _spec_models(card, cfg, 3)
+    draft = _spec_models(card, dcfg, 4)
+    tokens = torch.randint(0, cfg.vocab_size, (3, 11),
+                           generator=torch.Generator().manual_seed(5))
+    k, pro, blk = 2, len(cfg.prologue), len(cfg.pattern)
+    cases = {"plain": (dict(), None),
+             "self": (dict(speculate_k=k, draft_layers=1), None),
+             "draft": (dict(speculate_k=k, draft_cfg=dcfg), draft)}
+    out = {}
+    for name, (kw, dparams) in cases.items():
+        for side, i, d in (("cpu", 0, torch.device("cpu")),
+                           ("card", 1, card)):
+            eng = make_engine(cfg, batch=3, prompt_len=11, max_new=9,
+                              param_dtype=torch.float32,
+                              cache_dtype=torch.float32, device=d, **kw)
+            before = flash_attention_fwd.launches
+            out[name, side] = eng.generate_with_state(
+                target[i], {"tokens": tokens.to(d)},
+                draft_params=None if dparams is None else dparams[i])
+            launches = flash_attention_fwd.launches - before
+        res = out[name, "card"]
+        if name == "self":
+            rounds = int(res.spec.rounds.max())
+            want = cfg.num_layers + rounds * (
+                k * (pro + blk) + cfg.num_layers)
+        elif name == "draft":
+            rounds = int(res.spec.rounds.max())
+            want = cfg.num_layers + dcfg.num_layers + rounds * (
+                (k + 1) * dcfg.num_layers + cfg.num_layers)
+        else:
+            want = cfg.num_layers * 9
+        assert launches == want, name
+        cpu = out[name, "cpu"]
+        for f in ("tokens", "done", "lengths"):
+            assert torch.equal(getattr(res, f).cpu(), getattr(cpu, f)), \
+                (name, f)
+        if name != "plain":
+            for f in res.spec._fields:
+                assert torch.equal(getattr(res.spec, f).cpu(),
+                                   getattr(cpu.spec, f)), (name, f)
+            assert torch.equal(res.tokens, out["plain", "card"].tokens)
+    assert int(out["self", "card"].spec.accepted.sum()) \
+        < int(out["self", "card"].spec.drafted.sum())

@@ -187,14 +187,16 @@ def test_unported_decode_paths_raise():
     caches = TM.init_cache(cfg, 1, 8, torch.float32, "cpu")
     tok = torch.zeros(1, 1, dtype=torch.int64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.decode_step(cfg, params, caches, tok, 3, decode_mode="append_free")
+        TM.decode_step(cfg, params, caches, tok, 3, decode_mode="ring")
     # the paged mode is ported (tests/test_torch_continuous.py); it needs
     # page pools and a block table
     with pytest.raises(ValueError, match="block_table"):
         TM.decode_step(cfg, params, caches, tok, torch.tensor([3]),
                        decode_mode="paged")
-    with pytest.raises(NotImplementedError, match="vector"):
-        TM.decode_step(cfg, params, caches, tok, torch.tensor([3]))
+    # "append_free" and a (B,) index over a dense cache are ported
+    # (tests/test_torch_spec.py); an index of another shape raises
+    with pytest.raises(ValueError, match="vector"):
+        TM.decode_step(cfg, params, caches, tok, torch.tensor([[3]]))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TM.Model(dataclasses.replace(cfg, qkv_bias=True), device="cpu")
 

@@ -106,9 +106,13 @@ def test_continuous_launcher_without_card_exits_with_message(extra):
 
 
 def test_fixed_batch_speculation_is_not_ported():
+    """Fixed-batch speculation is ported (tests/test_torch_spec.py runs the
+    launcher with it on the CPU); what the launcher still refuses is the
+    reference's: a self-speculative depth and a draft model together."""
     from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="not both"):
         serve.main(["--arch", "gemma3-1b", "--reduced", "--speculate-k", "2",
+                    "--draft-layers", "1", "--draft-config", "gemma3-1b",
                     "--device", "cpu"])
 
 
@@ -172,6 +176,15 @@ def test_cpu_attention_does_not_touch_the_kernel_counter():
     ops.sdpa(q, k, k)
     ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                         k.transpose(1, 2))
+    assert flash_attention_fwd.launches == before
+
+
+def test_cpu_decode_attention_does_not_touch_the_kernel_counter():
+    q = torch.randn(2, 3, 4, 16)
+    k = torch.randn(2, 9, 1, 16)
+    before = flash_attention_fwd.launches
+    ops.sdpa_decode(q, k, k, q_start=torch.tensor([0, 5]),
+                    k_valid_len=torch.tensor([3, 8]))
     assert flash_attention_fwd.launches == before
 
 
