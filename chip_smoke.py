@@ -155,6 +155,33 @@ Phases (any failure exits non-zero and prints no result line):
    |sim| + 2^-1 max|sim| of their tensor, and each rank's peak memory
    under the leaf-by-leaf mixer's 22.49 GiB plus (3.25 + S / 4)
    buckets.
+   ``[failure]``: the ``[train]`` cell through the failure engine, 3
+   steps per run: ``FailureModel()`` equals ``failure=None`` bit for bit
+   (losses, every parameter, clocks 3); then drop 0.25, delay 2, churn
+   0.1 and Byzantine sign-flip 0.3 at once (seed 7): ms/step, each step
+   split by CUDA events (forward+backward with the draws and the churn
+   reset; update; the mixer's stale reads, corrupt reads and products;
+   the node freeze and history write), peak memory, clocks and the
+   honest losses, with one grouped fused update (unit pre-scale) and
+   26 x 3 flash forwards per step asserted.
+   ``[sweep]``: the reference's robustness grid (its constants copied
+   from ``benchmarks/failure.py:48-62``): the paper MLP 32-64-10, n = 16,
+   Dirichlet alpha 0.3, topologies base k=1 and k=4, one_peer_exp, exp
+   and ring, DSGD-momentum (eta 0.05, batch 32), 120 steps, as one
+   sweep synchronously and one per regime (clean, drop 0.1 and 0.3,
+   delay 3, churn 0.03, Byzantine sign-flip 0.125): one grouped fused
+   launch per step per sweep asserted (120, not 600); the clean cells
+   equal the synchronous sweep's, the synchronous and drop0.1 cells
+   equal their independent runs, bit for bit; clocks equal across
+   configs; the accuracy table printed beside
+   ``benchmarks/baselines/BENCH_failure.json`` (no gate: other weights,
+   and the reference calls those cross-BLAS-sensitive).  Then a
+   compressed sweep (int8 + EF, plain DSGD, base k=1 / exp / ring x 2
+   seeds, 30 steps): one grouped quantize per step per bucket asserted,
+   every cell equal to its independent run bit for bit.  The fused DSGD
+   and quantize kernels at the sweeps' shapes: one launch over every
+   copy equal to the plain version and to per-copy launches bit for
+   bit, timed against both.
 5. The port on the card against the port on the CPU: reduced gemma3-1b
    serving in f32 (greedy tokens equal, prefill logits within 1e-4); the
    five methods on the paper MLP (losses within 1e-5) and reduced
@@ -172,6 +199,11 @@ Phases (any failure exits non-zero and prints no result line):
    (2 blocks) in f32 with speculate_k = 2, self-speculative and with a
    1-block draft model: tokens and SpecStats equal on the CPU and the
    card, speculative tokens equal to plain ones on the card.
+   ``[failure-cpu-vs-card]``: the paper MLP (n = 8, Base-3, dsgdm, 30
+   steps) under dropout, stragglers, delay, churn, each Byzantine mode
+   and all four behaviours at once, on the CPU and on the card: losses
+   within 1e-5 (relative above 1), clocks and every round's draws
+   equal.
 6. Consensus on the card: ``optim.mix`` over one period of Base-2 at
    n = 3 and Base-3 at n = 21 reaches a relative consensus error
    <= 1e-10; the ring's after as many rounds is printed beside it.
@@ -260,6 +292,30 @@ QUANT_EDGES = (  # (name, (R, C), row_offset, case)
     ("index across 2^31", (64, 256), (1 << 23) - 32, None),
     ("index across 2^32", (64, 256), (1 << 24) - 32, None),
     ("fp8 subnormal tail", (40, 256), 0, "subnormal"))
+
+# the failure-realistic path on the [train] cell: 3 steps per run, and the
+# regime that turns on all four behaviours at once
+FAIL_STEPS = 3
+FAIL_REGIME = dict(drop_rate=0.25, delay=2, churn_rate=0.1,
+                   byzantine_frac=0.3, byzantine_mode="sign_flip", seed=7)
+# the sweep path: the grid of the reference's robustness table
+# (benchmarks/failure.py:48-62, copied: the benchmark folder is not
+# imported), the paper MLP 32-64-10 at n = 16 on Dirichlet(0.3) data
+SWEEP_N, SWEEP_STEPS, SWEEP_ETA, SWEEP_BATCH = 16, 120, 0.05, 32
+SWEEP_TOPOS = (("base", 1), ("base", 4), ("one_peer_exp", None),
+               ("exp", None), ("ring", None))
+SWEEP_REGIMES = (
+    ("clean", {}),
+    ("drop0.1", dict(drop_rate=0.1, seed=11)),
+    ("drop0.3", dict(drop_rate=0.3, seed=11)),
+    ("delay3", dict(delay=3, seed=11)),
+    ("churn0.03", dict(churn_rate=0.03, seed=11)),
+    ("byz_signflip", dict(byzantine_frac=0.125, byzantine_mode="sign_flip",
+                          seed=11)),
+)
+# the compressed sweep: int8 + EF, plain DSGD, 3 topologies x 2 seeds
+CSWEEP_TOPOS = (("base", 1), ("exp", None), ("ring", None))
+CSWEEP_SEEDS, CSWEEP_STEPS = (0, 1), 30
 
 
 def card_line() -> str:
@@ -2241,6 +2297,501 @@ def phase_compress_cpu_vs_card(torch, dev):
                              f"by {err}")
 
 
+def phase_failure(torch, dev, card):
+    """Full-width gemma3-1b on the ``[train]`` cell through the failure
+    engine: ``FailureModel()`` equals ``failure=None`` bit for bit, then
+    the regime with all four behaviours, its launches counted (one
+    grouped fused update per step at unit pre-scale, 26 x 3 flash
+    forwards), each step split by CUDA events, its peak memory read."""
+    from repro_torch import trace
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.fused_dsgd import fused_dsgd, fused_dsgd_many
+    from repro_torch.models import model as M
+    from repro_torch.optim.decentralized import make_method
+    from repro_torch.sim import FailureModel, simulate_decentralized
+    from repro_torch.topology import TopologySpec
+
+    cfg = get_config("gemma3-1b")
+    params = M.init(cfg, seed=0, dtype=torch.bfloat16,
+                    device=dev).state_dict()
+    tokens = TRAIN_N * TRAIN_B * TRAIN_SEQ
+
+    def batches(step):
+        b = token_batches(step, batch=TRAIN_N * TRAIN_B, seq=TRAIN_SEQ,
+                          vocab=cfg.vocab_size)
+        return {k: v.reshape(TRAIN_N, TRAIN_B, TRAIN_SEQ)
+                for k, v in b.items()}
+
+    kw = dict(loss_fn=lambda p, b: M.loss_fn(cfg, p, b)[0], params=params,
+              method=make_method("dsgdm", momentum=TRAIN_MOMENTUM),
+              schedule=TopologySpec(name="base", n=TRAIN_N, k=1),
+              batches=batches, steps=FAIL_STEPS, eta=TRAIN_ETA, device=dev)
+    t0 = time.perf_counter()
+    sync = simulate_decentralized(**kw)
+    sync.state = None
+    clean = simulate_decentralized(failure=FailureModel(), **kw)
+    torch.cuda.synchronize()
+    same = bool((sync.losses == clean.losses).all()) and all(
+        torch.equal(_bits(torch, x), _bits(torch, clean.params[k]))
+        for k, x in sync.params.items())
+    clocks_ok = clean.clocks.tolist() == [FAIL_STEPS] * TRAIN_N
+    print(f"[failure] gemma3-1b full width, n={TRAIN_N} base k=1, dsgdm "
+          f"{TRAIN_MOMENTUM}, {FAIL_STEPS} steps: FailureModel() == "
+          f"failure=None bitwise {same} (losses {sync.losses.tolist()}, "
+          f"{len(params)} parameter tensors), clocks "
+          f"{clean.clocks.tolist()}; both runs "
+          f"{time.perf_counter() - t0:.2f} s")
+    if not (same and clocks_ok):
+        raise SystemExit("the clean failure model differs from the "
+                         "synchronous run on full-width gemma3-1b")
+    del sync, clean
+    torch.cuda.empty_cache()
+
+    failure = FailureModel(**FAIL_REGIME)
+    torch.cuda.reset_peak_memory_stats()
+    fused_dsgd.launches = 0
+    fused_dsgd_many.launches = fused_dsgd_many.segments = 0
+    flash_attention_fwd.launches = 0
+    t0 = time.perf_counter()
+    with trace.cuda_marks() as marks:
+        res = simulate_decentralized(failure=failure, **kw)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"failure-fused_dsgd": fused_dsgd_many.launches,
+                "failure-fused_dsgd-tensors": fused_dsgd_many.segments,
+                "failure-fused_dsgd-single": fused_dsgd.launches,
+                "failure-flash": flash_attention_fwd.launches}
+    dtypes = len({v.dtype for v in params.values()})
+    want = {"failure-fused_dsgd": FAIL_STEPS * dtypes,
+            "failure-fused_dsgd-tensors": FAIL_STEPS * len(params),
+            "failure-fused_dsgd-single": 0,
+            "failure-flash": FAIL_STEPS * cfg.num_layers * TRAIN_N}
+    for phase, n in want.items():
+        if launches[phase] != n:
+            raise SystemExit(f"{phase} launched {launches[phase]} times in "
+                             f"{FAIL_STEPS} failure steps, expected {n}")
+    if res.losses.shape != (FAIL_STEPS,) or not bool(
+            torch.isfinite(torch.from_numpy(res.losses)).all()):
+        raise SystemExit(f"failure-model honest losses not finite: "
+                         f"{res.losses}")
+    spans = _step_spans(marks)
+    parts = ("step", "update", "stale", "corrupt", "mix", "state")
+    if len(spans) != FAIL_STEPS or any(set(s) != set(parts) for s in spans):
+        raise SystemExit(f"unexpected failure step marks: "
+                         f"{[sorted(s) for s in spans]}")
+    totals = [sum(s.values()) for s in spans]
+    med = {k: statistics.median(s[k] for s in spans) for k in parts}
+    byz = failure.byzantine_mask(TRAIN_N)
+    print(f"[failure] {card}: {failure}: {statistics.median(totals):.2f} "
+          f"ms/step (median of {FAIL_STEPS}, CUDA events; per step "
+          f"{[round(t, 2) for t in totals]}), "
+          f"{tokens / statistics.median(totals) * 1e3:.1f} tokens/s; host "
+          f"clock {wall / FAIL_STEPS * 1e3:.2f} ms/step over the run (with "
+          f"node_stack and the history ring's set-up)")
+    print(f"[failure] split per step (medians, ms): forward+backward "
+          f"(with the draws and the churn reset) {med['step']:.2f}, update "
+          f"(grouped kernel, gradient mask, effective W) {med['update']:.2f}"
+          f", mix {med['mix']:.2f} with the stale reads {med['stale']:.2f} "
+          f"and the corrupt reads {med['corrupt']:.2f} beside it, node "
+          f"freeze + history write {med['state']:.2f}")
+    print(f"[failure] peak memory {peak / 2**30:.2f} GiB "
+          f"(max_memory_allocated); clocks {res.clocks.tolist()}; "
+          f"Byzantine nodes {byz.nonzero()[0].tolist()}; honest losses "
+          f"{[round(float(x), 4) for x in res.losses]}; launches in "
+          f"{FAIL_STEPS} steps: fused_dsgd {launches['failure-fused_dsgd']} "
+          f"over {launches['failure-fused_dsgd-tensors']} tensors, flash "
+          f"{launches['failure-flash']}")
+    del res, params, kw
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_sweep(torch, dev, card):
+    """The reference's robustness grid as sweeps on the card, then a
+    compressed sweep; returns the launch counts and the JSON entries of
+    the grouped kernels at the sweeps' shapes."""
+    import numpy as np
+
+    from repro_torch.compress import CompressionConfig
+    from repro_torch.configs.paper_mlp import MLPConfig
+    from repro_torch.data.synthetic import dirichlet_classification
+    from repro_torch.kernels.fused_dsgd import fused_dsgd, fused_dsgd_many
+    from repro_torch.kernels.multi_tensor import BUCKET_BYTES, plan_buckets
+    from repro_torch.kernels.quantized_gossip import (quantize_ef,
+                                                      quantize_ef_many)
+    from repro_torch.models import mlp
+    from repro_torch.optim.decentralized import make_method
+    from repro_torch.sim import (FailureModel, simulate_decentralized,
+                                 sweep_decentralized)
+    from repro_torch.topology import TopologySpec
+
+    cfg = MLPConfig(input_dim=32, hidden=(64,), num_classes=10)
+    data = dirichlet_classification(SWEEP_N, 512, dim=32, num_classes=10,
+                                    alpha=0.3, margin=0.8, seed=2)
+    params = mlp.init(cfg, seed=0, device=dev)
+    specs = [TopologySpec(name=nm, n=SWEEP_N, k=k) for nm, k in SWEEP_TOPOS]
+    tx, ty = (torch.from_numpy(a).to(dev) for a in (data.test_x,
+                                                    data.test_y))
+
+    def batches(step, bs=SWEEP_BATCH):
+        i = (step * bs) % (512 - bs)
+        return data.node_x[:, i:i + bs], data.node_y[:, i:i + bs]
+
+    kw = dict(loss_fn=mlp.loss_fn, batches=batches, steps=SWEEP_STEPS,
+              eta=SWEEP_ETA, eval_fn=lambda p: mlp.accuracy(p, tx, ty),
+              eval_every=SWEEP_STEPS - 1, device=dev)
+    method = make_method("dsgdm")
+    launches = {"sweep-fused_dsgd": 0}
+    wall = {}
+
+    def sweep(name, fkw):
+        fused_dsgd.launches = 0
+        fused_dsgd_many.launches = fused_dsgd_many.segments = 0
+        t0 = time.perf_counter()
+        sw = sweep_decentralized(
+            params=params, schedules=specs, method=method,
+            failure=None if fkw is None else FailureModel(**fkw), **kw)
+        torch.cuda.synchronize()
+        wall[name] = time.perf_counter() - t0
+        got = (fused_dsgd_many.launches, fused_dsgd_many.segments,
+               fused_dsgd.launches)
+        if got != (SWEEP_STEPS, SWEEP_STEPS * len(params), 0):
+            raise SystemExit(f"sweep {name}: (grouped launches, tensors, "
+                             f"one-tensor launches) = {got}, expected "
+                             f"({SWEEP_STEPS}, {SWEEP_STEPS * len(params)}, "
+                             f"0): one launch per step over every copy")
+        launches["sweep-fused_dsgd"] += fused_dsgd_many.launches
+        if fkw is not None and not (sw.clocks == sw.clocks[:1]).all():
+            raise SystemExit(f"sweep {name}: clocks differ across configs")
+        return sw
+
+    def equal(a, b):
+        return all(np.array_equal(getattr(a, f), getattr(b, f))
+                   for f in ("losses", "test_acc", "consensus"))
+
+    sync = sweep("sync", None)
+    sweeps = {name: sweep(name, fkw) for name, fkw in SWEEP_REGIMES}
+    if not all(equal(sweeps["clean"].run(c), sync.run(c))
+               for c in range(len(specs))):
+        raise SystemExit("the clean sweep's cells differ from the "
+                         "synchronous sweep's")
+    t0 = time.perf_counter()
+    for name, fkw in (("sync", None), ("drop0.1", SWEEP_REGIMES[1][1])):
+        sw = sync if fkw is None else sweeps[name]
+        for c, spec in enumerate(specs):
+            one = simulate_decentralized(
+                params=params, schedule=spec, method=method,
+                failure=None if fkw is None else FailureModel(**fkw), **kw)
+            cell = sw.run(c)
+            ok = equal(one, cell) and all(
+                torch.equal(_bits(torch, x), _bits(torch, cell.params[k]))
+                for k, x in one.params.items())
+            if fkw is not None:
+                ok &= np.array_equal(one.clocks, cell.clocks)
+            if not ok:
+                raise SystemExit(f"sweep {name}: cell {c} "
+                                 f"({sync.names[c]}) differs from its "
+                                 f"independent run")
+    torch.cuda.synchronize()
+    singles = (time.perf_counter() - t0) / 2
+    print(f"[sweep] {card}: the paper MLP 32-64-10 at n={SWEEP_N}, "
+          f"{len(specs)} topologies x 1 seed, dsgdm eta {SWEEP_ETA}, "
+          f"{SWEEP_STEPS} steps: every sweep 1 grouped fused launch per "
+          f"step over {len(specs) * SWEEP_N} rows x {len(params)} tensors; "
+          f"clean == synchronous sweep bitwise, the synchronous and drop0.1 "
+          f"sweeps' cells == their independent runs bitwise (losses, "
+          f"accuracy, consensus, parameters, clocks); clocks equal across "
+          f"configs in every regime")
+    print(f"[sweep] host seconds per sweep: "
+          f"{ {k: round(v, 2) for k, v in wall.items()} }; "
+          f"{len(specs)} independent runs {singles:.2f} s per regime "
+          f"({singles / wall['sync']:.2f}x the synchronous sweep)")
+    base = ROOT / "benchmarks" / "baselines" / "BENCH_failure.json"
+    ref_acc = json.loads(base.read_text())["metrics"] if base.exists() \
+        else {}
+    print(f"[sweep] final accuracy per topology x regime, port (reference "
+          f"baseline, JAX on a CPU, other weights: not a gate)")
+    print("[sweep] " + f"{'topology':<16}" + "".join(
+        f"{name:>22}" for name, _ in SWEEP_REGIMES))
+    for c, label in enumerate(sync.names):
+        cells = []
+        for name, _ in SWEEP_REGIMES:
+            acc = float(sweeps[name].run(c).test_acc[-1])
+            want = ref_acc.get(f"{name}/{label}")
+            cells.append(f"{acc:.4f} ({want:.4f})" if want is not None
+                         else f"{acc:.4f} (n/a)")
+        print("[sweep] " + f"{label:<16}" + "".join(f"{x:>22}"
+                                                    for x in cells))
+    del sweeps, sync
+
+    # the compressed sweep: int8 + EF over 3 topologies x 2 seeds
+    ccfg = CompressionConfig(codec=COMPRESS_CODEC, chunk=CHUNK,
+                             error_feedback=True, seed=0)
+    cmethod = make_method("dsgd", compression=ccfg)
+    cspecs = [TopologySpec(name=nm, n=SWEEP_N, k=k)
+              for nm, k in CSWEEP_TOPOS]
+    seeds = [mlp.init(cfg, seed=s, device=dev) for s in CSWEEP_SEEDS]
+    ckw = dict(kw, steps=CSWEEP_STEPS, method=cmethod)
+    copies = len(cspecs) * len(seeds)
+    rows = [SWEEP_N * -(-v.numel() // CHUNK) for v in params.values()]
+    sizes = [4 * r * CHUNK for r in rows] * copies
+    buckets = len(plan_buckets(sizes, BUCKET_BYTES))
+    quantize_ef.launches = 0
+    quantize_ef_many.launches = quantize_ef_many.segments = 0
+    csw = sweep_decentralized(params=seeds, schedules=cspecs, **ckw)
+    torch.cuda.synchronize()
+    got = (quantize_ef_many.launches, quantize_ef_many.segments,
+           quantize_ef.launches)
+    want = (CSWEEP_STEPS * buckets, CSWEEP_STEPS * len(sizes), 0)
+    if got != want:
+        raise SystemExit(f"compressed sweep: (grouped quantize launches, "
+                         f"buffers, one-buffer launches) = {got}, expected "
+                         f"{want}")
+    launches["sweep-compress-quantize_ef_many"] = got[0]
+    for c, spec in enumerate(cspecs):
+        for s, p in enumerate(seeds):
+            one = simulate_decentralized(params=p, schedule=spec, **ckw)
+            cell = csw.run(c, s)
+            if not (equal(one, cell) and all(
+                    torch.equal(_bits(torch, x), _bits(torch, cell.params[k]))
+                    for k, x in one.params.items())):
+                raise SystemExit(f"compressed sweep cell ({c}, {s}) differs "
+                                 f"from its independent run")
+    print(f"[sweep] compressed ({COMPRESS_CODEC} + EF, dsgd, chunk {CHUNK}) "
+          f"{len(cspecs)} topologies x {len(seeds)} seeds, {CSWEEP_STEPS} "
+          f"steps: {got[0]} grouped quantize launches (= {buckets} bucket(s) "
+          f"x {CSWEEP_STEPS} steps) over {got[1]} buffers (= {len(sizes)} "
+          f"records, each from row offset 0, x {CSWEEP_STEPS}); every cell "
+          f"== its independent run bitwise; last losses "
+          f"{[round(float(x), 4) for x in csw.losses[:, :, -1].ravel()]}")
+    entries = sweep_entries(torch, dev, [tuple(v.shape) for v in
+                                         params.values()],
+                            len(specs), rows, copies)
+    del params, seeds, csw
+    torch.cuda.empty_cache()
+    return launches, entries
+
+
+def sweep_entries(torch, dev, shapes, configs, rows, copies):
+    """Rows 3 and 6 at the sweeps' shapes: one grouped launch over every
+    copy against the same launch per copy (bit for bit, and timed) and
+    against the plain version; returns their JSON entries."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_dsgd import fused_dsgd_many
+    from repro_torch.kernels.quantized_gossip import quantize_ef_many
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    beta, eta = TRAIN_MOMENTUM, SWEEP_ETA
+    R = configs * SWEEP_N
+    xs, us, gs = ([torch.randn((R,) + s, generator=gen, device=dev)
+                   for s in shapes] for _ in range(3))
+    pre = torch.rand(R, generator=gen, device=dev) + 0.2
+
+    def per_copy():
+        out = []
+        for c in range(configs):
+            sl = slice(c * SWEEP_N, (c + 1) * SWEEP_N)
+            out.append(fused_dsgd_many([x[sl] for x in xs],
+                                       [u[sl] for u in us],
+                                       [g[sl] for g in gs], beta, eta,
+                                       pre[sl]))
+        return out
+
+    def plain():
+        return [ref.fused_dsgd_ref(x, u, g, beta, eta,
+                                   pre.reshape((-1,) + (1,) * (x.ndim - 1)))
+                for x, u, g in zip(xs, us, gs)]
+
+    gx, gu = fused_dsgd_many(xs, us, gs, beta, eta, pre)
+    same = all(torch.equal(_bits(torch, a), _bits(torch, wx))
+               and torch.equal(_bits(torch, b), _bits(torch, wu))
+               for a, b, (wx, wu) in zip(gx, gu, plain()))
+    for c, (cx, cu) in enumerate(per_copy()):
+        sl = slice(c * SWEEP_N, (c + 1) * SWEEP_N)
+        same &= all(torch.equal(_bits(torch, a[sl]), _bits(torch, b))
+                    for a, b in zip(gx + gu, cx + cu))
+    if not same:
+        raise SystemExit("fused_dsgd_many over the sweep's copies differs "
+                         "from the plain version or from per-copy launches")
+    numel = sum(x.numel() for x in xs)
+    b_ms, b_by = bound_ms(5 * numel * 4 + 4 * R, 6 * numel, "float32")
+    fn = lambda: fused_dsgd_many(xs, us, gs, beta, eta, pre)  # noqa: E731
+    dsgd = {
+        "name": f"fused_dsgd_many[sweep,{len(xs)} leaves x {R} rows,"
+                f"float32,pre=per copy]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_dsgd.cu, "
+                  "src/repro_torch/kernels/csrc/multi_tensor.cuh",
+        "replaces": "src/repro/kernels/fused_dsgd.py:50",
+        "launches": None,
+        "max_abs_err": 0.0,
+        "ms": time_ms(torch, fn, flush),
+        "device_ms": graph_ms(torch, fn, flush),
+        "per_copy_ms": time_ms(torch, per_copy, flush),
+        "plain_ms": time_ms(torch, plain, flush),
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+    }
+    print(f"[sweep] {dsgd['name']}: bitwise == plain and == {configs} "
+          f"per-copy launches; {dsgd['ms']:.4f} ms, device (as a graph) "
+          f"{dsgd['device_ms']:.4f} ms (bound {b_ms:.5f} ms by {b_by}; per "
+          f"copy {dsgd['per_copy_ms']:.4f} ms; plain {dsgd['plain_ms']:.4f}"
+          f" ms)")
+    del xs, us, gs, gx, gu
+
+    qx = [torch.randn(r, CHUNK, generator=gen, device=dev)
+          for _ in range(copies) for r in rows]
+    qe = [0.1 * torch.randn(r, CHUNK, generator=gen, device=dev)
+          for _ in range(copies) for r in rows]
+    offs, key = [0] * len(qx), ref.sr_key(0, 3)
+    got = quantize_ef_many(qx, qe, key, offs, fmt=COMPRESS_CODEC)
+    same = True
+    for i, (x, e) in enumerate(zip(qx, qe)):
+        want = ref.quantize_ef_ref(x, e, key, 0, fmt=COMPRESS_CODEC)
+        same &= all(torch.equal(a[i].view(torch.uint8), w.view(torch.uint8))
+                    for a, w in zip(got, want))
+    per = len(rows)
+    for c in range(copies):
+        mine = quantize_ef_many(qx[c * per:(c + 1) * per],
+                                qe[c * per:(c + 1) * per], key, [0] * per,
+                                fmt=COMPRESS_CODEC)
+        for outs, wants in zip(got, mine):
+            same &= all(torch.equal(outs[c * per + i].view(torch.uint8),
+                                    w.view(torch.uint8))
+                        for i, w in enumerate(wants))
+    if not same:
+        raise SystemExit("quantize_ef_many over the compressed sweep's "
+                         "records differs from the plain version or from "
+                         "per-copy launches")
+    numel = sum(x.numel() for x in qx)
+    nrows = sum(x.shape[0] for x in qx)
+    b_ms, b_by = bound_ms(13 * numel + 4 * nrows, 23 * numel, "float32")
+
+    def qfn():
+        return quantize_ef_many(qx, qe, key, offs, fmt=COMPRESS_CODEC)
+
+    def qper_copy():
+        for c in range(copies):
+            quantize_ef_many(qx[c * per:(c + 1) * per],
+                             qe[c * per:(c + 1) * per], key, [0] * per,
+                             fmt=COMPRESS_CODEC)
+
+    def qplain():
+        for x, e in zip(qx, qe):
+            ref.quantize_ef_ref(x, e, key, 0, fmt=COMPRESS_CODEC)
+
+    quant = {
+        "name": f"quantize_ef_many[compressed sweep,{len(qx)} records,"
+                f"{COMPRESS_CODEC},err]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/quantized_gossip.cu, "
+                  "src/repro_torch/kernels/csrc/multi_tensor.cuh",
+        "replaces": "src/repro/kernels/quantized_gossip.py:71",
+        "launches": None,
+        "max_abs_err": 0.0,
+        "ms": time_ms(torch, qfn, flush),
+        "device_ms": graph_ms(torch, qfn, flush),
+        "per_copy_ms": time_ms(torch, qper_copy, flush),
+        "plain_ms": time_ms(torch, qplain, flush),
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+    }
+    print(f"[sweep] {quant['name']}: bitwise == plain and == {copies} "
+          f"per-copy launches; {quant['ms']:.4f} ms, device (as a graph) "
+          f"{quant['device_ms']:.4f} ms (bound {b_ms:.5f} ms by {b_by}; per "
+          f"copy {quant['per_copy_ms']:.4f} ms; plain "
+          f"{quant['plain_ms']:.4f} ms)")
+    del qx, qe, got, flush
+    torch.cuda.empty_cache()
+    return [("sweep-fused_dsgd", dsgd),
+            ("sweep-compress-quantize_ef_many", quant)]
+
+
+def phase_failure_cpu_vs_card(torch, dev):
+    """The failure engine on the card against the same on the CPU, every
+    regime: losses within 1e-5 (relative above 1), clocks and every
+    round's draws equal."""
+    import numpy as np
+
+    from repro_torch.configs.paper_mlp import MLPConfig
+    from repro_torch.data.synthetic import dirichlet_classification
+    from repro_torch.models import mlp
+    from repro_torch.optim.decentralized import make_method
+    from repro_torch.sim import (FailureModel, failure as fm,
+                                 simulate_decentralized)
+    from repro_torch.topology import TopologySpec
+
+    n, steps, bs = 8, 30, 32
+    data = dirichlet_classification(n, 256, dim=32, alpha=0.3, seed=4)
+    params = mlp.init(MLPConfig(input_dim=32, hidden=(64,), num_classes=10),
+                      seed=0, device="cpu")
+
+    def batches(step):
+        i = (step * bs) % (256 - bs)
+        return data.node_x[:, i:i + bs], data.node_y[:, i:i + bs]
+
+    regimes = (("drop", dict(drop_rate=0.3, seed=1)),
+               ("stragglers", dict(straggler_rate=0.5, straggler_period=3,
+                                   seed=2)),
+               ("delay", dict(delay=2, seed=3)),
+               ("churn", dict(churn_rate=0.1, seed=4)),
+               ("sign_flip", dict(byzantine_frac=0.25,
+                                  byzantine_mode="sign_flip", seed=5)),
+               ("random", dict(byzantine_frac=0.25, byzantine_mode="random",
+                               seed=6)),
+               ("all_same", dict(byzantine_frac=0.25,
+                                 byzantine_mode="all_same", seed=7)),
+               ("all four", FAIL_REGIME))
+    real = fm.draws
+    for name, fkw in regimes:
+        runs = {}
+        for d in ("cpu", dev):
+            seen = []
+
+            def recording(*args):
+                seen.append(real(*args))
+                return seen[-1]
+
+            fm.draws = recording
+            try:
+                res = simulate_decentralized(
+                    loss_fn=mlp.loss_fn, params=params,
+                    method=make_method("dsgdm"),
+                    schedule=TopologySpec(name="base", n=n, k=2),
+                    batches=batches, steps=steps, eta=0.05,
+                    failure=FailureModel(**fkw), device=d)
+            finally:
+                fm.draws = real
+            runs[d] = (res, seen)
+        (rc, dc), (rd, dd) = runs["cpu"], runs[dev]
+        # 1e-5, relative where a loss exceeds 1 (a random attack drives
+        # the honest losses past 10, where f32 steps are 1e-6)
+        err = float((abs(rc.losses - rd.losses)
+                     / np.maximum(1.0, abs(rc.losses))).max())
+        clocks = rc.clocks.tolist() == rd.clocks.tolist()
+        draws = len(dc) == len(dd) == steps and all(
+            (getattr(a, f) is None and getattr(b, f) is None)
+            or torch.equal(getattr(a, f), getattr(b, f))
+            for a, b in zip(dc, dd) for f in ("churn", "keep", "tau")) \
+            and all((a.noise is None and b.noise is None)
+                    or all(torch.equal(x, y) for x, y in zip(a.noise,
+                                                             b.noise))
+                    for a, b in zip(dc, dd))
+        print(f"[failure-cpu-vs-card] paper MLP dsgdm, n={n} base k=2, "
+              f"{steps} steps, {name}: losses max err {err:.3e} (tol 1e-5, "
+              f"relative above 1), clocks equal {clocks} {rd.clocks.tolist()}, draws "
+              f"equal {draws}; last loss {rd.losses[-1]:.4f}")
+        if not (err <= 1e-5 and clocks and draws):
+            raise SystemExit(f"card vs cpu failure run ({name}) differs: "
+                             f"losses {err}, clocks {clocks}, draws {draws}")
+
+
 def phase_gossip_kernels(torch, dev):
     """The gossip combines vs their plain versions on the card, bit for
     bit: both entry points of the slots combine (f32 and bf16, S = 1, 2,
@@ -3222,6 +3773,18 @@ def main() -> None:
         torch, dev, card,
         compression=CompressionConfig(codec=COMPRESS_CODEC, chunk=CHUNK,
                                       error_feedback=True, seed=0)))
+    launches.update(phase_failure(torch, dev, card))
+    sweep_launches, sweep_kernels = phase_sweep(torch, dev, card)
+    launches.update(sweep_launches)
+    entries += sweep_kernels
+    # [failure] runs row 1 at the training shapes and row 3 over the 340
+    # leaves at unit pre-scale (its mixer closure): the entries measured
+    # at those shapes report its launches as well
+    entries += [(f"failure-{kind}", dict(e, name=e["name"] + " [failure]"))
+                for phase, e in list(entries)
+                for kind, of in (("flash", "train-flash"),
+                                 ("fused_dsgd", "train-compress-fused_dsgd"))
+                if phase == of]
     for phase, e in entries:
         e["launches"] = launches[phase]
         if "segments" in e:
@@ -3236,6 +3799,7 @@ def main() -> None:
     phase_compress_cpu_vs_card(torch, dev)
     phase_continuous_cpu_vs_card(torch, dev)
     phase_spec_cpu_vs_card(torch, dev)
+    phase_failure_cpu_vs_card(torch, dev)
     phase_consensus(torch, dev)
     print(card)
     print(json.dumps({"kernels": [e for _, e in entries]}))

@@ -132,17 +132,20 @@ def compress_bucket(codec, cfg, x2ds, e2ds, key, row_offsets):
 
 def compressed_dense_mix(W: torch.Tensor, tree: dict, ef: dict | None,
                          cfg: CompressionConfig, t: int):
-    """One compressed gossip round against a dense (n, n) mixing matrix.
+    """One compressed gossip round against a dense (n, n) mixing matrix,
+    or a (G, n, n) stack for G copies of the n nodes (a sweep: every
+    tensor (G * n, ...), copy g mixed by ``W[g]``).
 
     ``tree`` and ``ef`` are node-stacked flat dicts (``ef`` mirrors
     ``tree``, or is None when ``cfg.error_feedback`` is off); ``t`` is the
     step counter (an int) keying the stochastic rounding.  Returns
     ``(mixed, ef)``; non-float tensors pass through untouched.  Each
-    reference leaf (:func:`reference_leaves`) is quantized once, so the
-    kernel sees the reference's stacked row counts; a bucket of leaves
-    is quantized in one call (see the module's docstring), then each
-    leaf's residual is written, and its payload decoded and mixed, leaf
-    by leaf.
+    reference leaf (:func:`reference_leaves`) of each copy is one record,
+    quantized once from row offset 0, so the kernel sees the reference's
+    stacked row counts and each copy's payload is its single run's bit
+    for bit; a bucket of records is quantized in one call (see the
+    module's docstring), then each record's residual is written, and its
+    payload decoded and mixed, record by record.
 
     Unlike the reference, the residual is written into ``ef``'s tensors
     in place and ``ef`` itself is returned: at full width the old and the
@@ -157,48 +160,56 @@ def compressed_dense_mix(W: torch.Tensor, tree: dict, ef: dict | None,
     codec = get_codec(cfg.codec)
     key = sr_key(cfg.seed, t)
     Wf = W.float()
-    d = torch.diagonal(Wf)
-    Woff = Wf - torch.diag(d)
-    out, leaves = {}, []
+    Wcs = [Wf] if Wf.ndim == 2 else list(Wf)
+    n = Wf.shape[-1]
+    ds = [torch.diagonal(w) for w in Wcs]
+    Woffs = [w - torch.diag(d) for w, d in zip(Wcs, ds)]
+    out, records = {}, []
     for names in reference_leaves(tree):
         if tree[names[0]].is_floating_point():
-            leaves.append(names)
+            records += [(names, g) for g in range(len(Wcs))]
         else:
             out.update((k, tree[k]) for k in names)
+
+    def rows_of(src, names, g):
+        return group_to_rows([src[k][g * n:(g + 1) * n] for k in names],
+                             cfg.chunk)
+
     cap = BUCKET_BYTES if codec.compress_many is not None else 0
-    sizes = [rows_bytes([tree[k] for k in names], cfg.chunk)
-             for names in leaves]
+    sizes = [rows_bytes([tree[k][:n] for k in names], cfg.chunk)
+             for names, _ in records]
     for bucket in plan_buckets(sizes, cap):
-        group = [leaves[i] for i in bucket]
-        x2ds = [group_to_rows([tree[k] for k in names], cfg.chunk)
-                for names in group]
-        e2ds = None if ef is None else [
-            group_to_rows([ef[k] for k in names], cfg.chunk)
-            for names in group]
+        group = [records[i] for i in bucket]
+        x2ds = [rows_of(tree, names, g) for names, g in group]
+        e2ds = None if ef is None else [rows_of(ef, names, g)
+                                        for names, g in group]
         payloads, resids = compress_bucket(codec, cfg, x2ds, e2ds, key,
                                            [0] * len(group))
         del x2ds, e2ds
-        for names in group:
-            xs = [tree[k] for k in names]
+        for names, g in group:
+            sl = slice(g * n, (g + 1) * n)
+            xs = [tree[k][sl] for k in names]
             shape = xs[0].shape
             resid = resids.pop(0)
             if ef is not None:
                 for k, r in zip(names, rows_to_group(resid, shape,
                                                      len(names))):
-                    ef[k].copy_(r)
+                    ef[k][sl].copy_(r)
                 del r   # the last view would keep the residual rows alive
             del resid
             hats = rows_to_group(codec.decode(cfg, payloads.pop(0)), shape,
                                  len(names))
             for k, x in zip(names, xs):
                 hat = hats.pop(0)   # the last view frees the decoded rows
-                mixed = torch.tensordot(Woff, hat, dims=([1], [0]))
+                mixed = torch.tensordot(Woffs[g], hat, dims=([1], [0]))
                 del hat
                 self_term = x.to(torch.float32, copy=True)
-                self_term *= d.reshape((-1,) + (1,) * (x.ndim - 1))
+                self_term *= ds[g].reshape((-1,) + (1,) * (x.ndim - 1))
                 mixed += self_term
                 del self_term
-                out[k] = mixed.to(x.dtype)
+                if k not in out:    # allocated as late as a run needs it
+                    out[k] = torch.empty_like(tree[k])
+                out[k][sl].copy_(mixed)
                 del mixed
     return {k: out[k] for k in tree}, ef
 

@@ -11,7 +11,10 @@ nodes of the simulation engine):
 
 ``W`` is the round's (n, n) mixing matrix (a tensor on the params'
 device), applied as the dense ``W @ X`` by :func:`mix`; a tree -> tree
-callable is accepted too.  The state is a dict of node-stacked flat
+callable is accepted too.  A (G, n, n) stack drives G independent
+copies of the n nodes at once (the sweep's layout: every tensor
+(G * n, ...)): the elementwise updates run over all copies together, on
+the card one grouped launch, and each copy mixes with its own matrix.  The state is a dict of node-stacked flat
 dicts (``{"u": {...}}``).  Each step returns new tensors; nothing is
 updated in place, with one exception: a compressed step writes the new
 EF21 residual into the state's ``ef`` tensors (see below).
@@ -47,10 +50,29 @@ from repro_torch.compress import resolve as resolve_compression
 from repro_torch.kernels import ops
 
 
+def copy_slice(tree: dict, g: int, n: int) -> dict:
+    """Copy ``g``'s ``(n, ...)`` views of a flat dict whose tensors stack
+    several copies of the n nodes along their leading axis."""
+    return {k: x[g * n:(g + 1) * n] for k, x in tree.items()}
+
+
 def mix(W: torch.Tensor, tree: dict) -> dict:
     """x_i' = sum_j W[i, j] x_j applied to every tensor's leading node
-    axis, in f32, cast back to each tensor's dtype."""
+    axis, in f32, cast back to each tensor's dtype.
+
+    ``W`` is one round's (n, n) matrix, or a (G, n, n) stack for G
+    copies of the n nodes (a sweep, :mod:`repro_torch.sim.sweep`): each
+    tensor is then (G * n, ...) and copy g is mixed by ``W[g]`` alone,
+    through the call a single run makes, so its bits are that run's."""
     trace.mark("mix")
+    if W.ndim == 3:
+        n = W.shape[-1]
+        parts = [_mix(Wg, copy_slice(tree, g, n)) for g, Wg in enumerate(W)]
+        return {k: torch.cat([p[k] for p in parts]) for k in tree}
+    return _mix(W, tree)
+
+
+def _mix(W: torch.Tensor, tree: dict) -> dict:
     Wt = W.float()
     return {k: torch.tensordot(Wt, x.float(), dims=([1], [0])).to(x.dtype)
             for k, x in tree.items()}
@@ -129,11 +151,13 @@ def DSGD(momentum: float = 0.0,
     def step_fused(params_n, grads_n, state, W, eta):
         if callable(W):
             pre, mixer = 1.0, W
-        else:
-            d = torch.diagonal(W.float())
+        else:       # (n, n), or (G, n, n) with a pre-scale per copy's row
+            d = torch.diagonal(W.float(), dim1=-2, dim2=-1)
             safe = d != 0.0
             pre = torch.where(safe, d, 1.0)
-            mixer = _as_mixer(W * torch.where(safe, 1.0 / pre, 1.0)[None, :])
+            mixer = _as_mixer(
+                W * torch.where(safe, 1.0 / pre, 1.0).unsqueeze(-2))
+            pre = pre.reshape(-1)
         half, u = half_fused(params_n, grads_n, state["u"], eta, pre)
         return mixer(half), {"u": u}
 

@@ -7,9 +7,9 @@ canonical :class:`TopologySpec`.  The simulation engine consumes
 ``as_dense_stack(steps, device)``: one period as an ``(L, n, n)``
 float32 tensor on the device, plus the per-step round index.  The
 distributed runtime consumes ``as_ppermute_plan()``: the rounds compiled
-into point-to-point slot plans.  The reference's third artifact,
-``as_padded`` (the vmapped sweep), belongs to a slice that is not ported
-yet and raises.
+into point-to-point slot plans.  The multi-config sweep consumes
+``as_padded(steps, length, device)``: the dense stack padded with
+identity rounds to the sweep's common period length.
 
 ``build_schedule(spec)`` memoizes whole Schedules by canonical spec, as
 the reference does.
@@ -40,6 +40,7 @@ class Schedule:
         self._mats = mats
         self.spec = spec
         self._dense: dict[torch.device, torch.Tensor] = {}
+        self._padded: dict[tuple, torch.Tensor] = {}
         self._plan: SchedulePlan | None = None
 
     # -- TopologySchedule delegation --------------------------------------
@@ -132,10 +133,27 @@ class Schedule:
             self._plan = compile_schedule(self._mats)
         return self._plan
 
-    def as_padded(self, steps: int, length: int | None = None):
-        raise NotImplementedError(
-            "the padded stack of the multi-config sweep is not ported to "
-            "repro_torch yet (sweep slice); see ROADMAP.md")
+    def as_padded(self, steps: int, length: int | None = None,
+                  device=None):
+        """Sweep artifact: the dense stack padded with float32 identity
+        rounds to ``length`` (a sweep's common ``Lmax``), built once per
+        ``(device, length)``.  Padding rounds are never indexed:
+        ``idx[t] = t % L < L <= length``."""
+        dev = resolve_device(device)
+        W, idx = self.as_dense_stack(steps, dev)
+        L = int(W.shape[0])
+        length = L if length is None else int(length)
+        if length < L:
+            raise ValueError(f"cannot pad a {L}-round schedule to "
+                             f"length {length}")
+        if length == L:
+            return W, idx
+        pad = self._padded.get((dev, length))
+        if pad is None:
+            eye = torch.eye(self.n, dtype=torch.float32, device=dev)
+            pad = torch.cat([W, eye.expand(length - L, self.n, self.n)])
+            self._padded[(dev, length)] = pad
+        return pad, idx
 
 
 @lru_cache(maxsize=512)

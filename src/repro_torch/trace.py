@@ -9,6 +9,12 @@ call :func:`mark` at the phase boundaries of a step:
     "mix"     a gossip mix begins
     "end"     the step is done
 
+A failure-model step (``simulate_decentralized(failure=)``) marks the
+same, and its mixer closure marks each tensor's ``"stale"`` read (the
+history ring), ``"corrupt"`` read (the Byzantine values) and ``"mix"``;
+``"state"`` opens the node freeze, the clocks and the history write
+after the method's update.
+
 The distributed train step (``repro_torch.dist.steps``) marks
 ``"step"``, ``"update"`` and ``"end"`` the same way; in place of
 ``"mix"``, its gossip mixer marks each tensor's exchange and each

@@ -1107,3 +1107,116 @@ def test_fixed_batch_speculation_on_the_card_matches_the_cpu(card):
             assert torch.equal(res.tokens, out["plain", "card"].tokens)
     assert int(out["self", "card"].spec.accepted.sum()) \
         < int(out["self", "card"].spec.drafted.sum())
+
+
+# ---------------------------------------------------------------------------
+# the multi-config sweep's grouped launches (repro_torch.sim.sweep)
+# ---------------------------------------------------------------------------
+
+def _copies(G, n, shapes, seed, card):
+    g = torch.Generator(device=card).manual_seed(seed)
+    return [torch.randn((G * n,) + s, generator=g, device=card)
+            for s in shapes]
+
+
+MLP_SHAPES = [(32, 64), (64,), (64, 10), (10,)]
+
+
+@pytest.mark.parametrize("G,n", [(10, 16), (6, 3), (1, 8)])
+def test_fused_dsgd_many_over_sweep_copies_equals_per_copy_launches(card, G,
+                                                                   n):
+    """The sweep's update: one grouped launch over G copies' stacked
+    leaves, pre-scale each copy's own per-node vector, equals G launches
+    over each copy's (n, ...) leaves, bit for bit."""
+    xs, us, gs = (_copies(G, n, MLP_SHAPES, s, card) for s in (1, 2, 3))
+    pre = torch.rand(G * n, device=card) + 0.2
+    before = fused_dsgd_many.launches
+    got_x, got_u = ops.fused_dsgd_steps(xs, us, gs, 0.9, 0.05, pre)
+    assert fused_dsgd_many.launches == before + 1
+    for c in range(G):
+        sl = slice(c * n, (c + 1) * n)
+        wx, wu = ops.fused_dsgd_steps(
+            [x[sl].clone() for x in xs], [u[sl].clone() for u in us],
+            [g[sl].clone() for g in gs], 0.9, 0.05, pre[sl].clone())
+        for a, b in zip(got_x + got_u, wx + wu):
+            assert torch.equal(_bits(a[sl]), _bits(b))
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_quantize_ef_many_over_sweep_copies_equals_per_copy_launches(card,
+                                                                    fmt):
+    """The compressed sweep's quantize: every copy's chunk-row records in
+    one grouped launch, each from row offset 0, equal each copy's own
+    launch bit for bit."""
+    from repro_torch.compress.mixing import group_to_rows
+    G, n, chunk = 6, 16, 256
+    leaves = _copies(G, n, MLP_SHAPES, 4, card)
+    errs = _copies(G, n, MLP_SHAPES, 5, card)
+    rows = [group_to_rows([x[c * n:(c + 1) * n]], chunk)
+            for x in leaves for c in range(G)]
+    erows = [group_to_rows([e[c * n:(c + 1) * n]], chunk)
+             for e in errs for c in range(G)]
+    key = ref.sr_key(0, 3)
+    before = quantize_ef_many.launches
+    got = ops.quantize_payload_many(rows, erows, fmt=fmt, key=key,
+                                    row_offsets=[0] * len(rows))
+    assert quantize_ef_many.launches == before + 1
+    per = len(MLP_SHAPES)
+    for c in range(G):
+        mine = [i * G + c for i in range(per)]
+        want = ops.quantize_payload_many(
+            [rows[i].clone() for i in mine], [erows[i].clone() for i in mine],
+            fmt=fmt, key=key, row_offsets=[0] * per)
+        for outs, wants in zip(got, want):
+            for i, w in zip(mine, wants):
+                assert torch.equal(outs[i].view(torch.uint8),
+                                   w.view(torch.uint8))
+
+
+@pytest.mark.parametrize("compression,failure", [
+    (None, None), (None, "drop+delay"), ("int8", None)])
+def test_sweep_on_the_card_equals_its_single_runs(card, compression,
+                                                  failure):
+    """A sweep on the card: every cell equals its independent run on the
+    card bit for bit, with one grouped fused update per step (and for
+    int8 one grouped quantize per step) over every copy."""
+    from repro_torch.configs.paper_mlp import MLPConfig
+    from repro_torch.data.synthetic import dirichlet_classification
+    from repro_torch.models import mlp
+    from repro_torch.optim.decentralized import make_method
+    from repro_torch.sim import (FailureModel, simulate_decentralized,
+                                 sweep_decentralized)
+    from repro_torch.topology import TopologySpec
+
+    n, steps = 16, 12
+    cfg = MLPConfig(input_dim=32, hidden=(64,), num_classes=10)
+    data = dirichlet_classification(n, 256, dim=32, alpha=0.3, seed=2)
+    seeds = [mlp.init(cfg, seed=s, device=card) for s in (0, 1)]
+    specs = [TopologySpec("base", n, 1), TopologySpec("exp", n),
+             TopologySpec("ring", n)]
+    fm = None if failure is None else FailureModel(drop_rate=0.2, delay=2,
+                                                   seed=3)
+    method = make_method("dsgd" if compression else "dsgdm",
+                         compression=compression)
+
+    def batches(step, bs=32):
+        i = (step * bs) % (256 - bs)
+        return data.node_x[:, i:i + bs], data.node_y[:, i:i + bs]
+
+    kw = dict(loss_fn=mlp.loss_fn, method=method, batches=batches,
+              steps=steps, eta=0.05, failure=fm, device=card)
+    b_dsgd, b_quant = fused_dsgd_many.launches, quantize_ef_many.launches
+    sw = sweep_decentralized(params=seeds, schedules=specs, **kw)
+    if compression:
+        assert quantize_ef_many.launches - b_quant == steps
+    else:
+        assert fused_dsgd_many.launches - b_dsgd == steps
+    for c, spec in enumerate(specs):
+        for s, p in enumerate(seeds):
+            one = simulate_decentralized(params=p, schedule=spec, **kw)
+            cell = sw.run(c, s)
+            assert (one.losses == cell.losses).all(), (c, s)
+            for k, x in one.params.items():
+                assert torch.equal(_bits(x), _bits(cell.params[k])), k
+            if fm is not None:
+                assert (one.clocks == cell.clocks).all()

@@ -53,6 +53,7 @@ from repro_torch.data import synthetic
 from repro_torch.models import mlp
 from repro_torch.models import model as TM
 from repro_torch.optim.decentralized import METHOD_NAMES, make_method
+from repro_torch.sim import FailureModel
 from repro_torch.sim.engine import simulate_decentralized
 from repro_torch.topology import TopologySpec
 
@@ -112,9 +113,16 @@ def test_port_backends_are_one_loop_and_unported_options_raise():
     np.testing.assert_array_equal(scan.losses, loop.losses)
     assert scan.test_acc.size == 0 and scan.eval_steps.size == 0
     assert simulate_decentralized(**{**kw, "steps": 0}).losses.size == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP") as exc:
-        simulate_decentralized(failure=object(), **kw)
-    assert "compress" not in str(exc.value)
+    # failure models are ported (tests/test_torch_failure.py); as in the
+    # reference, only the "scan" name takes them, and the clean model is
+    # the synchronous run bit for bit
+    with pytest.raises(ValueError, match="scan backend"):
+        simulate_decentralized(failure=FailureModel(), **{**kw,
+                                                          "backend": "loop"})
+    clean = simulate_decentralized(failure=FailureModel(), **kw)
+    np.testing.assert_array_equal(clean.losses, scan.losses)
+    np.testing.assert_array_equal(clean.clocks, np.full(N, 4))
+    assert scan.clocks is None
     with pytest.raises(ValueError, match="backend"):
         simulate_decentralized(backend="vmap", **kw)
     # a compressed method's state rides through the loop

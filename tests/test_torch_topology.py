@@ -69,10 +69,23 @@ def test_consensus_utilities_match_reference(name, n, k):
 
 
 def test_unported_artifacts_raise():
+    """Every artifact is ported now.  The padded stack equals the
+    reference's bit for bit and is built once per (device, length); a
+    length below the period raises, as in the reference.  The slot plan
+    (its parity is below) is compiled once."""
     sched = build_schedule(TopologySpec(name="base", n=5, k=1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sched.as_padded(4, 8)
-    # the slot plan is ported (its parity is below) and compiled once
+    want = jbuild(JSpec(name="base", n=5, k=1))
+    L = len(sched)
+    for length in (None, L, L + 3):
+        jW, jidx = want.as_padded(4, length)
+        tW, tidx = sched.as_padded(4, length, device="cpu")
+        assert np.array_equal(tW.numpy().view(np.int32),
+                              np.asarray(jW).view(np.int32))
+        assert np.array_equal(tidx.numpy(), np.asarray(jidx))
+    assert sched.as_padded(4, L + 3, "cpu")[0] \
+        is sched.as_padded(9, L + 3, "cpu")[0]
+    with pytest.raises(ValueError, match="cannot pad"):
+        sched.as_padded(4, L - 1, device="cpu")
     assert sched.as_ppermute_plan() is sched.as_ppermute_plan()
 
 
