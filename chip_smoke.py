@@ -93,6 +93,17 @@ Phases (any failure exits non-zero and prints no result line):
      gathered pages, bit for bit.  ``library_ms`` times
      ``scaled_dot_product_attention`` on the already-gathered dense view
      (no PyTorch call takes a block table).
+   - Both attention kernels at the dense zoo's shapes (``[zoo-kernels]``),
+     each arch's head layout from its config: granite-8b (32 q / 8 kv
+     heads of 128) and qwen1.5-4b (20 / 20 of 128, MHA) at B=4 prompts
+     of 1024 with 32 new tokens, gemma2-2b (8 / 4 of 256, softcap 50,
+     local window 4096) at 4608-token prompts and its training forward
+     (B=2, Tq=S=1024): prefill and last-step decode per layer kind,
+     within the tolerance above, each decode row's chosen split equal to
+     kv_splits=1 bit for bit; and the paged kernel at granite-8b's
+     continuous decode (8 slots, page 16).  Where the case has a
+     softcap SDPA computes another function: ``library_ms`` is null and
+     SDPA without the softcap stands beside it.
 3. Serving: full-width gemma3-1b in bf16 (random weights from a seed),
    ``make_engine(batch=4, prompt_len=1024, max_new=64)``, one warm-up
    generation, then one timed greedy generation whose kernel launches
@@ -117,6 +128,16 @@ Phases (any failure exits non-zero and prints no result line):
    step), decode and prefill timed by CUDA events.
    ``[continuous-spec]``: its first 16 requests with self-speculative
    decoding (k = 4, a draft of 2 of 4 pattern blocks, prefill batch 2).
+   ``[zoo-serve]``: granite-8b (36 layers), qwen1.5-4b (40) and
+   gemma2-2b (26, prompts of 4608 so that its 4096-token window binds)
+   at full width and depth in bf16, random weights from a seed, each
+   through ``make_engine(batch=4, max_new=32)``: a warm-up generation,
+   then a timed one (layers x 32 flash launches asserted, with no plain
+   attention or SDPA call), then prefill and the decode steps alone;
+   prefill ms, decode ms/step, tokens/s and peak memory.  Each model is
+   freed before the next.  ``[zoo-continuous]``: granite-8b through the
+   continuous engine, 16 requests (prompts 64-1024), 8 slots, page 16,
+   32 tokens each, 36 paged launches per decode step asserted.
 4. Training: full-width gemma3-1b in bf16 as n = 3 nodes on the Base-2
    graph, DSGD-momentum (0.9, eta 0.01) through ``simulate_decentralized``,
    2 sequences of 1024 tokens per node; one warm-up step, then 6 timed
@@ -132,14 +153,24 @@ Phases (any failure exits non-zero and prints no result line):
    split into
    forward+backward, update and compressed mix, with the peak memory and
    the wire bytes per node per round against f32.
+   ``[zoo-train]``: gemma2-2b (2.61 B params) at full width and depth
+   in bf16 as n = 2 nodes on Base-2, the ``[train]`` method and batch,
+   3 timed steps: ms/step, the split, peak memory; 26 x 2 flash launches
+   and one grouped fused update per step asserted.  ``[remat]``: one
+   gemma2-2b node's ``loss_fn`` gradients with ``remat=True`` against
+   ``remat=False`` on the card, per gradient max |diff| / max |plain|
+   <= 1e-6, with both peaks and both flash counts (26, and 52 with the
+   recomputed blocks).
    ``[dist]``: the same training across processes: 3 ranks of one node
    each (``launch.distributed.spawn_local``, gloo, each message staged
    through pinned host memory, all on this card), each through the
    launcher's per-rank entry ``launch.train.train_rank`` for 3 steps,
    its kernel counters set to 0 just before and read just after (13
    grouped combines, one per bucket of at most 256 MiB of f32 work
-   buffers, over the 340 tensors; one grouped fused update; 26 flash
-   forwards per rank per step, asserted), and each rank's peak memory
+   buffers, over the 340 tensors; one grouped fused update; 50 flash
+   forwards per rank per step, asserted: the step checkpoints each
+   pattern block by default, so the backward runs the 24 block layers'
+   forward again), and each rank's peak memory
    held under the per-tensor mixer's 18.73 GiB plus (S + 1) buckets.
    The simulation engine on the same parameters and batches, run first,
    is the oracle: step 0's per-node losses equal, later ones within
@@ -263,6 +294,16 @@ COMPRESS_CODEC, CHUNK = "int8", 256
 QUANT_SHAPES = tuple(
     (name, (-(-blocks * cols // CHUNK) * rows, CHUNK))
     for (name, (rows, cols)), blocks in zip(DSGD_SHAPES, (1, 4, 4, 4)))
+# the dense zoo's serving paths: B = 4 prompts of 1024 random tokens
+# (gemma2-2b: 4608, past its 4096-token window), 32 greedy tokens; the
+# continuous path of granite-8b: 16 requests of 64-1024 tokens, 8 slots,
+# page 16, 32 tokens each; gemma2-2b trained at full width as n = 2 nodes
+# on Base-2, 3 steps of the [train] batch (2 x 1024 tokens per node)
+ZOO_BATCH, ZOO_NEW = 4, 32
+ZOO_PROMPTS = {"granite-8b": 1024, "qwen1.5-4b": 1024, "gemma2-2b": 4608}
+ZOO_CONT_ARCH, ZOO_CONT_REQUESTS = "granite-8b", 16
+ZOO_TRAIN_ARCH, ZOO_TRAIN_N, ZOO_TRAIN_STEPS = "gemma2-2b", 2, 3
+REMAT_TOL = 1e-6      # max |remat - plain| / max |plain| per gradient
 # the continuous serving path: 8 slots, pages of 16 positions, prompts up
 # to 1024 tokens, 64 new tokens, room for a 4-token speculative window
 CONT_SLOTS, CONT_PAGE, CONT_NEW, CONT_K, CONT_DRAFT = 8, 16, 64, 4, 2
@@ -428,45 +469,118 @@ def phase_build(torch):
     torch.backends.cudnn.allow_tf32 = False
 
 
+def sdpa_call(torch, q, k, v, *, q0, k_valid, window, scale):
+    """SDPA on the same inputs (boolean mask for causal, window and the
+    valid prefix, keys past it zeroed): the yardstick.  It has no
+    softcap, so it computes the function only where there is none."""
+    import torch.nn.functional as F
+    dev = q.device
+    Tq, S = q.shape[1], k.shape[1]
+    qpos = q0 + torch.arange(Tq, device=dev)[:, None]
+    kpos = torch.arange(S, device=dev)[None, :]
+    mask = (kpos <= qpos) & (kpos < k_valid)
+    if window:
+        mask &= kpos > qpos - window
+    kk = torch.where(kpos[0, :, None, None] < k_valid, k, 0)
+    vv = torch.where(kpos[0, :, None, None] < k_valid, v, 0)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, vv))
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True)
+
+
+def flash_case(torch, dev, gen, flush, *, name, phase, B, Tq, S, H, KV, D,
+               q0, k_valid, window, softcap, poison=False):
+    """One flash attention case, in bf16 and f32: the kernel against its
+    plain version (``check_close``), its grid and split printed; with a
+    ``phase``, the bf16 case timed and returned as (phase, JSON entry),
+    the phase naming the path whose launches the entry reports.  Where
+    the case has a softcap, SDPA does not compute the same function: its
+    ``library_ms`` is null, and SDPA on the same inputs without the
+    softcap is kept beside it as ``sdpa_without_softcap_ms``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+
+    out = None
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn(B, Tq, H, D, generator=gen, device=dev)
+        k = torch.randn(B, S, KV, D, generator=gen, device=dev)
+        v = torch.randn(B, S, KV, D, generator=gen, device=dev)
+        fill = float("nan") if poison else 0.0     # the cache's empty tail
+        k[:, k_valid:] = fill
+        v[:, k_valid:] = fill
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        kw = dict(q_start=q0, k_valid_len=k_valid, window=window,
+                  softcap=softcap)
+        want = ref.grouped_sdpa_ref(q, k, v, q_pos0=q0, k_valid_len=k_valid,
+                                    window=window, softcap=softcap)
+        got = flash_attention_fwd(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err, worst, ok = check_close(torch, got, want)
+        dname = str(dtype).split(".")[1]
+        print(f"[kernels] {name} {dname} {err:.3e} {worst:.3f} "
+              f"({_launch_line(flash_attention_fwd)})")
+        if not ok:
+            raise SystemExit(f"flash attention {name} {dname}: max abs err "
+                             f"{err}, {worst} x its tolerance")
+        del want
+        if not (phase and dtype == torch.bfloat16):
+            continue
+        fa = lambda: flash_attention_fwd(q, k, v, **kw)  # noqa: E731
+        plain = lambda: ref.grouped_sdpa_ref(  # noqa: E731
+            q, k, v, q_pos0=q0, k_valid_len=k_valid, window=window,
+            softcap=softcap)
+        lib = sdpa_call(torch, q, k, v, q0=q0, k_valid=k_valid,
+                        window=window, scale=D ** -0.5)
+        nbytes, flops = attention_work(
+            B=B, Tq=Tq, H=H, KV=KV, D=D, Dv=D, q0=q0, k_valid=k_valid,
+            window=window, elt=q.element_size())
+        b_ms, b_by = bound_ms(nbytes, flops, dname)
+        lib_ms, lib_dev = time_ms(torch, lib, flush), graph_ms(torch, lib,
+                                                               flush)
+        out = {
+            "name": f"flash_attention[{name},{dname}]",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu, "
+                      "src/repro_torch/kernels/csrc/flash_core.cuh",
+            "replaces": "src/repro/kernels/flash_attention.py:310",
+            "launches": None,
+            "max_abs_err": err,
+            "ms": time_ms(torch, fa, flush),
+            "plain_ms": time_ms(torch, plain, flush),
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None if softcap is not None else lib_ms,
+            "device_ms": graph_ms(torch, fa, flush),
+            "library_device_ms": None if softcap is not None else lib_dev,
+        }
+        if softcap is not None:
+            out["sdpa_without_softcap_ms"] = lib_ms
+            out["sdpa_without_softcap_device_ms"] = lib_dev
+        print(f"[kernels] {out['name']}: {out['ms']:.4f} ms (bound "
+              f"{b_ms:.5f} ms by {b_by}; plain {out['plain_ms']:.4f} ms; "
+              f"sdpa{' without the softcap' if softcap else ''} "
+              f"{lib_ms:.4f} ms; device, as a graph: "
+              f"{out['device_ms']:.4f} ms, sdpa {lib_dev:.4f} ms)")
+        if Tq == 1:     # a decode row: the chosen split == unsplit
+            chosen = _bits(torch, fa())
+            plan = _launch_line(flash_attention_fwd)
+            one = flash_attention_fwd(q, k, v, kv_splits=1, **kw)
+            if not torch.equal(chosen, _bits(torch, one)):
+                raise SystemExit(f"flash attention {name}: the chosen split "
+                                 f"({plan}) differs from unsplit")
+            print(f"[kernels] {name}: the chosen split ({plan}) == unsplit "
+                  f"bitwise")
+    return None if out is None else (phase, out)
+
+
 def phase_flash_kernels(torch, dev):
     """Flash attention vs plain on the card; returns (phase, JSON entry)
     for each timed bf16 main-path shape, the phase ("prefill", "decode"
     or "train-flash") whose launches the entry reports."""
-    import torch.nn.functional as F
-
-    from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_fwd
 
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-
-    def inputs(dtype, B, Tq, S, D, Dv, k_valid, poison):
-        q = torch.randn(B, Tq, HEADS, D, generator=gen, device=dev)
-        k = torch.randn(B, S, KV_HEADS, D, generator=gen, device=dev)
-        v = torch.randn(B, S, KV_HEADS, Dv, generator=gen, device=dev)
-        fill = float("nan") if poison else 0.0     # the cache's empty tail
-        k[:, k_valid:] = fill
-        v[:, k_valid:] = fill
-        return q.to(dtype), k.to(dtype), v.to(dtype)
-
-    def library(q, k, v, *, q0, k_valid, window, softcap, scale):
-        """SDPA on the same inputs (boolean mask for causal, window and
-        the valid prefix): the yardstick, or None where it has no
-        counterpart (softcap)."""
-        if softcap is not None:
-            return None
-        Tq, S = q.shape[1], k.shape[1]
-        qpos = q0 + torch.arange(Tq, device=dev)[:, None]
-        kpos = torch.arange(S, device=dev)[None, :]
-        mask = (kpos <= qpos) & (kpos < k_valid)
-        if window:
-            mask &= kpos > qpos - window
-        kk = torch.where(kpos[0, :, None, None] < k_valid, k, 0)
-        vv = torch.where(kpos[0, :, None, None] < k_valid, v, 0)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, vv))
-        return lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True)
-
     # (name, phase, B, Tq, S, q0, k_valid, window, softcap, poison); a
     # phase of None marks a correctness-only case
     cases = []
@@ -483,66 +597,94 @@ def phase_flash_kernels(torch, dev):
     cases.append(("softcap,global", None, BATCH, 77, SEQ, 900, 977, None,
                   50.0, True))
 
-    D = Dv = HEAD_DIM
     entries = []
     print("[kernels] case dtype max_abs_err worst_err/tol")
     for (name, phase, B, Tq, S, q0, k_valid, window, softcap,
          poison) in cases:
-        for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = inputs(dtype, B, Tq, S, D, Dv, k_valid, poison)
-            kw = dict(window=window, softcap=softcap)
-            want = ref.grouped_sdpa_ref(q, k, v, q_pos0=q0,
-                                        k_valid_len=k_valid, **kw)
-            got = flash_attention_fwd(q, k, v, q_start=q0,
-                                      k_valid_len=k_valid, **kw)
-            torch.cuda.synchronize()
-            err, worst, ok = check_close(torch, got, want)
-            dname = str(dtype).split(".")[1]
-            print(f"[kernels] {name} {dname} {err:.3e} {worst:.3f} "
-                  f"({_launch_line(flash_attention_fwd)})")
-            if not ok:
-                raise SystemExit(f"flash attention {name} {dname}: max abs "
-                                 f"err {err}, {worst} x its tolerance")
-            if not (phase and dtype == torch.bfloat16):
-                continue
-            fa = lambda: flash_attention_fwd(  # noqa: E731
-                q, k, v, q_start=q0, k_valid_len=k_valid, **kw)
-            plain = lambda: ref.grouped_sdpa_ref(  # noqa: E731
-                q, k, v, q_pos0=q0, k_valid_len=k_valid, **kw)
-            lib = library(q, k, v, q0=q0, k_valid=k_valid, scale=D ** -0.5,
-                          **kw)
-            nbytes, flops = attention_work(
-                B=B, Tq=Tq, H=HEADS, KV=KV_HEADS, D=D, Dv=Dv, q0=q0,
-                k_valid=k_valid, window=window, elt=q.element_size())
-            b_ms, b_by = bound_ms(nbytes, flops, dname)
-            entry = {
-                "name": f"flash_attention[{name},{dname}]",
-                "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/flash_attention.cu, "
-                          "src/repro_torch/kernels/csrc/flash_core.cuh",
-                "replaces": "src/repro/kernels/flash_attention.py:310",
-                "launches": None,
-                "max_abs_err": err,
-                "ms": time_ms(torch, fa, flush),
-                "plain_ms": time_ms(torch, plain, flush),
-                "bound_ms": b_ms,
-                "bound_by": b_by,
-                "library_ms": None if lib is None else time_ms(torch, lib,
-                                                               flush),
-                "device_ms": graph_ms(torch, fa, flush),
-                "library_device_ms": None if lib is None else graph_ms(
-                    torch, lib, flush),
-            }
-            print(f"[kernels] {entry['name']}: {entry['ms']:.4f} ms "
-                  f"(bound {b_ms:.4f} ms by {b_by}; plain "
-                  f"{entry['plain_ms']:.4f} ms; sdpa "
-                  f"{entry['library_ms']} ms; device, as a graph: "
-                  f"{entry['device_ms']:.4f} ms, sdpa "
-                  f"{entry['library_device_ms']} ms)")
-            entries.append((phase, entry))
+        entry = flash_case(torch, dev, gen, flush, name=name, phase=phase,
+                           B=B, Tq=Tq, S=S, H=HEADS, KV=KV_HEADS,
+                           D=HEAD_DIM, q0=q0, k_valid=k_valid, window=window,
+                           softcap=softcap, poison=poison)
+        if entry is not None:
+            entries.append(entry)
     entries += verify_entries(torch, dev, gen, flush)
     del flush
     flash_row_contract(torch, dev, gen, flash_attention_fwd)
+    return entries
+
+
+def phase_zoo_kernels(torch, dev):
+    """Rows 1 and 2 at the dense zoo's shapes (``[zoo-*]``), each arch's
+    head layout from its config: granite-8b (32 q / 8 kv heads of 128)
+    and qwen1.5-4b (20 / 20 of 128, MHA) serving B=4 prompts of 1024
+    with 32 new tokens; gemma2-2b (8 / 4 of 256, softcap 50, the local
+    layers' window 4096) serving 4608-token prompts, where the window
+    binds, and its training forward (B=2, Tq=S=1024).  Prefill, and
+    decode at the last step, for each layer kind, bf16 timed, f32
+    checked; each decode row's chosen split equals kv_splits=1 bit for
+    bit.  Row 2 at granite-8b's continuous decode (8 slots, page 16, Tq
+    1).  Returns (phase, JSON entry) per timed shape."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_flash_attention import \
+        paged_flash_attention_fwd as paged
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    entries = []
+    print("[zoo-kernels] case dtype max_abs_err worst_err/tol")
+    for arch, prompt in ZOO_PROMPTS.items():
+        cfg = get_config(arch)
+        seq = prompt + ZOO_NEW
+        heads = dict(H=cfg.num_heads, KV=cfg.num_kv_heads, D=cfg.head_dim,
+                     softcap=cfg.attn_softcap)
+        windows = sorted({s.window for s in cfg.pattern},
+                         key=lambda w: w is None)
+        for window in windows:
+            layer = "global" if window is None else f"local {window}"
+            for kind, B, Tq, q0, k_valid in (
+                    ("prefill", ZOO_BATCH, prompt, 0, prompt),
+                    (f"decode@{seq - 2}", ZOO_BATCH, 1, seq - 2, seq - 1)):
+                entries.append(flash_case(
+                    torch, dev, gen, flush, name=f"{arch} {kind},{layer}",
+                    phase=f"zoo-serve-{arch}", B=B, Tq=Tq, S=seq, q0=q0,
+                    k_valid=k_valid, window=window, **heads))
+            if arch == ZOO_TRAIN_ARCH:
+                entries.append(flash_case(
+                    torch, dev, gen, flush, name=f"{arch} train,{layer}",
+                    phase="zoo-train-flash", B=TRAIN_B, Tq=TRAIN_SEQ,
+                    S=TRAIN_SEQ, q0=0, k_valid=TRAIN_SEQ, window=window,
+                    **heads))
+        torch.cuda.empty_cache()
+    # row 2 at the continuous path of granite-8b: ragged slot positions
+    cfg = get_config(ZOO_CONT_ARCH)
+    q0 = [64, 207, 351, 512, 640, 801, 1000, PROMPT + ZOO_NEW - 2]
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        q, kp, vp, table, qs = paged_inputs(
+            torch, dev, dtype, gen, ps=CONT_PAGE, Tq=1, q0=q0,
+            heads=(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim),
+            seq=PROMPT + ZOO_NEW)
+        kw = dict(q_start=qs, k_valid_len=qs + 1)
+        want = ref.paged_sdpa_ref(q, kp, vp, table, **kw)
+        got = paged(q, kp, vp, table, **kw)
+        torch.cuda.synchronize()
+        err, worst, ok = check_close(torch, got, want)
+        name = f"{ZOO_CONT_ARCH} decode,global,ps={CONT_PAGE}"
+        print(f"[zoo-kernels] paged {name} {dname} {err:.3e} {worst:.3f} "
+              f"({_launch_line(paged)})")
+        if not ok or bool(got.isnan().any()):
+            raise SystemExit(f"paged attention {name} {dname}: max abs err "
+                             f"{err}, {worst} x its tolerance")
+        if dtype == torch.bfloat16:
+            entries.append(paged_entry(
+                torch, dev, flush, F, ref, paged, f"{ZOO_CONT_ARCH} decode",
+                "global", None, q, kp, vp, table, qs, err,
+                phase="zoo-continuous-paged"))
+    del flush
+    torch.cuda.empty_cache()
     return entries
 
 
@@ -1210,16 +1352,21 @@ def quantize_grouped(torch, dev, gen, flush, key, inputs):
     return entries
 
 
-def paged_inputs(torch, dev, dtype, gen, *, ps, Tq, q0):
+def paged_inputs(torch, dev, dtype, gen, *, ps, Tq, q0,
+                 heads=(HEADS, KV_HEADS, HEAD_DIM),
+                 seq=PROMPT + CONT_NEW + CONT_K):
     """The continuous path's paged attention operands for slot positions
-    ``q0`` (a list): q (B, Tq, 4, 256), pools of 8 x maxp + 1 pages
-    (maxp = ceil(1092 / ps)), each slot's pages distinct, and NaN in
-    scratch page 0 and in every page no slot names."""
-    B, maxp = len(q0), -(-(PROMPT + CONT_NEW + CONT_K) // ps)
+    ``q0`` (a list): q (B, Tq, H, hd), pools of 8 x maxp + 1 pages of KV
+    heads (maxp = ceil(seq / ps)), each slot's pages distinct, and NaN in
+    scratch page 0 and in every page no slot names.  ``heads`` is (H, KV,
+    hd), gemma3-1b's (4, 1, 256) by default; ``seq`` a slot's positions,
+    1092 by default."""
+    H, KV, hd = heads
+    B, maxp = len(q0), -(-seq // ps)
     P = CONT_SLOTS * maxp + 1
-    q = torch.randn(B, Tq, HEADS, HEAD_DIM, generator=gen, device=dev)
-    kp = torch.randn(P, ps, KV_HEADS, HEAD_DIM, generator=gen, device=dev)
-    vp = torch.randn(P, ps, KV_HEADS, HEAD_DIM, generator=gen, device=dev)
+    q = torch.randn(B, Tq, H, hd, generator=gen, device=dev)
+    kp = torch.randn(P, ps, KV, hd, generator=gen, device=dev)
+    vp = torch.randn(P, ps, KV, hd, generator=gen, device=dev)
     table = torch.zeros(B, maxp, dtype=torch.int32)
     used = torch.zeros(P, dtype=torch.bool)
     perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(ps))
@@ -1328,9 +1475,12 @@ def paged_row_contract(torch, flash, paged, name, dname, got, q, kp, vp,
 
 
 def paged_entry(torch, dev, flush, F, ref, paged, kind, layer, window, q,
-                kp, vp, table, qs, err):
-    """The timed JSON entry of one bf16 path shape."""
-    B, Tq = q.shape[:2]
+                kp, vp, table, qs, err, phase=None):
+    """The timed JSON entry of one bf16 path shape; ``phase`` names the
+    path whose launches it reports (by default the continuous path's
+    decode or speculative verify)."""
+    B, Tq, H, D = q.shape
+    KV = kp.shape[2]
     kw = dict(q_start=qs, k_valid_len=qs + Tq, window=window)
     # the yardstick: SDPA on the dense view gathered beforehand (no
     # PyTorch call takes a block table), keys past k_valid zeroed
@@ -1338,21 +1488,20 @@ def paged_entry(torch, dev, flush, F, ref, paged, kind, layer, window, q,
     kpos = torch.arange(S, device=dev)
     valid = kpos[None, :] < (qs + Tq)[:, None].long()             # (B, S)
     kd = torch.where(valid[..., None, None],
-                     kp[table.long()].reshape(B, S, KV_HEADS, -1), 0)
+                     kp[table.long()].reshape(B, S, KV, -1), 0)
     vd = torch.where(valid[..., None, None],
-                     vp[table.long()].reshape(B, S, KV_HEADS, -1), 0)
+                     vp[table.long()].reshape(B, S, KV, -1), 0)
     qpos = qs[:, None].long() + torch.arange(Tq, device=dev)       # (B, Tq)
     mask = (kpos[None, None, :] <= qpos[..., None]) & valid[:, None, :]
     if window:
         mask &= kpos[None, None, :] > qpos[..., None] - window
     qt, kt, vt = (t.transpose(1, 2) for t in (q, kd, vd))
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, attn_mask=mask[:, None], scale=HEAD_DIM ** -0.5,
+        qt, kt, vt, attn_mask=mask[:, None], scale=D ** -0.5,
         enable_gqa=True)
     nbytes = flops = 0
     for start in qs.tolist():
-        nb, fl = attention_work(B=1, Tq=Tq, H=HEADS, KV=KV_HEADS,
-                                D=HEAD_DIM, Dv=HEAD_DIM, q0=start,
+        nb, fl = attention_work(B=1, Tq=Tq, H=H, KV=KV, D=D, Dv=D, q0=start,
                                 k_valid=start + Tq, window=window,
                                 elt=q.element_size())
         nbytes += nb + 4 * -(-(start + Tq) // kp.shape[1])   # table reads
@@ -1382,28 +1531,33 @@ def paged_entry(torch, dev, flush, F, ref, paged, kind, layer, window, q,
           f"{entry['library_ms']:.4f} ms; device, as a graph: "
           f"{entry['device_ms']:.4f} ms, sdpa "
           f"{entry['library_device_ms']:.4f} ms)")
-    phase = "continuous-paged" if kind == "decode" else \
-        "continuous-spec-paged"
+    if phase is None:
+        phase = "continuous-paged" if kind == "decode" else \
+            "continuous-spec-paged"
     return phase, entry
 
 
-def continuous_engine(torch, dev, cfg, **kw):
+def continuous_engine(torch, dev, cfg, new=CONT_NEW, **kw):
     from repro_torch.models.model import PagedCacheLayout
     from repro_torch.serve import ContinuousEngine, prompt_buckets
+    maxp = -(-(PROMPT + new + CONT_K) // CONT_PAGE)
     layout = PagedCacheLayout(page_size=CONT_PAGE,
-                              num_pages=CONT_SLOTS * CONT_MAXP + 1,
-                              max_pages_per_slot=CONT_MAXP)
+                              num_pages=CONT_SLOTS * maxp + 1,
+                              max_pages_per_slot=maxp)
     return ContinuousEngine(
-        cfg, slots=CONT_SLOTS, layout=layout, max_new=CONT_NEW,
+        cfg, slots=CONT_SLOTS, layout=layout, max_new=new,
         buckets=prompt_buckets(PROMPT, min_bucket=CONT_PAGE),
         param_dtype=torch.bfloat16, cache_dtype=torch.bfloat16, device=dev,
         **kw)
 
 
-def phase_continuous(torch, dev, card, params, spec=False):
+def phase_continuous(torch, dev, card, params, spec=False,
+                     requests=CONT_REQUESTS, new=CONT_NEW, tag=None,
+                     phase=None):
     """``[continuous]`` (or ``[continuous-spec]``): the full-width trace
-    through the continuous engine, the paged kernel's launches counted
-    from zero; returns its launches by phase."""
+    of ``requests`` requests, ``new`` tokens each, through the continuous
+    engine, the paged kernel's launches counted from zero; returns its
+    launches by phase (``phase``, or the path's own name)."""
     from repro_torch import trace
     from repro_torch.kernels.paged_flash_attention import \
         paged_flash_attention_fwd
@@ -1411,8 +1565,8 @@ def phase_continuous(torch, dev, card, params, spec=False):
     from repro_torch.serve import poisson_trace
 
     cfg = params.cfg
-    tag = "[continuous-spec]" if spec else "[continuous]"
-    reqs = poisson_trace(CONT_REQUESTS, rate=CONT_RATE, seed=0,
+    tag = tag or ("[continuous-spec]" if spec else "[continuous]")
+    reqs = poisson_trace(requests, rate=CONT_RATE, seed=0,
                          min_prompt=CONT_MIN_PROMPT, max_prompt=PROMPT,
                          vocab_size=cfg.vocab_size)
     kw = {}
@@ -1420,7 +1574,7 @@ def phase_continuous(torch, dev, card, params, spec=False):
         reqs = reqs[:CONT_SPEC_REQUESTS]
         kw = dict(speculate_k=CONT_K, draft_layers=CONT_DRAFT,
                   prefill_batch=2)
-    eng = continuous_engine(torch, dev, cfg, **kw)
+    eng = continuous_engine(torch, dev, cfg, new=new, **kw)
     pool_bytes = sum(t.numel() * t.element_size()
                      for c in layer_caches(eng.pools) for t in c.values())
     torch.cuda.synchronize()
@@ -1435,9 +1589,9 @@ def phase_continuous(torch, dev, card, params, spec=False):
     peak = torch.cuda.max_memory_allocated()
     st = out["stats"]
     n_tok = st["generated_tokens"]
-    if st["requests"] != len(reqs) or n_tok != len(reqs) * CONT_NEW or any(
-            len(r.tokens) != CONT_NEW or not all(0 <= t < cfg.vocab_size
-                                                 for t in r.tokens)
+    if st["requests"] != len(reqs) or n_tok != len(reqs) * new or any(
+            len(r.tokens) != new or not all(0 <= t < cfg.vocab_size
+                                            for t in r.tokens)
             for r in out["results"].values()):
         raise SystemExit(f"{tag} the trace did not drain: {st}")
     steps = st["dispatches"]["decode"]
@@ -1479,8 +1633,8 @@ def phase_continuous(torch, dev, card, params, spec=False):
               f"round")
     del eng
     torch.cuda.empty_cache()
-    return {"continuous-spec-paged" if spec else "continuous-paged":
-            launches}
+    return {phase or ("continuous-spec-paged" if spec
+                      else "continuous-paged"): launches}
 
 
 def phase_continuous_cpu_vs_card(torch, dev):
@@ -1631,6 +1785,146 @@ def phase_main_path(torch, dev, card):
     return launches, params, engine, tokens, res.tokens
 
 
+class plain_attention_calls:
+    """Counts, inside the block, every call of the plain attention
+    versions and of PyTorch's SDPA: a path that runs the kernels makes
+    none."""
+
+    def __enter__(self):
+        import torch.nn.functional as F
+
+        from repro_torch.kernels import ref
+        self.calls = 0
+        self.saved = [(ref, n, getattr(ref, n)) for n in (
+            "grouped_sdpa_ref", "grouped_sdpa_decode_ref", "paged_sdpa_ref")]
+        self.saved.append((F, "scaled_dot_product_attention",
+                           F.scaled_dot_product_attention))
+        for mod, name, fn in self.saved:
+            setattr(mod, name, self._counted(fn))
+        return self
+
+    def _counted(self, fn):
+        def call(*a, **k):
+            self.calls += 1
+            return fn(*a, **k)
+        return call
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def phase_zoo_serve(torch, dev, card, arch):
+    """``[zoo-serve]``: full-width ``arch`` in bf16 (random weights from a
+    seed) through ``make_engine``, B=4 prompts of ``ZOO_PROMPTS[arch]``
+    tokens, 32 greedy tokens: a warm-up generation, then a timed one
+    whose flash launches are counted (layers x 32 passes) with no plain
+    attention or SDPA call; then prefill and the decode steps each alone,
+    timed, giving the engine's tokens.  For granite-8b, ``[zoo-continuous]``
+    on the same weights.  Returns the launches by phase."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.models import model as M
+    from repro_torch.serve import make_engine
+
+    tag = f"[zoo-serve] {arch}"
+    cfg, prompt = get_config(arch), ZOO_PROMPTS[arch]
+    seq, L = prompt + ZOO_NEW, cfg.num_layers
+    t0 = time.perf_counter()
+    params = M.init(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"{tag} full width: {L} layers, d {cfg.d_model}, "
+          f"{cfg.num_heads} q / {cfg.num_kv_heads} kv heads of "
+          f"{cfg.head_dim}, {n_params / 1e9:.3f} B params in bf16 "
+          f"({2 * n_params / 1e9:.2f} GB), init "
+          f"{time.perf_counter() - t0:.1f}s")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (ZOO_BATCH, prompt),
+                           generator=gen, device=dev)
+    engine = make_engine(cfg, batch=ZOO_BATCH, prompt_len=prompt,
+                         max_new=ZOO_NEW, param_dtype=torch.bfloat16,
+                         cache_dtype=torch.bfloat16, device=dev)
+    engine.generate(params, {"tokens": tokens})          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches = {}
+    with plain_attention_calls() as plain:
+        flash_attention_fwd.launches = 0
+        t0 = time.perf_counter()
+        res = engine.generate_with_state(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches["generation"] = flash_attention_fwd.launches
+        peak = torch.cuda.max_memory_allocated()
+        with torch.inference_mode():
+            flash_attention_fwd.launches = 0
+            t0 = time.perf_counter()
+            logits, caches = M.prefill(cfg, params, {"tokens": tokens}, seq,
+                                       torch.bfloat16)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            launches["prefill"] = flash_attention_fwd.launches
+            tok = logits[:, -1].argmax(-1)
+            steps = [tok]
+            flash_attention_fwd.launches = 0
+            t0 = time.perf_counter()
+            for i in range(1, ZOO_NEW):
+                logits, caches = M.decode_step(cfg, params, caches,
+                                               tok[:, None], prompt + i - 1)
+                tok = logits[:, -1].argmax(-1)
+                steps.append(tok)
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0
+            launches["decode"] = flash_attention_fwd.launches
+        del caches, logits
+    for what, want in (("generation", L * ZOO_NEW), ("prefill", L),
+                       ("decode", L * (ZOO_NEW - 1))):
+        if launches[what] != want or plain.calls:
+            raise SystemExit(f"{tag}: flash attention launched "
+                             f"{launches[what]} times in the {what}, "
+                             f"expected {want}; {plain.calls} plain or SDPA "
+                             f"calls")
+    toks = res.tokens
+    same = torch.equal(torch.stack(steps, 1), toks)
+    if toks.shape != (ZOO_BATCH, ZOO_NEW) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()) or not same:
+        raise SystemExit(f"{tag}: bad tokens, shape {tuple(toks.shape)}, "
+                         f"the phases alone give the engine's: {same}")
+    print(f"{tag} {card}: generation {total_s * 1e3:.2f} ms (prefill "
+          f"{prefill_s * 1e3:.2f} ms, decode "
+          f"{decode_s / (ZOO_NEW - 1) * 1e3:.3f} ms/step alone), "
+          f"{ZOO_BATCH * ZOO_NEW / total_s:.1f} tokens/s end to end, "
+          f"{ZOO_BATCH * (ZOO_NEW - 1) / decode_s:.1f} decode tokens/s; "
+          f"peak memory {peak / 2**30:.2f} GiB (max_memory_allocated)")
+    n_embed = cfg.vocab_size * cfg.d_model
+    prefill_floor = (2.0 * (n_params - n_embed) * ZOO_BATCH * prompt
+                     / PEAK_FLOPS["bfloat16"] * 1e3)
+    print(f"{tag} floors: prefill >= {prefill_floor:.3f} ms (operations; "
+          f"attention not counted), decode >= "
+          f"{n_params * 2 / H100_BYTES_PER_S * 1e3:.3f} ms/step (bytes of "
+          f"weights)")
+    print(f"{tag} flash attention launches: generation "
+          f"{launches['generation']} (= {L} layers x {ZOO_NEW} model "
+          f"passes), prefill {launches['prefill']}, decode "
+          f"{launches['decode']}; plain or SDPA calls 0; first tokens "
+          f"{toks[:, :6].tolist()}")
+    out = {f"zoo-serve-{arch}": launches["generation"]}
+    del engine, res, toks, steps, tokens
+    torch.cuda.empty_cache()
+    if arch == ZOO_CONT_ARCH:
+        with plain_attention_calls() as plain:
+            out.update(phase_continuous(
+                torch, dev, card, params, requests=ZOO_CONT_REQUESTS,
+                new=ZOO_NEW, tag=f"[zoo-continuous] {arch}",
+                phase="zoo-continuous-paged"))
+        if plain.calls:
+            raise SystemExit(f"[zoo-continuous] {plain.calls} plain or "
+                             f"SDPA calls")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_spec(torch, dev, card, params, tokens, plain):
     """``[spec]``: the fixed-batch engine speculating on the ``[main]``
     cell (B=4 prompts of 1024, 64 greedy tokens, k = 4), self-speculative
@@ -1644,10 +1938,7 @@ def phase_spec(torch, dev, card, params, tokens, plain):
     launches of the two speculative engines' first timed runs."""
     import dataclasses
 
-    import torch.nn.functional as F
-
     from repro_torch import trace
-    from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.models import model as M
     from repro_torch.serve import make_engine
@@ -1683,18 +1974,7 @@ def phase_spec(torch, dev, card, params, tokens, plain):
         return L + dcfg.num_layers, (SPEC_K + 1) * dcfg.num_layers + L
 
     runs = {name: [] for name in engines}
-    plain_calls = [0]
-    saved = (ref.grouped_sdpa_ref, ref.grouped_sdpa_decode_ref,
-             F.scaled_dot_product_attention)
-
-    def counted(fn):
-        def call(*a, **k):
-            plain_calls[0] += 1
-            return fn(*a, **k)
-        return call
-    ref.grouped_sdpa_ref, ref.grouped_sdpa_decode_ref, \
-        F.scaled_dot_product_attention = (counted(f) for f in saved)
-    try:
+    with plain_attention_calls() as counted:
         for _ in range(SPEC_REPS):
             for name, (eng, dp) in engines.items():
                 torch.cuda.reset_peak_memory_stats()
@@ -1709,21 +1989,18 @@ def phase_spec(torch, dev, card, params, tokens, plain):
                     else int(res.spec.rounds.max())      # the loop's
                 fixed, per_round = want_launches(name, rounds)
                 want = fixed + rounds * per_round if rounds else fixed
-                if flash_attention_fwd.launches != want or plain_calls[0]:
+                if flash_attention_fwd.launches != want or counted.calls:
                     raise SystemExit(
                         f"[spec] {name}: flash attention launched "
                         f"{flash_attention_fwd.launches} times, expected "
                         f"{want} (= {fixed} + {rounds} rounds x "
-                        f"{per_round}); {plain_calls[0]} plain or SDPA "
+                        f"{per_round}); {counted.calls} plain or SDPA "
                         f"calls")
                 runs[name].append(dict(
                     wall=wall, launches=want, res=res,
                     peak=torch.cuda.max_memory_allocated(),
                     spans=_step_spans(marks, start="round")))
                 del marks
-    finally:
-        ref.grouped_sdpa_ref, ref.grouped_sdpa_decode_ref, \
-            F.scaled_dot_product_attention = saved
     walls = {n: sorted(r["wall"] for r in rs) for n, rs in runs.items()}
     base = statistics.median(walls["plain"])
     for name, rs in runs.items():
@@ -1942,12 +2219,16 @@ def phase_cpu_vs_card(torch, dev):
                          f"card {out['card'].tolist()}")
 
 
-def phase_train(torch, dev, card, profile=False, compression=None):
-    """Full-width gemma3-1b DSGD-momentum training on the card, through
-    ``simulate_decentralized``, uncompressed (``[train]``) or with
-    ``compression`` (``[train-compress]``); returns the launch counts of
-    the timed run by phase.  With ``profile``, one more step runs under
-    the profiler (kernel time by name)."""
+def phase_train(torch, dev, card, profile=False, compression=None,
+                arch="gemma3-1b", nodes=TRAIN_N, steps=TRAIN_STEPS,
+                tag=None, pre=None):
+    """Full-width DSGD-momentum training of ``arch`` on the card as
+    ``nodes`` nodes, through ``simulate_decentralized``, uncompressed
+    (``[train]``) or with ``compression`` (``[train-compress]``), or
+    under ``tag`` with launches keyed by ``pre`` (``[zoo-train]``);
+    returns the launch counts of the timed run by phase.  With
+    ``profile``, one more step runs under the profiler (kernel time by
+    name)."""
     from repro_torch import trace
     from repro_torch.compress import reference_leaves
     from repro_torch.configs import get_config
@@ -1964,28 +2245,28 @@ def phase_train(torch, dev, card, profile=False, compression=None):
                                         simulate_decentralized)
     from repro_torch.topology import TopologySpec, build_schedule
 
-    tag = "[train-compress]" if compression else "[train]"
-    pre = "train-compress-" if compression else "train-"
-    cfg = get_config("gemma3-1b")
+    tag = tag or ("[train-compress]" if compression else "[train]")
+    pre = pre or ("train-compress-" if compression else "train-")
+    cfg = get_config(arch)
     params = M.init(cfg, seed=0, dtype=torch.bfloat16,
                     device=dev).state_dict()
     n_params = sum(p.numel() for p in params.values())
-    tokens = TRAIN_N * TRAIN_B * TRAIN_SEQ
-    spec = TopologySpec(name="base", n=TRAIN_N, k=1)
+    tokens = nodes * TRAIN_B * TRAIN_SEQ
+    spec = TopologySpec(name="base", n=nodes, k=1)
 
     def batches(step):
-        b = token_batches(step, batch=TRAIN_N * TRAIN_B, seq=TRAIN_SEQ,
+        b = token_batches(step, batch=nodes * TRAIN_B, seq=TRAIN_SEQ,
                           vocab=cfg.vocab_size)
-        return {k: v.reshape(TRAIN_N, TRAIN_B, TRAIN_SEQ)
+        return {k: v.reshape(nodes, TRAIN_B, TRAIN_SEQ)
                 for k, v in b.items()}
 
     kw = dict(loss_fn=lambda p, b: M.loss_fn(cfg, p, b)[0], params=params,
               method=make_method("dsgdm", momentum=TRAIN_MOMENTUM,
                                  compression=compression),
               schedule=spec, batches=batches, eta=TRAIN_ETA, device=dev)
-    print(f"{tag} gemma3-1b full width: {cfg.num_layers} layers, "
+    print(f"{tag} {arch} full width: {cfg.num_layers} layers, "
           f"{len(params)} parameter tensors, {n_params / 1e9:.3f} B params "
-          f"in bf16; n={TRAIN_N} nodes on base k=1, dsgdm "
+          f"in bf16; n={nodes} nodes on base k=1, dsgdm "
           f"{TRAIN_MOMENTUM}, eta {TRAIN_ETA}, {TRAIN_B} x {TRAIN_SEQ} "
           f"tokens per node"
           + (f"; compression {compression.to_json()}" if compression
@@ -2029,7 +2310,7 @@ def phase_train(torch, dev, card, profile=False, compression=None):
     t0 = time.perf_counter()
     try:
         with trace.cuda_marks() as marks:
-            res = simulate_decentralized(steps=TRAIN_STEPS, **kw)
+            res = simulate_decentralized(steps=steps, **kw)
             torch.cuda.synchronize()
     finally:
         ops.fused_dsgd_steps = real
@@ -2038,15 +2319,16 @@ def phase_train(torch, dev, card, profile=False, compression=None):
     launches = {pre + "fused_dsgd": fused_dsgd_many.launches,
                 pre + "fused_dsgd-tensors": fused_dsgd_many.segments,
                 pre + "fused_dsgd-single": fused_dsgd.launches,
-                pre + "flash": flash_attention_fwd.launches,
-                # the grouped kernel, which the per-shape rows of
-                # [quantize] call one buffer at a time
-                "train-quantize_ef": quantize_ef_many.launches,
-                "train-compress-quantize_ef_many":
-                    quantize_ef_many.launches,
-                "train-compress-quantize_ef_many-segments":
-                    quantize_ef_many.segments,
-                "train-quantize_ef-single": quantize_ef.launches}
+                pre + "flash": flash_attention_fwd.launches}
+    if arch == "gemma3-1b":     # the [quantize] entries report these
+        launches.update({
+            # the grouped kernel, which the per-shape rows of [quantize]
+            # call one buffer at a time
+            "train-quantize_ef": quantize_ef_many.launches,
+            "train-compress-quantize_ef_many": quantize_ef_many.launches,
+            "train-compress-quantize_ef_many-segments":
+                quantize_ef_many.segments,
+            "train-quantize_ef-single": quantize_ef.launches})
     peak = torch.cuda.max_memory_allocated()
 
     leaves = reference_leaves(params)
@@ -2054,36 +2336,39 @@ def phase_train(torch, dev, card, profile=False, compression=None):
     # one grouped quantize per bucket of reference leaves (f32 chunk rows
     # of all nodes) per step
     buckets = len(plan_buckets(
-        [4 * TRAIN_N * CHUNK * max(1, -(-len(g) * params[g[0]].numel()
-                                        // CHUNK)) for g in leaves],
+        [4 * nodes * CHUNK * max(1, -(-len(g) * params[g[0]].numel()
+                                      // CHUNK)) for g in leaves],
         BUCKET_BYTES))
-    n_quant = TRAIN_STEPS * buckets if compression else 0
-    want = {pre + "fused_dsgd": TRAIN_STEPS * dtypes,
-            pre + "fused_dsgd-tensors": TRAIN_STEPS * len(params),
+    n_quant = steps * buckets if compression else 0
+    want = {pre + "fused_dsgd": steps * dtypes,
+            pre + "fused_dsgd-tensors": steps * len(params),
             pre + "fused_dsgd-single": 0,
-            pre + "flash": TRAIN_STEPS * cfg.num_layers * TRAIN_N,
+            pre + "flash": steps * cfg.num_layers * nodes,
             "train-quantize_ef": n_quant,
             "train-compress-quantize_ef_many": n_quant,
             "train-compress-quantize_ef_many-segments":
-                TRAIN_STEPS * len(leaves) if compression else 0,
+                steps * len(leaves) if compression else 0,
             "train-quantize_ef-single": 0}
     for phase, n in want.items():
-        if launches[phase] != n:
+        if phase in launches and launches[phase] != n:
             raise SystemExit(f"{phase} launched {launches[phase]} times in "
-                             f"{TRAIN_STEPS} training steps, expected {n}")
-    if compression and res.state["ct"] != TRAIN_STEPS:
+                             f"{steps} training steps, expected {n}")
+    if arch != "gemma3-1b" and quantize_ef_many.launches + \
+            quantize_ef.launches:
+        raise SystemExit(f"{tag} launched a quantize kernel uncompressed")
+    if compression and res.state["ct"] != steps:
         raise SystemExit(f"compressed state ct = {res.state['ct']} after "
-                         f"{TRAIN_STEPS} steps")
+                         f"{steps} steps")
     losses = res.losses
-    if losses.shape != (TRAIN_STEPS,) or not bool(
+    if losses.shape != (steps,) or not bool(
             torch.isfinite(torch.from_numpy(losses)).all()):
         raise SystemExit(f"training losses not finite: {losses}")
 
     names = [name for name, _ in marks]
-    if names != ["step", "update", "mix", "end"] * TRAIN_STEPS:
+    if names != ["step", "update", "mix", "end"] * steps:
         raise SystemExit(f"unexpected training step marks: {names[:8]}")
     split = {"forward+backward": [], "update": [], "mix": [], "step": []}
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         ev = [e for _, e in marks[4 * i:4 * i + 4]]
         split["forward+backward"].append(ev[0].elapsed_time(ev[1]))
         split["update"].append(ev[1].elapsed_time(ev[2]))
@@ -2093,10 +2378,10 @@ def phase_train(torch, dev, card, profile=False, compression=None):
     cons = float(_consensus_error(res.params))
     mix_name = "compressed mix" if compression else "mix"
     print(f"{tag} {card}: {med['step']:.2f} ms/step (median of "
-          f"{TRAIN_STEPS}, CUDA events; min {min(split['step']):.2f}, max "
+          f"{steps}, CUDA events; min {min(split['step']):.2f}, max "
           f"{max(split['step']):.2f}), {tokens / med['step'] * 1e3:.1f} "
           f"tokens/s ({tokens} tokens per step); host clock "
-          f"{wall / TRAIN_STEPS * 1e3:.2f} ms/step over the whole run")
+          f"{wall / steps * 1e3:.2f} ms/step over the whole run")
     print(f"{tag} split per step (medians): forward+backward "
           f"{med['forward+backward']:.2f} ms, update (grouped kernel) "
           f"{med['update']:.2f} ms, {mix_name} {med['mix']:.2f} ms; host "
@@ -2105,27 +2390,27 @@ def phase_train(torch, dev, card, profile=False, compression=None):
           f"{[round(t * 1e3, 2) for t in host]} ms, of which the garbage "
           f"collector {[round(t * 1e3, 2) for t in gc_in]} ms)")
     print(f"{tag} losses {[round(float(x), 4) for x in losses]}; "
-          f"consensus error after {TRAIN_STEPS} steps {cons:.3e}; peak "
+          f"consensus error after {steps} steps {cons:.3e}; peak "
           f"memory {peak / 2**30:.2f} GiB (max_memory_allocated)")
     compute_floor = 6.0 * n_params * tokens / PEAK_FLOPS["bfloat16"] * 1e3
-    update_bytes = 5 * TRAIN_N * n_params * 2
+    update_bytes = 5 * nodes * n_params * 2
     update_floor = update_bytes / H100_BYTES_PER_S * 1e3
     print(f"{tag} floors: compute >= {compute_floor:.2f} ms/step (6 x "
           f"{n_params / 1e9:.3f} B params x {tokens} tokens at 989 TFLOP/s "
           f"bf16); update >= {update_floor:.2f} ms/step "
           f"({update_bytes / 1e9:.1f} GB at 3.35 TB/s)")
-    print(f"{tag} launches in {TRAIN_STEPS} steps: fused_dsgd "
+    print(f"{tag} launches in {steps} steps: fused_dsgd "
           f"{launches[pre + 'fused_dsgd']} (= {dtypes} dtype x "
-          f"{TRAIN_STEPS} steps) over "
+          f"{steps} steps) over "
           f"{launches[pre + 'fused_dsgd-tensors']} tensors (= "
-          f"{len(params)} x {TRAIN_STEPS}), flash "
+          f"{len(params)} x {steps}), flash "
           f"{launches[pre + 'flash']} (= "
-          f"{cfg.num_layers} layers x {TRAIN_N} nodes x {TRAIN_STEPS})"
+          f"{cfg.num_layers} layers x {nodes} nodes x {steps})"
           + (f", quantize_ef_many {launches['train-quantize_ef']} (= "
              f"{buckets} buckets of at most {BUCKET_BYTES >> 20} MiB x "
-             f"{TRAIN_STEPS} steps) over "
+             f"{steps} steps) over "
              f"{launches['train-compress-quantize_ef_many-segments']} "
-             f"buffers (= {len(leaves)} reference leaves x {TRAIN_STEPS})"
+             f"buffers (= {len(leaves)} reference leaves x {steps})"
              if compression else ""))
     if compression:
         # each reference leaf is one chunk-row payload, padded once
@@ -2133,7 +2418,7 @@ def phase_train(torch, dev, card, profile=False, compression=None):
         wire = sum(compression.wire_bytes(n) for n in sizes)
         f32 = 4 * n_params
         sched = build_schedule(spec)
-        quant_floor = (13 * TRAIN_N * sum(compression.rows(n) for n in sizes)
+        quant_floor = (13 * nodes * sum(compression.rows(n) for n in sizes)
                        * CHUNK / H100_BYTES_PER_S * 1e3)
         print(f"{tag} wire bytes per node per round: "
               f"{sched.bytes_per_node_per_round(wire):.0f} "
@@ -2157,6 +2442,91 @@ def phase_train(torch, dev, card, profile=False, compression=None):
     del params, kw
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_remat(torch, dev, card):
+    """``[remat]``: one gemma2-2b node's ``loss_fn`` gradients at full width
+    (bf16, the ``[zoo-train]`` batch of node 0) with ``remat=True``
+    against ``remat=False`` on the card: per gradient, max |diff| / max
+    |plain| <= ``REMAT_TOL``, the differing elements counted; the peak
+    memory and the flash launches of both (with remat, the backward runs
+    each pattern block's forward again: the launches double)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.models import model as M
+
+    cfg = get_config(ZOO_TRAIN_ARCH)
+    params = M.init(cfg, seed=0, dtype=torch.bfloat16,
+                    device=dev).state_dict()
+    raw = token_batches(0, batch=ZOO_TRAIN_N * TRAIN_B, seq=TRAIN_SEQ,
+                        vocab=cfg.vocab_size)
+    batch = {k: torch.as_tensor(v[:TRAIN_B]).to(dev)
+             for k, v in raw.items()}
+    n_bytes = sum(v.numel() * v.element_size() for v in params.values())
+
+    def run(remat):
+        p = {k: v.detach().requires_grad_() for k, v in params.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        flash_attention_fwd.launches = 0
+        t0 = time.perf_counter()
+        loss = M.loss_fn(cfg, p, batch, remat=remat)[0]
+        forward = flash_attention_fwd.launches
+        grads = torch.autograd.grad(loss, list(p.values()))
+        torch.cuda.synchronize()
+        # the call's own peak: above what was held when it began (the
+        # parameters, and the other runs' gradients kept for the check)
+        return dict(loss=float(loss.detach()), grads=grads,
+                    s=[time.perf_counter() - t0],
+                    peak=torch.cuda.max_memory_allocated() - held,
+                    forward=forward, launches=flash_attention_fwd.launches)
+
+    # warm-up of both modes (the first checkpoint call imports
+    # torch._dynamo, seconds of host time), then each timed twice in turn
+    run(False), run(True)
+    runs = {}
+    for remat in (False, True, True, False):
+        r = run(remat)
+        if remat in runs:
+            runs[remat]["s"] += r["s"]
+        else:
+            runs[remat] = r
+        del r
+    blocks = cfg.num_blocks * len(cfg.pattern)
+    worst, differing, total = 0.0, 0, 0
+    for a, b in zip(runs[True]["grads"], runs[False]["grads"]):
+        diff = (a.float() - b.float()).abs()
+        worst = max(worst, float(diff.max()) / max(float(b.float().abs()
+                                                         .max()), 1e-30))
+        differing += int((diff > 0).sum())
+        total += diff.numel()
+        del diff
+    for remat, r in runs.items():
+        print(f"[remat] {ZOO_TRAIN_ARCH} one node, {TRAIN_B} x {TRAIN_SEQ} "
+              f"tokens, remat={remat}: loss {r['loss']:.6f}, forward + "
+              f"backward {', '.join(f'{t * 1e3:.1f}' for t in r['s'])} ms "
+              f"(host clock, two calls in turn with the other mode), "
+              f"peak memory {r['peak'] / 2**30:.2f} GiB above what the call "
+              f"found allocated (max_memory_allocated; the parameters "
+              f"{n_bytes / 2**30:.2f} GiB besides), flash launches "
+              f"{r['launches']} "
+              f"({r['forward']} in the forward)")
+    print(f"[remat] {card}: gradients remat vs not: {differing} of {total} "
+          f"elements differ, worst max|diff| / max|plain| per tensor "
+          f"{worst:.3e} (tol {REMAT_TOL}); losses equal: "
+          f"{runs[True]['loss'] == runs[False]['loss']}")
+    want = {False: cfg.num_layers, True: cfg.num_layers + blocks}
+    if any(runs[r]["launches"] != want[r] or runs[r]["forward"]
+           != cfg.num_layers for r in runs) or not worst <= REMAT_TOL \
+            or runs[True]["loss"] != runs[False]["loss"]:
+        raise SystemExit(f"[remat] failed: launches "
+                         f"{[runs[r]['launches'] for r in runs]}, expected "
+                         f"{list(want.values())}; worst {worst}")
+    del runs, params
+    torch.cuda.empty_cache()
+    return {"remat-flash": want[True]}
 
 
 def phase_train_cpu_vs_card(torch, dev):
@@ -3468,6 +3838,10 @@ def phase_dist(torch, dev, card, compression=None):
     n_comp = leaf_buckets * DIST_STEPS if compression else 0
     buckets = len(plan_buckets([4 * n for n in numel.values()],
                                BUCKET_BYTES))
+    # the step checkpoints each pattern block (opts.remat, the step's
+    # default): the backward runs their forward, and flash, again
+    flash = cfg.num_layers + (cfg.num_blocks * len(cfg.pattern)
+                              if opts.remat else 0)
     want = {"gossip_mix": 0,
             "gossip_mix_many": 0 if compression else buckets * DIST_STEPS,
             "gossip_mix_many-tensors": 0 if compression
@@ -3475,7 +3849,7 @@ def phase_dist(torch, dev, card, compression=None):
             "gossip_mix_stacked": 0, "fused_dsgd": 0,
             "fused_dsgd_many": DIST_STEPS,
             "fused_dsgd_many-tensors": len(numel) * DIST_STEPS,
-            "flash": cfg.num_layers * DIST_STEPS,
+            "flash": flash * DIST_STEPS,
             "quantize_ef": 0, "quantized_gossip_mix": 0,
             "quantize_ef_many": n_comp, "quantized_gossip_mix_many": n_comp,
             "quantize_ef_many-segments":
@@ -3497,7 +3871,8 @@ def phase_dist(torch, dev, card, compression=None):
           f"{dev} (gloo, each message staged through pinned host memory: "
           f"not NCCL's times), base k=1, dsgdm {TRAIN_MOMENTUM}, eta "
           f"{TRAIN_ETA}, {TRAIN_B} x {TRAIN_SEQ} tokens per rank, "
-          f"{DIST_STEPS} steps; spawn to join {total_s:.1f}s")
+          f"{DIST_STEPS} steps, remat={opts.remat} ({flash} flash "
+          f"launches per rank per step); spawn to join {total_s:.1f}s")
     fails = []
     for res in results:
         r = res["rank"]
@@ -3594,7 +3969,9 @@ def phase_dist(torch, dev, card, compression=None):
     print(f"{tag} combine launches {total['gossip_mix_many']} = {buckets} "
           f"buckets of at most {BUCKET_BYTES >> 20} MiB x {DIST_STEPS} steps "
           f"x {TRAIN_N} ranks, over {len(numel)} tensors per round; peak "
-          f"memory per rank at most {peak / 2**30:.2f} GiB, bound "
+          f"memory per rank at most {peak / 2**30:.2f} GiB with remat="
+          f"{opts.remat} ({DIST_PEAK_GIB} GiB measured without remat), "
+          f"bound "
           f"{peak_bound / 2**30:.2f} GiB = {DIST_PEAK_GIB} GiB (the "
           f"per-tensor mixer's) + (S + 1 = {slots + 1}) x the cap")
     return {pre + "gossip_mix": total["gossip_mix_many"]
@@ -3753,6 +4130,7 @@ def main() -> None:
     entries += phase_dsgd_kernels(torch, dev)
     entries += phase_quantize_kernels(torch, dev)
     entries += phase_paged_kernels(torch, dev)
+    entries += phase_zoo_kernels(torch, dev)
     entries += phase_gossip_kernels(torch, dev)
     launches, params, engine, tokens, plain = phase_main_path(torch, dev,
                                                               card)
@@ -3763,11 +4141,17 @@ def main() -> None:
         phase_profile(torch, dev, params, engine, tokens)
     del params, engine, tokens, plain
     torch.cuda.empty_cache()
+    for arch in ZOO_PROMPTS:        # each model freed before the next
+        launches.update(phase_zoo_serve(torch, dev, card, arch))
     launches.update(phase_train(torch, dev, card, profile=args.profile))
     launches.update(phase_train(
         torch, dev, card, profile=args.profile,
         compression=CompressionConfig(codec=COMPRESS_CODEC, chunk=CHUNK,
                                       error_feedback=True, seed=0)))
+    launches.update(phase_train(
+        torch, dev, card, arch=ZOO_TRAIN_ARCH, nodes=ZOO_TRAIN_N,
+        steps=ZOO_TRAIN_STEPS, tag="[zoo-train]", pre="zoo-train-"))
+    launches.update(phase_remat(torch, dev, card))
     launches.update(phase_dist(torch, dev, card))
     launches.update(phase_dist(
         torch, dev, card,

@@ -1,7 +1,8 @@
 """Architecture registry: ``get_config("<arch-id>")``.
 
-Only the architectures the port serves are registered; the others are
-still on ROADMAP.md's queue and raise ``NotImplementedError``.
+Only the architectures the port serves and trains are registered (the
+dense zoo: gemma3-1b, gemma2-2b, granite-8b and qwen1.5-4b); the others
+are still on ROADMAP.md's queue and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -12,6 +13,9 @@ from .common import (ArchConfig, EncoderConfig, LayerSpec, MLAConfig,
 
 _MODULES = {
     "gemma3-1b": "gemma3_1b",
+    "gemma2-2b": "gemma2_2b",
+    "granite-8b": "granite_8b",
+    "qwen1.5-4b": "qwen15_4b",
 }
 
 ARCH_NAMES = tuple(_MODULES)

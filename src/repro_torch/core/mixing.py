@@ -79,7 +79,8 @@ def masked_effective_W(W: np.ndarray, alive: np.ndarray) -> np.ndarray:
     """Re-normalize one round's matrix for a partial-participation round
     so it stays EXACTLY doubly stochastic over the whole node set, with
     every dead node isolated on the identity (numpy; the failure model
-    that applies it per round is not ported yet, see ROADMAP.md).
+    applies the same rule per round in torch,
+    :func:`repro_torch.sim.failure.effective_W`).
 
     Rule (DESIGN.md Sec. 11): zero every edge touching a dead node, put
     dead nodes on the identity, absorb the elementwise-matched part of

@@ -12,10 +12,17 @@ compiled slot plan's round ``step % len(plan)`` over the group
 Numerics match the simulation engine up to the f32 summation order of the
 combine (``tests/test_torch_dist.py`` is the oracle).
 
+As the reference's, the step checkpoints each pattern block by default
+(``remat=True``, ``steps.py:88``): the backward recomputes a block's
+forward in place of keeping its activations, which the wider models need
+to train.
+
 Not ported yet (they raise ``NotImplementedError``): tensor-parallel
 meshes (``dist/sharding.py``: one rank is one whole node here), the
 gossip/backward ``overlap`` and the serving steps ``make_prefill`` /
-``make_decode_step``.
+``make_decode_step``.  The reference's ``embed_lookup_replicated`` and
+``batch_shapes`` lay its embedding table and batch out over the mesh's
+weight axes; a rank that holds one whole node has nothing to lay out.
 """
 from __future__ import annotations
 
@@ -58,9 +65,9 @@ def make_train_step(cfg, group=None, *,
                     topology: str | TopologySpec | Schedule = "base",
                     k: int = 1, method_name: str = "dsgdm",
                     eta: float = 0.01, param_dtype=torch.bfloat16,
-                    momentum: float = 0.9, flatten_gossip: bool = False,
-                    compression=None, overlap: bool = False
-                    ) -> TrainStepBundle:
+                    remat: bool = True, momentum: float = 0.9,
+                    flatten_gossip: bool = False, compression=None,
+                    overlap: bool = False) -> TrainStepBundle:
     """One DSGD-family step of this rank's node: its gradients -> the
     method update -> gossip round ``step % n_rounds`` over ``group``
     (None: the default group; its size is the node count).
@@ -70,7 +77,8 @@ def make_train_step(cfg, group=None, *,
     a prebuilt ``Schedule``.  ``compression`` (a ``CompressionConfig``,
     a CLI string such as ``"int8"``, or None) turns the gossip into
     quantized, error-feedback payload exchange; the EF residuals and the
-    step counter ride in the method's state.
+    step counter ride in the method's state.  ``remat`` checkpoints each
+    pattern block of the forward (``models.model.loss_fn``).
 
     ``bundle.step_fn(params_1, opt, batch_1, step)`` takes this node's
     flat dict of ``param_dtype`` float tensors (node axis of size 1),
@@ -96,7 +104,7 @@ def make_train_step(cfg, group=None, *,
                               compression=ccfg)
 
     def loss_one(p, b):
-        return M.loss_fn(cfg, p, b)[0]
+        return M.loss_fn(cfg, p, b, remat=remat)[0]
 
     def step_fn(params_1, opt, batch, step):
         bad = {k: x.dtype for k, x in params_1.items()

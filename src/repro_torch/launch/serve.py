@@ -5,10 +5,11 @@ engine (port of ``repro/launch/serve.py``).
         --prompt-len 1024 --gen 64 [--sample --temperature 0.8 \
         --top-k 40 --top-p 0.95] [--eos-id 1] [--reduced] [--device cpu]
 
-Random weights from ``--seed`` (full width in bf16, ``--reduced`` in
-f32), a random prompt batch, one warm-up generation (it builds the CUDA
-kernels on first use), then one timed generation reporting steady-state
-tokens/s.
+``--arch`` is one of the dense zoo (gemma3-1b, gemma2-2b, granite-8b,
+qwen1.5-4b).  Random weights from ``--seed`` (full width in bf16,
+``--reduced`` in f32), a random prompt batch, one warm-up generation (it
+builds the CUDA kernels on first use), then one timed generation
+reporting steady-state tokens/s.
 
 ``--continuous`` serves a seeded Poisson trace through
 :class:`repro_torch.serve.ContinuousEngine` over a paged KV cache,
@@ -49,7 +50,8 @@ def plan_shapes(prompt_len: int, page_size: int = 8):
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="gemma3-1b, gemma2-2b, granite-8b or qwen1.5-4b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16,

@@ -15,8 +15,10 @@ from the same parameters (``models.model.init`` with seed 0; full width
 in bf16, ``--reduced`` in f32), takes rows ``r*b:(r+1)*b`` of the global
 batch of ``data.synthetic.token_batches`` (b = batch / nodes) and prints
 its loss per step; with ``--nproc`` the launcher then prints the mean
-over nodes.  Runs on the card unless ``--device cpu`` is given; without
-a card it exits with an error.
+over nodes.  As the reference's launcher, it checkpoints each pattern
+block at full width and not with ``--reduced`` (``remat=not reduced``).
+Runs on the card unless ``--device cpu`` is given; without a card it
+exits with an error.
 
 Not ported yet (they raise): ``--mesh-model > 1`` (tensor-parallel
 meshes), ``--production-mesh``, ``--overlap`` and ``--ckpt-dir``.
@@ -49,6 +51,7 @@ class TrainOptions:
     compress: str | None = None
     flatten_gossip: bool = False
     log_every: int = 10
+    remat: bool = True          # checkpoint each pattern block
 
 
 @dataclass
@@ -79,7 +82,7 @@ def train_rank(opts: TrainOptions, device, group=None) -> TrainResult:
     dtype = torch.float32 if opts.reduced else torch.bfloat16
     bundle = make_train_step(cfg, group, topology=opts.topology, k=opts.k,
                              method_name=opts.method, eta=opts.eta,
-                             param_dtype=dtype,
+                             param_dtype=dtype, remat=opts.remat,
                              flatten_gossip=opts.flatten_gossip,
                              compression=opts.compress)
     if me == 0:
@@ -123,7 +126,8 @@ def launch(opts: TrainOptions, *, nproc: int, backend: str = "gloo",
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="gemma3-1b, gemma2-2b, granite-8b or qwen1.5-4b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--nproc", type=int, default=None,
                     help="start N local ranks, one node each")
@@ -166,7 +170,8 @@ def main(argv=None) -> None:
         arch=args.arch, reduced=args.reduced, topology=args.topology,
         k=args.k, method=args.method, eta=args.eta, steps=args.steps,
         batch=args.batch, seq=args.seq, compress=args.compress,
-        flatten_gossip=args.flatten_gossip, log_every=args.log_every)
+        flatten_gossip=args.flatten_gossip, log_every=args.log_every,
+        remat=not args.reduced)
     rank_cfg = config_from_args(args)
     if args.nproc is None and rank_cfg.num_processes > 1:
         dev = initialize(rank_cfg, args.backend, args.device)

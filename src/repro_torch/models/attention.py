@@ -1,5 +1,6 @@
-"""Attention: GQA/MQA with RoPE, sliding window, softcap, QK-norm and a
-dense KV cache (port of ``repro/models/attention.py``).
+"""Attention: GQA/MQA/MHA with RoPE, sliding window, softcap, QK-norm,
+optional QKV biases and a dense KV cache (port of
+``repro/models/attention.py``).
 
 :class:`Attention` is the reference's ``attn_init`` / ``attn_apply``.
 It covers the no-cache path and these cache paths:
@@ -91,13 +92,16 @@ def sdpa_two_piece(q, k_cache, v_cache, k_new, v_new, *, window=None,
 
 class Attention(nn.Module):
     def __init__(self, d_model: int, n_heads: int, n_kv: int, head_dim: int,
-                 *, dtype, device, qk_norm: bool = False):
+                 *, dtype, device, qkv_bias: bool = False,
+                 qk_norm: bool = False):
         super().__init__()
         self.n_heads, self.n_kv, self.head_dim = n_heads, n_kv, head_dim
         kw = dict(dtype=dtype, device=device)
-        self.wq = Dense(d_model, n_heads * head_dim, **kw)
-        self.wk = Dense(d_model, n_kv * head_dim, **kw)
-        self.wv = Dense(d_model, n_kv * head_dim, **kw)
+        # qwen's QKV biases (``attn_init``, ``attention.py:142-147``); the
+        # output projection has none
+        self.wq = Dense(d_model, n_heads * head_dim, bias=qkv_bias, **kw)
+        self.wk = Dense(d_model, n_kv * head_dim, bias=qkv_bias, **kw)
+        self.wv = Dense(d_model, n_kv * head_dim, bias=qkv_bias, **kw)
         self.wo = Dense(n_heads * head_dim, d_model, **kw)
         self.q_norm = RMSNorm(head_dim, **kw) if qk_norm else None
         self.k_norm = RMSNorm(head_dim, **kw) if qk_norm else None
@@ -154,10 +158,12 @@ class Attention(nn.Module):
     def _qkv(self, x, positions, rope_theta):
         B, T, _ = x.shape
         H, KV, hd = self.n_heads, self.n_kv, self.head_dim
+        # the projections add their biases, then the QK-norm, then rope,
+        # in the reference's order (``attention.py:175-197``)
         q = self.wq(x).reshape(B, T, H, hd)
         xk = self.wk(x).reshape(B, T, KV, hd)
         xv = self.wv(x).reshape(B, T, KV, hd)
-        if self.q_norm is not None:        # QK-norm runs before rope
+        if self.q_norm is not None:
             q = self.q_norm(q)
             xk = self.k_norm(xk)
         return rope(q, positions, rope_theta), rope(xk, positions,

@@ -4,13 +4,18 @@ pattern ``num_blocks`` times (port of ``repro/models/blocks.py``).
 The reference stacks each pattern position's parameters along a leading
 ``num_blocks`` axis and runs the blocks as a ``lax.scan``; the port keeps
 one module per block (``stack.blocks.<block>.<position>``) and loops.
-Attention + dense-FFN layers only: mamba, MLA, MoE, cross-attention and
-QKV-bias layers raise ``NotImplementedError`` until they are ported.
+With ``remat`` each pattern block runs under activation checkpointing,
+as the reference's ``jax.checkpoint`` around the scan body
+(``blocks.py:206``); prologue layers are not checkpointed.
+Attention + dense-FFN layers, with or without QKV biases: mamba, MLA,
+MoE and cross-attention layers raise ``NotImplementedError`` until they
+are ported.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.common import ArchConfig, LayerSpec
 
@@ -28,8 +33,6 @@ def _check_ported(cfg: ArchConfig, spec: LayerSpec) -> None:
         why = "MoE feed-forward layers"
     elif spec.cross_attn:
         why = "cross-attention layers"
-    elif cfg.qkv_bias:
-        why = "QKV-bias projections"
     if why is not None:
         raise NotImplementedError(f"{why} are not ported to repro_torch yet "
                                   f"({cfg.name}); see ROADMAP.md")
@@ -48,7 +51,8 @@ class Layer(nn.Module):
         d = cfg.d_model
         self.ln1 = RMSNorm(d, **kw)
         self.attn = Attention(d, cfg.num_heads, cfg.num_kv_heads,
-                              cfg.head_dim, qk_norm=cfg.qk_norm, **kw)
+                              cfg.head_dim, qkv_bias=cfg.qkv_bias,
+                              qk_norm=cfg.qk_norm, **kw)
         self.ln1_post = RMSNorm(d, **kw) if cfg.post_norm else None
         ffn = spec.ffn != "none"
         self.ln2 = RMSNorm(d, **kw) if ffn else None
@@ -75,6 +79,31 @@ class Layer(nn.Module):
         return x
 
 
+class Block(nn.ModuleList):
+    """One copy of the pattern: its layers in order (a list, so the
+    ``state_dict`` keys stay ``stack.blocks.<block>.<position>``)."""
+
+    def forward(self, x):
+        for layer in self:
+            x = layer(x)
+        return x
+
+
+def _remat(block: Block, x):
+    """``block(x)`` under activation checkpointing: only ``x`` is kept,
+    and the backward runs the block's forward again.  Its parameters are
+    inputs of the checkpoint, bound to the block through
+    ``functional_call`` on each run: under ``model.loss_fn`` the block
+    holds the caller's tensors only while the forward runs, not when the
+    backward recomputes it."""
+    names, tensors = zip(*block.named_parameters())
+
+    def run(x, *ps):
+        return torch.func.functional_call(block, dict(zip(names, ps)), (x,))
+
+    return checkpoint(run, x, *tensors, use_reentrant=False)
+
+
 class Stack(nn.Module):
     """Prologue layers, then ``num_blocks`` copies of the pattern
     (``stack_init`` / ``stack_apply``)."""
@@ -85,11 +114,11 @@ class Stack(nn.Module):
         self.prologue = nn.ModuleList(Layer(cfg, s, **kw)
                                       for s in cfg.prologue)
         self.blocks = nn.ModuleList(
-            nn.ModuleList(Layer(cfg, s, **kw) for s in cfg.pattern)
+            Block(Layer(cfg, s, **kw) for s in cfg.pattern)
             for _ in range(cfg.num_blocks))
 
     def forward(self, x, *, caches=None, cache_index=None, decode_mode="dus",
-                block_table=None, num_blocks_limit=None):
+                block_table=None, num_blocks_limit=None, remat=False):
         """caches: ``{"prologue": [...], "blocks": [[...] per block]}``
         (updated in place, except in the ``"append_free"`` mode).
         ``cache_index`` (an int, or a (B,) tensor of per-request or
@@ -97,8 +126,12 @@ class Stack(nn.Module):
         every layer's attention as they are.  ``num_blocks_limit`` runs
         the prologue and only the first n pattern blocks, the
         self-speculative draft's early exit (``blocks.py:166-226``): the
-        other blocks' caches are left as they are.  Returns ``(x,
-        caches)``."""
+        other blocks' caches are left as they are.  ``remat`` checkpoints
+        each pattern block of a training forward (no caches).  Returns
+        ``(x, caches)``."""
+        if remat and caches is not None:
+            raise ValueError("remat recomputes a training forward; it takes "
+                             "no caches")
         blocks = self.blocks
         if num_blocks_limit is not None:
             if not 0 <= num_blocks_limit <= len(blocks):
@@ -111,6 +144,9 @@ class Stack(nn.Module):
             c = None if caches is None else caches["prologue"][i]
             x = layer(x, cache=c, **kw)
         for b, block in enumerate(blocks):
+            if remat:
+                x = _remat(block, x)
+                continue
             for i, layer in enumerate(block):
                 c = None if caches is None else caches["blocks"][b][i]
                 x = layer(x, cache=c, **kw)

@@ -50,16 +50,26 @@ class RMSNorm(nn.Module):
 # ---------------------------------------------------------------------------
 
 class Dense(nn.Module):
-    def __init__(self, d_in: int, d_out: int, *, dtype, device):
+    """``x @ w`` (+ ``b``): with ``bias`` a zero-initialised ``b`` of shape
+    ``(d_out,)``, added after the product (``dense_init(..., bias=True)``,
+    ``layers.py:33-43``)."""
+
+    def __init__(self, d_in: int, d_out: int, *, dtype, device,
+                 bias: bool = False):
         super().__init__()
         self.w = nn.Parameter(torch.empty(d_in, d_out, dtype=dtype,
                                           device=device), requires_grad=False)
+        self.b = nn.Parameter(torch.zeros(d_out, dtype=dtype, device=device),
+                              requires_grad=False) if bias else None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         normal_(self.w, generator)
 
     def forward(self, x):
-        return x @ self.w
+        y = x @ self.w
+        if self.b is not None:     # a second rounding, as the reference's
+            y = y + self.b
+        return y
 
 
 class Embed(nn.Module):

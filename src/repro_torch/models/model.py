@@ -1,7 +1,7 @@
 """Decoder-only LM (port of ``repro/models/model.py``).
 
     params = init(cfg, seed, dtype, device)
-    loss, aux = loss_fn(cfg, params, batch)            # training
+    loss, aux = loss_fn(cfg, params, batch[, remat=True])   # training
     logits, caches = prefill(cfg, params, batch, max_seq, cache_dtype)
     logits, caches = decode_step(cfg, params, caches, tokens, index)
     logits, caches = decode_step(cfg, params, caches, tokens,
@@ -53,10 +53,11 @@ class Model(nn.Module):
         self.stack = Stack(cfg, **kw)
         self.final_norm = RMSNorm(cfg.d_model, **kw)
 
-    def forward(self, tokens):
+    def forward(self, tokens, remat=False):
         """The final-normed hidden states (B, T, d_model) of a training
-        forward (no cache)."""
-        return backbone(self.cfg, self, tokens)[0]
+        forward (no cache), each pattern block checkpointed with
+        ``remat``."""
+        return backbone(self.cfg, self, tokens, remat=remat)[0]
 
 
 def init(cfg: ArchConfig, seed: int = 0, dtype=torch.float32,
@@ -130,10 +131,11 @@ def init_paged_cache(cfg: ArchConfig, layout: PagedCacheLayout,
 
 def backbone(cfg: ArchConfig, params: Model, tokens, *, caches=None,
              cache_index=None, decode_mode="dus", block_table=None,
-             num_blocks_limit=None):
+             num_blocks_limit=None, remat=False):
     """Returns ``(hidden, caches)``.  ``num_blocks_limit`` runs the
     prologue and the first n pattern blocks only (the self-speculative
-    draft), sharing the final norm and head with the full model."""
+    draft), sharing the final norm and head with the full model.
+    ``remat`` checkpoints each pattern block (training; no caches)."""
     x = params.embed(tokens)
     if cfg.embed_scale:
         # the constant is rounded to x's dtype before the multiply, as the
@@ -143,7 +145,7 @@ def backbone(cfg: ArchConfig, params: Model, tokens, *, caches=None,
     x, caches = params.stack(x, caches=caches, cache_index=cache_index,
                              decode_mode=decode_mode,
                              block_table=block_table,
-                             num_blocks_limit=num_blocks_limit)
+                             num_blocks_limit=num_blocks_limit, remat=remat)
     return params.final_norm(x), caches
 
 
@@ -154,20 +156,22 @@ def _skeleton(cfg: ArchConfig) -> Model:
     return Model(cfg, device="meta")
 
 
-def loss_fn(cfg: ArchConfig, params, batch):
+def loss_fn(cfg: ArchConfig, params, batch, *, remat=False):
     """Next-token cross-entropy of ``batch = {"tokens", "labels"}``
     (labels == -100 are ignored), as ``model.py:121-154``: the final
     hidden states against the tied embedding table, chunked over
     positions in f32.  ``params`` is a flat dict of a :class:`Model`'s
-    tensors (its ``state_dict`` keys).  Returns ``(loss, {"aux": 0})``:
-    the ported dense models have no router loss.  VLM prefix embeddings
-    raise."""
+    tensors (its ``state_dict`` keys).  ``remat`` checkpoints each pattern
+    block, as the reference's: the backward recomputes the block's
+    forward (the flash kernel launches again there) in place of keeping
+    its activations.  Returns ``(loss, {"aux": 0})``: the ported dense
+    models have no router loss.  VLM prefix embeddings raise."""
     if batch.get("prefix_embeds") is not None:
         raise NotImplementedError(
             "prefix embeddings (VLM) are not ported to repro_torch yet; see "
             "ROADMAP.md")
     h = torch.func.functional_call(_skeleton(cfg), params,
-                                   (batch["tokens"],))
+                                   (batch["tokens"],), {"remat": remat})
     loss = chunked_ce_loss(h, params["embed.table"].T, batch["labels"],
                            logit_softcap=cfg.final_softcap)
     return loss, {"aux": torch.zeros((), device=loss.device)}

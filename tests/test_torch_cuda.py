@@ -1220,3 +1220,102 @@ def test_sweep_on_the_card_equals_its_single_runs(card, compression,
                 assert torch.equal(_bits(x), _bits(cell.params[k])), k
             if fm is not None:
                 assert (one.clocks == cell.clocks).all()
+
+
+# ---------------------------------------------------------------------------
+# the dense zoo's head layouts (gemma2-2b, granite-8b, qwen1.5-4b)
+# ---------------------------------------------------------------------------
+
+def _zoo_heads(arch):
+    """(H, KV, hd, the local layers' window or None, softcap)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    window = max((s.window or 0 for s in cfg.pattern), default=0) or None
+    return (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, window,
+            cfg.attn_softcap)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch,window", [("granite-8b", None),
+                                         ("qwen1.5-4b", None),
+                                         ("gemma2-2b", None),
+                                         ("gemma2-2b", 24)])
+def test_zoo_head_layouts_match_plain(card, arch, window, dtype):
+    """Rows 1 and 2 at each zoo arch's head layout (granite-8b 32 q / 8
+    kv heads of 128, qwen1.5-4b 20 / 20 of 128, gemma2-2b 8 / 4 of 256
+    with softcap 50), small B and S: a prefill continuation and ragged
+    decode rows (dense), and decode rows over pages of 16 (paged),
+    against the plain versions; gemma2-2b's local layer with a window
+    that binds at this S (its 4096 is taken whole in the next test)."""
+    H, KV, D, _, softcap = _zoo_heads(arch)
+    g = torch.Generator(device=card).manual_seed(len(arch) + H)
+    B, S = 2, 96
+    q = torch.randn(B, 40, H, D, generator=g, device=card).to(dtype)
+    k, v = (torch.randn(B, S, KV, D, generator=g, device=card).to(dtype)
+            for _ in range(2))
+    kw = dict(window=window, softcap=softcap)
+    got = ops.sdpa(q, k, v, q_pos0=50, k_valid_len=90, **kw)
+    _assert_close(got, ref.grouped_sdpa_ref(q, k, v, q_pos0=50,
+                                            k_valid_len=90, **kw))
+    pos = torch.tensor([7, S - 1], device=card, dtype=torch.int32)
+    got = ops.sdpa_decode(q[:, :1], k, v, q_start=pos, k_valid_len=pos + 1,
+                          **kw)
+    _assert_close(got, ref.grouped_sdpa_decode_ref(
+        q[:, :1], k, v, q_start=pos, k_valid_len=pos + 1, **kw))
+    qp, kp, vp, table = _paged_case(card, dtype, B=B, H=H, KV=KV, D=D, Dv=D,
+                                    ps=16, maxp=6, seed=H)
+    before = paged_flash_attention_fwd.launches
+    got = ops.paged_sdpa(qp[:, :1], kp, vp, table, q_start=pos,
+                         k_valid_len=pos + 1, **kw)
+    assert paged_flash_attention_fwd.launches == before + 1
+    assert not bool(got.isnan().any())
+    _assert_close(got, ref.paged_sdpa_ref(qp[:, :1], kp, vp, table,
+                                          q_start=pos, k_valid_len=pos + 1,
+                                          **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_4096_split_decode_equals_unsplit(card, dtype):
+    """gemma2-2b's local layer at S > 4096: decode rows whose window of
+    4096 keys binds, split over the key axis (the wrapper's choice and 2
+    to 33 blocks), equal kv_splits=1 bit for bit and the plain version
+    within tolerance."""
+    H, KV, D, window, softcap = _zoo_heads("gemma2-2b")
+    assert window == 4096
+    g = torch.Generator(device=card).manual_seed(4096)
+    B, S = 2, 4240
+    q = torch.randn(B, 1, H, D, generator=g, device=card).to(dtype)
+    k, v = (torch.randn(B, S, KV, D, generator=g, device=card).to(dtype)
+            for _ in range(2))
+    pos = torch.tensor([4100, S - 1], device=card, dtype=torch.int32)
+    kw = dict(q_start=pos, k_valid_len=pos + 1, window=window,
+              softcap=softcap)
+    one = flash_attention_fwd(q, k, v, kv_splits=1, **kw)
+    _assert_close(one, ref.grouped_sdpa_decode_ref(q, k, v, **kw))
+    for splits in (None, 2, 7, 33):
+        got = flash_attention_fwd(q, k, v, kv_splits=splits, **kw)
+        assert torch.equal(_bits(got), _bits(one)), splits
+    assert flash_attention_fwd.last_launch["splits"] == 33
+    torch.cuda.synchronize()
+
+
+def test_qkv_bias_attention_forward_on_the_card(card):
+    """One attention layer with QKV biases (qwen1.5-4b's layout, reduced)
+    on the card against the same layer on the CPU, in f32: one flash
+    launch, the results within the plain version's tolerance of the
+    CPU's (cuBLAS and the kernel sum in other orders)."""
+    from repro_torch.models.attention import Attention
+    g = torch.Generator().manual_seed(5)
+    layer = Attention(256, 4, 4, 64, qkv_bias=True, dtype=torch.float32,
+                      device="cpu")
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.copy_(0.1 * torch.randn(p.shape, generator=g))
+    x = torch.randn(2, 9, 256, generator=g)
+    want = layer(x)
+    before = flash_attention_fwd.launches
+    got = layer.to(card)(x.to(card))
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    assert layer.wq.b is not None and layer.wo.b is None
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

@@ -16,9 +16,11 @@ the CPU.
   every regime under DSGD-momentum and a few under each other method
   (gradient tracking with dropout only): losses within 1e-5, the
   engine tolerance of tests/test_torch_sim.py; accuracies and clocks
-  equal.  D2 is not run under dropout here: it diverges there (losses
-  past 1e3 by step 30, in the reference too), so an absolute tolerance
-  measures the divergence, not the port.  Reduced gemma3-1b, n = 3, 3
+  equal.  D2 under dropout diverges (losses past 1e3 by step 30, in the
+  reference too), so there an absolute tolerance would measure the
+  divergence, not the port: its losses are held to 1e-5 relative above
+  a loss of 1 (absolute below), as ``chip_smoke.py``'s
+  ``[failure-cpu-vs-card]`` holds them.  Reduced gemma3-1b, n = 3, 3
   steps, delay 1 plus dropout: losses and final parameters within 1e-4
   (the reference's parameters are read through its eval hook).
 - The port's own laws: the clean model equals ``failure=None`` bit for
@@ -86,9 +88,11 @@ REGIMES = {
 }
 CASES = ([("dsgdm", r) for r in REGIMES]
          + [("dsgd", r) for r in ("drop", "delay")]
-         + [("d2", r) for r in ("delay", "churn", "all_same")]
+         + [("d2", r) for r in ("delay", "churn", "all_same", "drop")]
          + [("qg-dsgdm", r) for r in ("stragglers", "sign_flip")]
          + [("gt", "drop")])
+# cases whose losses diverge past 1e3 in both packages
+DIVERGING = {("d2", "drop")}
 
 
 @pytest.fixture(scope="module")
@@ -324,7 +328,12 @@ def test_engine_matches_reference(setup, monkeypatch, method, regime):
     want = _reference(setup, method, JFailureModel(**REGIMES[regime]))
     got = _port(setup, method, failure=FailureModel(**REGIMES[regime]))
     np.testing.assert_array_equal(got.eval_steps, want.eval_steps)
-    np.testing.assert_allclose(got.losses, want.losses, rtol=0, atol=1e-5)
+    if (method, regime) in DIVERGING:
+        scale = np.maximum(1.0, np.abs(want.losses))
+        assert np.all(np.abs(got.losses - want.losses) <= 1e-5 * scale)
+    else:
+        np.testing.assert_allclose(got.losses, want.losses, rtol=0,
+                                   atol=1e-5)
     np.testing.assert_array_equal(got.test_acc, want.test_acc)
     np.testing.assert_allclose(got.consensus, want.consensus, rtol=1e-5,
                                atol=0)

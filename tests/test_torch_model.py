@@ -197,8 +197,10 @@ def test_unported_decode_paths_raise():
     # (tests/test_torch_spec.py); an index of another shape raises
     with pytest.raises(ValueError, match="vector"):
         TM.decode_step(cfg, params, caches, tok, torch.tensor([[3]]))
+    # QKV biases are ported (tests/test_torch_zoo.py); MoE layers are not
+    moe = dataclasses.replace(cfg.pattern[0], ffn="moe")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.Model(dataclasses.replace(cfg, qkv_bias=True), device="cpu")
+        TM.Model(dataclasses.replace(cfg, pattern=(moe,)), device="cpu")
 
 
 @pytest.mark.parametrize("softcap", [None, 30.0])

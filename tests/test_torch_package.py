@@ -293,5 +293,5 @@ def test_each_library_hashes_its_own_source(tmp_path):
 
 def test_unported_architectures_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("granite-8b")
+        get_config("grok-1-314b")
     assert get_config("gemma3_1b").name == "gemma3-1b"

@@ -146,18 +146,19 @@ def compressed_mixer_rounds(rank, device, tree_np, ef_np, cases):
 
 
 def train(rank, device, params_np, num_blocks, compression, steps, eta, B,
-          T, method="dsgdm"):
+          T, method="dsgdm", arch="gemma3-1b", remat=True):
     """This rank's node of ``method`` (DSGD-momentum by default) on
-    reduced gemma3-1b (f32) over Base-2, from the given parameters;
+    reduced ``arch`` (f32) over Base-2, from the given parameters, each
+    pattern block checkpointed with ``remat`` (the step's default);
     returns the final parameters, method state and losses as numpy."""
     torch.set_num_threads(1)
-    cfg = get_config("gemma3-1b").reduced(num_blocks=num_blocks)
+    cfg = get_config(arch).reduced(num_blocks=num_blocks)
     n = dist.get_world_size()
     params = node_stack({k: torch.from_numpy(v) for k, v in
                          params_np.items()}, 1, device)
     bundle = make_train_step(cfg, None, topology="base", k=1,
                              method_name=method, eta=eta,
-                             param_dtype=torch.float32,
+                             param_dtype=torch.float32, remat=remat,
                              compression=compression)
     opt = bundle.method.init(params)
     losses = []
