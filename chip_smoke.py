@@ -104,6 +104,19 @@ Phases (any failure exits non-zero and prints no result line):
      continuous decode (8 slots, page 16).  Where the case has a
      softcap SDPA computes another function: ``library_ms`` is null and
      SDPA without the softcap stands beside it.
+   - Row 1 at the MoE family's shapes (``[moe-kernels]``): grok-1-314b
+     (48 q / 8 kv heads of 128, 6 per kv head, softcap 30) and
+     deepseek-v3-671b (MLA's latent expanded to 128 heads of (192, 128),
+     MHA, the explicit scale 192 ** -0.5) at B=4 prompts of 1024 with 32
+     new tokens, prefill and last-step decode, within the tolerance
+     above, each decode row's chosen split equal to kv_splits=1 bit for
+     bit; the head dims the kernel is not instantiated for, (48, 32)
+     (reduced MLA) and (64, 32) (the reference's MLA tests), through the
+     wrapper's zero padding at B=2, Tq=S=1024, 4 heads, each reporting
+     the launches the wrapper counted under its pair over every path run
+     below (no ported path runs (64, 32), and its 0 is read, not set);
+     row 2 at grok-1-314b's continuous decode (8 slots, page 16,
+     softcap 30).
 3. Serving: full-width gemma3-1b in bf16 (random weights from a seed),
    ``make_engine(batch=4, prompt_len=1024, max_new=64)``, one warm-up
    generation, then one timed greedy generation whose kernel launches
@@ -138,6 +151,18 @@ Phases (any failure exits non-zero and prints no result line):
    freed before the next.  ``[zoo-continuous]``: granite-8b through the
    continuous engine, 16 requests (prompts 64-1024), 8 slots, page 16,
    32 tokens each, 36 paged launches per decode step asserted.
+   ``[moe-serve]``: the MoE family at full width, depth cut to fit the
+   card (``dataclasses.replace(cfg, num_blocks=...)``): grok-1-314b with
+   4 of its 64 blocks (20.49 B params, 40.97 GB) and deepseek-v3-671b
+   with its 3 dense prologue layers and 2 of its 58 MoE blocks (27.20 B
+   params with the MTP layer, 54.40 GB), random bf16 weights from seed
+   0, the ``[zoo-serve]`` traffic at prompts of 1024: 4 x 32 = 128 and
+   5 x 32 = 160 flash launches per generation asserted, no plain or SDPA
+   call, the engine's tokens equal to the phases' alone, and MoE-aware
+   floors (decode by the bytes a step reads, every expert at C = 1;
+   prefill by the E x C expert products).  ``[moe-continuous]``:
+   grok-1-314b through the continuous engine with the
+   ``[zoo-continuous]`` traffic, 4 paged launches per decode step.
 4. Training: full-width gemma3-1b in bf16 as n = 3 nodes on the Base-2
    graph, DSGD-momentum (0.9, eta 0.01) through ``simulate_decentralized``,
    2 sequences of 1024 tokens per node; one warm-up step, then 6 timed
@@ -156,7 +181,12 @@ Phases (any failure exits non-zero and prints no result line):
    ``[zoo-train]``: gemma2-2b (2.61 B params) at full width and depth
    in bf16 as n = 2 nodes on Base-2, the ``[train]`` method and batch,
    3 timed steps: ms/step, the split, peak memory; 26 x 2 flash launches
-   and one grouped fused update per step asserted.  ``[remat]``: one
+   and one grouped fused update per step asserted.  ``[moe-train]``:
+   grok-1-314b and deepseek-v3-671b at ``reduced()`` in bf16 as n = 3
+   nodes on Base-2, the ``[train]`` method and batch, 3 steps: one
+   grouped fused update and (layers + MTP) x 3 flash launches per step
+   asserted (deepseek's attention at (48, 32) through ``ops.sdpa``'s
+   padding).  ``[remat]``: one
    gemma2-2b node's ``loss_fn`` gradients with ``remat=True`` against
    ``remat=False`` on the card, per gradient max |diff| / max |plain|
    <= 1e-6, with both peaks and both flash counts (26, and 52 with the
@@ -214,7 +244,10 @@ Phases (any failure exits non-zero and prints no result line):
    copy equal to the plain version and to per-copy launches bit for
    bit, timed against both.
 5. The port on the card against the port on the CPU: reduced gemma3-1b
-   serving in f32 (greedy tokens equal, prefill logits within 1e-4); the
+   serving in f32 (greedy tokens equal, prefill logits within 1e-4);
+   ``[moe-cpu-vs-card]``: reduced grok-1-314b and deepseek-v3-671b in
+   f32, prefill and 4 decode steps' logits and ``loss_fn`` with the aux
+   (and MTP) terms within 1e-4; the
    five methods on the paper MLP (losses within 1e-5) and reduced
    gemma3-1b DSGD-momentum training (losses within 1e-4).
    ``[compress-cpu-vs-card]``: ``compressed_dense_mix`` with every codec
@@ -304,6 +337,20 @@ ZOO_PROMPTS = {"granite-8b": 1024, "qwen1.5-4b": 1024, "gemma2-2b": 4608}
 ZOO_CONT_ARCH, ZOO_CONT_REQUESTS = "granite-8b", 16
 ZOO_TRAIN_ARCH, ZOO_TRAIN_N, ZOO_TRAIN_STEPS = "gemma2-2b", 2, 3
 REMAT_TOL = 1e-6      # max |remat - plain| / max |plain| per gradient
+# the MoE family served at full width, depth cut to fit 80 GB: grok-1-314b
+# 4 of its 64 blocks (20.49 B params), deepseek-v3-671b its 3 dense
+# prologue layers and 2 of its 58 MoE blocks (27.20 B params with the MTP
+# layer), B = 4 prompts of 1024 tokens, 32 greedy tokens; grok through
+# the continuous engine with the [zoo-continuous] traffic; both trained at
+# reduced() as n = 3 nodes on Base-2 (full width does not fit one card at
+# any depth for n >= 2)
+MOE_BLOCKS = {"grok-1-314b": 4, "deepseek-v3-671b": 2}
+MOE_PROMPT, MOE_CONT_ARCH = 1024, "grok-1-314b"
+MOE_TRAIN_N, MOE_TRAIN_STEPS = 3, 3
+# the padded head-dim pairs: reduced MLA's, and the reference's MLA tests'
+# (tests/test_decode_attention.py:37), which no ported path runs; each
+# entry reports the launches counted under its pair over the path runs
+MOE_PADDED = ((48, 32), (64, 32))
 # the continuous serving path: 8 slots, pages of 16 positions, prompts up
 # to 1024 tokens, 64 new tokens, room for a 4-token speculative window
 CONT_SLOTS, CONT_PAGE, CONT_NEW, CONT_K, CONT_DRAFT = 8, 16, 64, 4, 2
@@ -489,30 +536,38 @@ def sdpa_call(torch, q, k, v, *, q0, k_valid, window, scale):
 
 
 def flash_case(torch, dev, gen, flush, *, name, phase, B, Tq, S, H, KV, D,
-               q0, k_valid, window, softcap, poison=False):
+               q0, k_valid, window, softcap, poison=False, Dv=None,
+               scale=None):
     """One flash attention case, in bf16 and f32: the kernel against its
     plain version (``check_close``), its grid and split printed; with a
     ``phase``, the bf16 case timed and returned as (phase, JSON entry),
     the phase naming the path whose launches the entry reports.  Where
     the case has a softcap, SDPA does not compute the same function: its
     ``library_ms`` is null, and SDPA on the same inputs without the
-    softcap is kept beside it as ``sdpa_without_softcap_ms``."""
+    softcap is kept beside it as ``sdpa_without_softcap_ms``.  ``Dv``
+    (default D) is the value head dim, ``scale`` an explicit softmax
+    scale (MLA's); a pair the kernel is not instantiated for goes through
+    the wrapper's zero padding, as on the model path."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_attention import (SUPPORTED_DIMS,
+                                                     flash_attention_fwd)
 
+    Dv = Dv or D
+    padded = (D, Dv) not in SUPPORTED_DIMS
     out = None
     for dtype in (torch.bfloat16, torch.float32):
         q = torch.randn(B, Tq, H, D, generator=gen, device=dev)
         k = torch.randn(B, S, KV, D, generator=gen, device=dev)
-        v = torch.randn(B, S, KV, D, generator=gen, device=dev)
+        v = torch.randn(B, S, KV, Dv, generator=gen, device=dev)
         fill = float("nan") if poison else 0.0     # the cache's empty tail
         k[:, k_valid:] = fill
         v[:, k_valid:] = fill
         q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
         kw = dict(q_start=q0, k_valid_len=k_valid, window=window,
-                  softcap=softcap)
+                  softcap=softcap, scale=scale)
         want = ref.grouped_sdpa_ref(q, k, v, q_pos0=q0, k_valid_len=k_valid,
-                                    window=window, softcap=softcap)
+                                    window=window, softcap=softcap,
+                                    scale=scale)
         got = flash_attention_fwd(q, k, v, **kw)
         torch.cuda.synchronize()
         err, worst, ok = check_close(torch, got, want)
@@ -528,11 +583,11 @@ def flash_case(torch, dev, gen, flush, *, name, phase, B, Tq, S, H, KV, D,
         fa = lambda: flash_attention_fwd(q, k, v, **kw)  # noqa: E731
         plain = lambda: ref.grouped_sdpa_ref(  # noqa: E731
             q, k, v, q_pos0=q0, k_valid_len=k_valid, window=window,
-            softcap=softcap)
+            softcap=softcap, scale=scale)
         lib = sdpa_call(torch, q, k, v, q0=q0, k_valid=k_valid,
-                        window=window, scale=D ** -0.5)
+                        window=window, scale=scale or D ** -0.5)
         nbytes, flops = attention_work(
-            B=B, Tq=Tq, H=H, KV=KV, D=D, Dv=D, q0=q0, k_valid=k_valid,
+            B=B, Tq=Tq, H=H, KV=KV, D=D, Dv=Dv, q0=q0, k_valid=k_valid,
             window=window, elt=q.element_size())
         b_ms, b_by = bound_ms(nbytes, flops, dname)
         lib_ms, lib_dev = time_ms(torch, lib, flush), graph_ms(torch, lib,
@@ -541,7 +596,10 @@ def flash_case(torch, dev, gen, flush, *, name, phase, B, Tq, S, H, KV, D,
             "name": f"flash_attention[{name},{dname}]",
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu, "
-                      "src/repro_torch/kernels/csrc/flash_core.cuh",
+                      "src/repro_torch/kernels/csrc/flash_core.cuh"
+                      + (", src/repro_torch/kernels/flash_attention.py "
+                         "(_pad_heads)"
+                         if padded else ""),
             "replaces": "src/repro/kernels/flash_attention.py:310",
             "launches": None,
             "max_abs_err": err,
@@ -683,6 +741,87 @@ def phase_zoo_kernels(torch, dev):
                 torch, dev, flush, F, ref, paged, f"{ZOO_CONT_ARCH} decode",
                 "global", None, q, kp, vp, table, qs, err,
                 phase="zoo-continuous-paged"))
+    del flush
+    torch.cuda.empty_cache()
+    return entries
+
+
+def phase_moe_kernels(torch, dev):
+    """``[moe-kernels]``: row 1 at the MoE family's shapes, each arch's
+    head layout from its config: grok-1-314b (48 q / 8 kv heads of 128, 6
+    per kv head, softcap 30) and deepseek-v3-671b (MLA expanded to 128
+    heads of (192, 128), MHA, the explicit scale 192 ** -0.5) serving B=4
+    prompts of 1024 with 32 new tokens: prefill and last-step decode,
+    bf16 timed, f32 checked, each decode row's chosen split equal to
+    kv_splits=1 bit for bit.  The padded pairs through the wrapper's zero
+    padding at the [moe-train] shape (B=2, Tq=S=1024, 4 heads): reduced
+    MLA's (48, 32) and (64, 32), which no ported path runs, each entry
+    reporting the launches counted under its pair over the path runs
+    (``path-flash-<D>x<Dv>``).  Row 2 at grok-1-314b's continuous decode (8
+    slots, page 16, softcap 30).  Returns (phase, JSON entry) per timed
+    shape."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_flash_attention import \
+        paged_flash_attention_fwd as paged
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    entries = []
+    seq = MOE_PROMPT + ZOO_NEW
+    print("[moe-kernels] case dtype max_abs_err worst_err/tol")
+    for arch in MOE_BLOCKS:
+        cfg = get_config(arch)
+        if cfg.mla is not None:        # the latent expanded to MHA heads
+            m = cfg.mla
+            D = m.qk_nope_dim + m.qk_rope_dim
+            heads = dict(H=cfg.num_heads, KV=cfg.num_heads, D=D,
+                         Dv=m.v_head_dim, scale=D ** -0.5)
+        else:
+            heads = dict(H=cfg.num_heads, KV=cfg.num_kv_heads,
+                         D=cfg.head_dim)
+        for kind, Tq, q0, k_valid in (
+                ("prefill", MOE_PROMPT, 0, MOE_PROMPT),
+                (f"decode@{seq - 2}", 1, seq - 2, seq - 1)):
+            entries.append(flash_case(
+                torch, dev, gen, flush, name=f"{arch} {kind},global",
+                phase=f"moe-serve-{arch}", B=ZOO_BATCH, Tq=Tq, S=seq, q0=q0,
+                k_valid=k_valid, window=None, softcap=cfg.attn_softcap,
+                **heads))
+        torch.cuda.empty_cache()
+    heads = get_config("deepseek-v3-671b").reduced().num_heads
+    for D, Dv in MOE_PADDED:
+        entries.append(flash_case(
+            torch, dev, gen, flush, name=f"padded ({D}, {Dv}) train",
+            phase=f"path-flash-{D}x{Dv}", B=TRAIN_B, Tq=TRAIN_SEQ,
+            S=TRAIN_SEQ, H=heads, KV=heads, D=D, Dv=Dv, q0=0,
+            k_valid=TRAIN_SEQ, window=None, softcap=None, scale=D ** -0.5))
+    # row 2 at grok-1-314b's continuous decode: ragged slot positions
+    cfg = get_config(MOE_CONT_ARCH)
+    q0 = [64, 207, 351, 512, 640, 801, 1000, seq - 2]
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        q, kp, vp, table, qs = paged_inputs(
+            torch, dev, dtype, gen, ps=CONT_PAGE, Tq=1, q0=q0,
+            heads=(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim), seq=seq)
+        kw = dict(q_start=qs, k_valid_len=qs + 1, softcap=cfg.attn_softcap)
+        want = ref.paged_sdpa_ref(q, kp, vp, table, **kw)
+        got = paged(q, kp, vp, table, **kw)
+        torch.cuda.synchronize()
+        err, worst, ok = check_close(torch, got, want)
+        name = f"{MOE_CONT_ARCH} decode,global,ps={CONT_PAGE}"
+        print(f"[moe-kernels] paged {name} {dname} {err:.3e} {worst:.3f} "
+              f"({_launch_line(paged)})")
+        if not ok or bool(got.isnan().any()):
+            raise SystemExit(f"paged attention {name} {dname}: max abs err "
+                             f"{err}, {worst} x its tolerance")
+        if dtype == torch.bfloat16:
+            entries.append(paged_entry(
+                torch, dev, flush, F, ref, paged, f"{MOE_CONT_ARCH} decode",
+                "global", None, q, kp, vp, table, qs, err,
+                phase="moe-continuous-paged", softcap=cfg.attn_softcap))
     del flush
     torch.cuda.empty_cache()
     return entries
@@ -1475,13 +1614,16 @@ def paged_row_contract(torch, flash, paged, name, dname, got, q, kp, vp,
 
 
 def paged_entry(torch, dev, flush, F, ref, paged, kind, layer, window, q,
-                kp, vp, table, qs, err, phase=None):
+                kp, vp, table, qs, err, phase=None, softcap=None):
     """The timed JSON entry of one bf16 path shape; ``phase`` names the
     path whose launches it reports (by default the continuous path's
-    decode or speculative verify)."""
+    decode or speculative verify).  With a ``softcap`` SDPA computes
+    another function: ``library_ms`` is null, and SDPA without the
+    softcap stands beside it."""
     B, Tq, H, D = q.shape
     KV = kp.shape[2]
-    kw = dict(q_start=qs, k_valid_len=qs + Tq, window=window)
+    kw = dict(q_start=qs, k_valid_len=qs + Tq, window=window,
+              softcap=softcap)
     # the yardstick: SDPA on the dense view gathered beforehand (no
     # PyTorch call takes a block table), keys past k_valid zeroed
     S = table.shape[1] * kp.shape[1]
@@ -1507,6 +1649,7 @@ def paged_entry(torch, dev, flush, F, ref, paged, kind, layer, window, q,
         nbytes += nb + 4 * -(-(start + Tq) // kp.shape[1])   # table reads
         flops += fl
     b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+    lib_ms, lib_dev = time_ms(torch, lib, flush), graph_ms(torch, lib, flush)
     entry = {
         "name": f"paged_flash_attention[{kind},{layer},bfloat16]",
         "route": "cuda",
@@ -1520,17 +1663,20 @@ def paged_entry(torch, dev, flush, F, ref, paged, kind, layer, window, q,
             q, kp, vp, table, **kw), flush),
         "bound_ms": b_ms,
         "bound_by": b_by,
-        "library_ms": time_ms(torch, lib, flush),
+        "library_ms": None if softcap is not None else lib_ms,
         "device_ms": graph_ms(torch, lambda: paged(q, kp, vp, table, **kw),
                               flush),
-        "library_device_ms": graph_ms(torch, lib, flush),
+        "library_device_ms": None if softcap is not None else lib_dev,
     }
+    if softcap is not None:
+        entry["sdpa_without_softcap_ms"] = lib_ms
+        entry["sdpa_without_softcap_device_ms"] = lib_dev
     print(f"[paged] {entry['name']}: {entry['ms']:.4f} ms (bound "
           f"{b_ms:.5f} ms by {b_by}, {nbytes} B; plain "
-          f"{entry['plain_ms']:.4f} ms; sdpa on the gathered view "
-          f"{entry['library_ms']:.4f} ms; device, as a graph: "
-          f"{entry['device_ms']:.4f} ms, sdpa "
-          f"{entry['library_device_ms']:.4f} ms)")
+          f"{entry['plain_ms']:.4f} ms; sdpa on the gathered view"
+          f"{' without the softcap' if softcap else ''} {lib_ms:.4f} ms; "
+          f"device, as a graph: {entry['device_ms']:.4f} ms, sdpa "
+          f"{lib_dev:.4f} ms)")
     if phase is None:
         phase = "continuous-paged" if kind == "decode" else \
             "continuous-spec-paged"
@@ -1814,26 +1960,66 @@ class plain_attention_calls:
             setattr(mod, name, fn)
 
 
-def phase_zoo_serve(torch, dev, card, arch):
+def serve_floors(cfg, params, batch, prompt):
+    """The least time of one prefill and of one decode step on the card,
+    from the weights: a decode step reads every weight it uses once (the
+    tied table for the logits; an untied model's input table, of which it
+    reads B rows, and its MTP layer are left out); prefill does 2 FLOPs
+    per weight per prompt token, an MoE layer's experts only on the E x C
+    slots its capacity gives the B x prompt tokens (attention and the
+    output head, at the last position only, not counted).  With C = 1 at
+    decode every expert is read.  Returns (prefill ms, decode ms)."""
+    from repro_torch.models.moe import capacity
+
+    tokens = batch * prompt
+    read = flops = 0
+    for name, p in params.named_parameters():
+        n = p.numel()
+        if name.startswith("mtp."):
+            continue
+        if name in ("embed.table", "lm_head.w"):
+            read += n if name == "lm_head.w" or cfg.tie_embeddings else 0
+            continue
+        read += n
+        if ".moe.w_" in name:          # (E, D, F) or (E, F, D) experts
+            flops += 2.0 * n * capacity(tokens, cfg.moe)
+        else:
+            flops += 2.0 * n * tokens
+    return (flops / PEAK_FLOPS["bfloat16"] * 1e3,
+            2.0 * read / H100_BYTES_PER_S * 1e3)
+
+
+def phase_zoo_serve(torch, dev, card, arch, blocks=None):
     """``[zoo-serve]``: full-width ``arch`` in bf16 (random weights from a
     seed) through ``make_engine``, B=4 prompts of ``ZOO_PROMPTS[arch]``
     tokens, 32 greedy tokens: a warm-up generation, then a timed one
     whose flash launches are counted (layers x 32 passes) with no plain
     attention or SDPA call; then prefill and the decode steps each alone,
     timed, giving the engine's tokens.  For granite-8b, ``[zoo-continuous]``
-    on the same weights.  Returns the launches by phase."""
+    on the same weights.  With ``blocks`` (the MoE family) it is
+    ``[moe-serve]``: the depth cut to that many pattern blocks, prompts
+    of ``MOE_PROMPT``, and for grok-1-314b ``[moe-continuous]``.  Returns
+    the launches by phase."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.models import model as M
     from repro_torch.serve import make_engine
 
-    tag = f"[zoo-serve] {arch}"
-    cfg, prompt = get_config(arch), ZOO_PROMPTS[arch]
+    cfg = get_config(arch)
+    kind = "zoo" if blocks is None else "moe"
+    tag = f"[{kind}-serve] {arch}"
+    depth = ""
+    if blocks is not None:
+        depth = f" (depth cut: {blocks} of {cfg.num_blocks} blocks)"
+        cfg = dataclasses.replace(cfg, num_blocks=blocks)
+    prompt = ZOO_PROMPTS.get(arch, MOE_PROMPT)
     seq, L = prompt + ZOO_NEW, cfg.num_layers
     t0 = time.perf_counter()
     params = M.init(cfg, seed=0, dtype=torch.bfloat16, device=dev)
     n_params = sum(p.numel() for p in params.parameters())
-    print(f"{tag} full width: {L} layers, d {cfg.d_model}, "
+    print(f"{tag} full width{depth}: {L} layers, d {cfg.d_model}, "
           f"{cfg.num_heads} q / {cfg.num_kv_heads} kv heads of "
           f"{cfg.head_dim}, {n_params / 1e9:.3f} B params in bf16 "
           f"({2 * n_params / 1e9:.2f} GB), init "
@@ -1896,29 +2082,28 @@ def phase_zoo_serve(torch, dev, card, arch):
           f"{ZOO_BATCH * ZOO_NEW / total_s:.1f} tokens/s end to end, "
           f"{ZOO_BATCH * (ZOO_NEW - 1) / decode_s:.1f} decode tokens/s; "
           f"peak memory {peak / 2**30:.2f} GiB (max_memory_allocated)")
-    n_embed = cfg.vocab_size * cfg.d_model
-    prefill_floor = (2.0 * (n_params - n_embed) * ZOO_BATCH * prompt
-                     / PEAK_FLOPS["bfloat16"] * 1e3)
+    prefill_floor, decode_floor = serve_floors(cfg, params, ZOO_BATCH,
+                                               prompt)
     print(f"{tag} floors: prefill >= {prefill_floor:.3f} ms (operations; "
-          f"attention not counted), decode >= "
-          f"{n_params * 2 / H100_BYTES_PER_S * 1e3:.3f} ms/step (bytes of "
-          f"weights)")
+          f"{'experts on E x C slots, ' if cfg.moe else ''}attention not "
+          f"counted), decode >= {decode_floor:.3f} ms/step (bytes of the "
+          f"weights a step reads)")
     print(f"{tag} flash attention launches: generation "
           f"{launches['generation']} (= {L} layers x {ZOO_NEW} model "
           f"passes), prefill {launches['prefill']}, decode "
           f"{launches['decode']}; plain or SDPA calls 0; first tokens "
           f"{toks[:, :6].tolist()}")
-    out = {f"zoo-serve-{arch}": launches["generation"]}
+    out = {f"{kind}-serve-{arch}": launches["generation"]}
     del engine, res, toks, steps, tokens
     torch.cuda.empty_cache()
-    if arch == ZOO_CONT_ARCH:
+    if arch in (ZOO_CONT_ARCH, MOE_CONT_ARCH):
         with plain_attention_calls() as plain:
             out.update(phase_continuous(
                 torch, dev, card, params, requests=ZOO_CONT_REQUESTS,
-                new=ZOO_NEW, tag=f"[zoo-continuous] {arch}",
-                phase="zoo-continuous-paged"))
+                new=ZOO_NEW, tag=f"[{kind}-continuous] {arch}",
+                phase=f"{kind}-continuous-paged"))
         if plain.calls:
-            raise SystemExit(f"[zoo-continuous] {plain.calls} plain or "
+            raise SystemExit(f"[{kind}-continuous] {plain.calls} plain or "
                              f"SDPA calls")
     del params
     torch.cuda.empty_cache()
@@ -2219,16 +2404,64 @@ def phase_cpu_vs_card(torch, dev):
                          f"card {out['card'].tolist()}")
 
 
+def phase_moe_cpu_vs_card(torch, dev):
+    """``[moe-cpu-vs-card]``: reduced grok-1-314b and deepseek-v3-671b in
+    f32, one model's weights on the CPU and the card: prefill logits, 4
+    teacher-forced decode steps' logits and ``loss_fn`` (with the aux
+    loss, and deepseek's MTP term through its untied head) within 1e-4,
+    the [cpu-vs-card] tolerance (cuBLAS, the kernel at (64, 64) for
+    grok and at MLA's padded (48, 32) for deepseek, and the CPU sum in
+    other orders)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.models import model as M
+
+    for arch in MOE_BLOCKS:
+        cfg = get_config(arch).reduced()
+        cpu = M.init(cfg, seed=3, dtype=torch.float32, device="cpu")
+        card = M.Model(cfg, dtype=torch.float32, device=dev)
+        card.load_state_dict(cpu.state_dict())
+        tokens = torch.randint(0, cfg.vocab_size, (2, 20),
+                               generator=torch.Generator().manual_seed(4))
+        batch = {k: torch.from_numpy(v) for k, v in token_batches(
+            0, batch=2, seq=16, vocab=cfg.vocab_size).items()}
+        out = {}
+        for name, params, d in (("cpu", cpu, torch.device("cpu")),
+                                ("card", card, dev)):
+            t = tokens.to(d)
+            with torch.inference_mode():
+                lg, caches = M.prefill(cfg, params, {"tokens": t[:, :16]},
+                                       24, torch.float32)
+                logits = [lg]
+                for i in range(16, 20):
+                    lg, caches = M.decode_step(cfg, params, caches,
+                                               t[:, i:i + 1], i)
+                    logits.append(lg)
+            loss, aux = M.loss_fn(cfg, dict(params.state_dict()),
+                                  {k: v.to(d) for k, v in batch.items()})
+            out[name] = (torch.cat(logits, dim=1).cpu(),
+                         torch.stack([loss, aux["aux"]]).detach().cpu())
+        errs = [float((out["card"][i] - out["cpu"][i]).abs().max())
+                for i in range(2)]
+        print(f"[moe-cpu-vs-card] reduced {arch} f32: prefill + 4 decode "
+              f"logits max abs err {errs[0]:.3e}, loss and aux "
+              f"{errs[1]:.3e} (tol 1e-4; loss {float(out['card'][1][0]):.6f}"
+              f", aux {float(out['card'][1][1]):.6f})")
+        if not max(errs) <= 1e-4:
+            raise SystemExit(f"[moe-cpu-vs-card] {arch}: card vs cpu differ "
+                             f"by {errs}")
+
+
 def phase_train(torch, dev, card, profile=False, compression=None,
                 arch="gemma3-1b", nodes=TRAIN_N, steps=TRAIN_STEPS,
-                tag=None, pre=None):
-    """Full-width DSGD-momentum training of ``arch`` on the card as
-    ``nodes`` nodes, through ``simulate_decentralized``, uncompressed
-    (``[train]``) or with ``compression`` (``[train-compress]``), or
-    under ``tag`` with launches keyed by ``pre`` (``[zoo-train]``);
-    returns the launch counts of the timed run by phase.  With
-    ``profile``, one more step runs under the profiler (kernel time by
-    name)."""
+                tag=None, pre=None, reduced=False):
+    """Full-width (or, with ``reduced``, ``reduced()``) DSGD-momentum
+    training of ``arch`` in bf16 on the card as ``nodes`` nodes, through
+    ``simulate_decentralized``, uncompressed (``[train]``) or with
+    ``compression`` (``[train-compress]``), or under ``tag`` with
+    launches keyed by ``pre`` (``[zoo-train]``, ``[moe-train]``); returns
+    the launch counts of the timed run by phase.  With ``profile``, one
+    more step runs under the profiler (kernel time by name)."""
     from repro_torch import trace
     from repro_torch.compress import reference_leaves
     from repro_torch.configs import get_config
@@ -2248,10 +2481,14 @@ def phase_train(torch, dev, card, profile=False, compression=None,
     tag = tag or ("[train-compress]" if compression else "[train]")
     pre = pre or ("train-compress-" if compression else "train-")
     cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
     params = M.init(cfg, seed=0, dtype=torch.bfloat16,
                     device=dev).state_dict()
     n_params = sum(p.numel() for p in params.values())
     tokens = nodes * TRAIN_B * TRAIN_SEQ
+    # attention layers a forward runs: the MTP layer's besides
+    n_attn = cfg.num_layers + (1 if cfg.mtp else 0)
     spec = TopologySpec(name="base", n=nodes, k=1)
 
     def batches(step):
@@ -2264,7 +2501,8 @@ def phase_train(torch, dev, card, profile=False, compression=None,
               method=make_method("dsgdm", momentum=TRAIN_MOMENTUM,
                                  compression=compression),
               schedule=spec, batches=batches, eta=TRAIN_ETA, device=dev)
-    print(f"{tag} {arch} full width: {cfg.num_layers} layers, "
+    print(f"{tag} {arch} {'reduced' if reduced else 'full width'}: "
+          f"{n_attn} attention layers, "
           f"{len(params)} parameter tensors, {n_params / 1e9:.3f} B params "
           f"in bf16; n={nodes} nodes on base k=1, dsgdm "
           f"{TRAIN_MOMENTUM}, eta {TRAIN_ETA}, {TRAIN_B} x {TRAIN_SEQ} "
@@ -2343,7 +2581,7 @@ def phase_train(torch, dev, card, profile=False, compression=None,
     want = {pre + "fused_dsgd": steps * dtypes,
             pre + "fused_dsgd-tensors": steps * len(params),
             pre + "fused_dsgd-single": 0,
-            pre + "flash": steps * cfg.num_layers * nodes,
+            pre + "flash": steps * n_attn * nodes,
             "train-quantize_ef": n_quant,
             "train-compress-quantize_ef_many": n_quant,
             "train-compress-quantize_ef_many-segments":
@@ -2405,7 +2643,7 @@ def phase_train(torch, dev, card, profile=False, compression=None,
           f"{launches[pre + 'fused_dsgd-tensors']} tensors (= "
           f"{len(params)} x {steps}), flash "
           f"{launches[pre + 'flash']} (= "
-          f"{cfg.num_layers} layers x {nodes} nodes x {steps})"
+          f"{n_attn} layers x {nodes} nodes x {steps})"
           + (f", quantize_ef_many {launches['train-quantize_ef']} (= "
              f"{buckets} buckets of at most {BUCKET_BYTES >> 20} MiB x "
              f"{steps} steps) over "
@@ -4121,6 +4359,7 @@ def main() -> None:
                          f"{Path(__file__).name}; run it from a checkout")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.compress import CompressionConfig
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
     dev = torch.device("cuda", 0)
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__}, CUDA "
@@ -4131,7 +4370,11 @@ def main() -> None:
     entries += phase_quantize_kernels(torch, dev)
     entries += phase_paged_kernels(torch, dev)
     entries += phase_zoo_kernels(torch, dev)
+    entries += phase_moe_kernels(torch, dev)
     entries += phase_gossip_kernels(torch, dev)
+    # the padded pairs' entries report the launches counted under their
+    # (D, Dv) over every path run from here to the sweep
+    flash_attention_fwd.launches_by_dims.clear()
     launches, params, engine, tokens, plain = phase_main_path(torch, dev,
                                                               card)
     launches.update(phase_spec(torch, dev, card, params, tokens, plain))
@@ -4143,6 +4386,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     for arch in ZOO_PROMPTS:        # each model freed before the next
         launches.update(phase_zoo_serve(torch, dev, card, arch))
+    for arch, blocks in MOE_BLOCKS.items():
+        launches.update(phase_zoo_serve(torch, dev, card, arch, blocks))
     launches.update(phase_train(torch, dev, card, profile=args.profile))
     launches.update(phase_train(
         torch, dev, card, profile=args.profile,
@@ -4151,6 +4396,11 @@ def main() -> None:
     launches.update(phase_train(
         torch, dev, card, arch=ZOO_TRAIN_ARCH, nodes=ZOO_TRAIN_N,
         steps=ZOO_TRAIN_STEPS, tag="[zoo-train]", pre="zoo-train-"))
+    for arch in MOE_BLOCKS:
+        launches.update(phase_train(
+            torch, dev, card, arch=arch, nodes=MOE_TRAIN_N,
+            steps=MOE_TRAIN_STEPS, tag="[moe-train]",
+            pre=f"moe-train-{arch}-", reduced=True))
     launches.update(phase_remat(torch, dev, card))
     launches.update(phase_dist(torch, dev, card))
     launches.update(phase_dist(
@@ -4169,16 +4419,21 @@ def main() -> None:
                 for kind, of in (("flash", "train-flash"),
                                  ("fused_dsgd", "train-compress-fused_dsgd"))
                 if phase == of]
+    for D, Dv in MOE_PADDED:
+        launches[f"path-flash-{D}x{Dv}"] = \
+            flash_attention_fwd.launches_by_dims[(D, Dv)]
     for phase, e in entries:
         e["launches"] = launches[phase]
         if "segments" in e:
             e["segments"] = launches[phase + "-segments"]
     idle = [e["name"] for phase, e in entries
-            if not e["launches"] and phase != "dist-gossip_mix_stacked"]
-    if idle:        # the stacked entry is on no ported path
+            if not e["launches"] and phase not in (
+                "dist-gossip_mix_stacked", "path-flash-64x32")]
+    if idle:        # the stacked and the (64, 32) entries are on no path
         raise SystemExit(f"kernels of a main path launched no time there: "
                          f"{idle}")
     phase_cpu_vs_card(torch, dev)
+    phase_moe_cpu_vs_card(torch, dev)
     phase_train_cpu_vs_card(torch, dev)
     phase_compress_cpu_vs_card(torch, dev)
     phase_continuous_cpu_vs_card(torch, dev)

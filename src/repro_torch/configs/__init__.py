@@ -1,8 +1,9 @@
 """Architecture registry: ``get_config("<arch-id>")``.
 
 Only the architectures the port serves and trains are registered (the
-dense zoo: gemma3-1b, gemma2-2b, granite-8b and qwen1.5-4b); the others
-are still on ROADMAP.md's queue and raise ``NotImplementedError``.
+dense zoo: gemma3-1b, gemma2-2b, granite-8b and qwen1.5-4b; the MoE
+family: grok-1-314b and deepseek-v3-671b); the others are still on
+ROADMAP.md's queue and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ _MODULES = {
     "gemma2-2b": "gemma2_2b",
     "granite-8b": "granite_8b",
     "qwen1.5-4b": "qwen15_4b",
+    "grok-1-314b": "grok_1_314b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
 }
 
 ARCH_NAMES = tuple(_MODULES)

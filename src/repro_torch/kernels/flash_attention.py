@@ -7,14 +7,19 @@ the tensor cores and what bounds it on the H100); ``csrc/flash_attention.cu``
 launches it with dense key addressing.  :func:`flash_attention_fwd` checks
 its inputs, allocates the output (and, for a split call, the f32 scratch)
 and launches on PyTorch's current stream; it counts each attention call in
-``flash_attention_fwd.launches`` and each launch of the split's combine
-kernel in ``flash_attention_fwd.combine_launches``.  It takes CUDA tensors
+``flash_attention_fwd.launches`` (and by the caller's (D, Dv) pair in
+``flash_attention_fwd.launches_by_dims``) and each launch of the split's
+combine kernel in ``flash_attention_fwd.combine_launches``.  A head-dim
+pair the kernel is not instantiated for is zero-padded to the smallest
+instantiated pair that covers it (:func:`_pad_heads`), as the Pallas
+kernel pads to its 128 lanes.  It takes CUDA tensors
 only: the plain version for other devices is
 :func:`repro_torch.kernels.ref.grouped_sdpa_ref`, chosen by
 :mod:`repro_torch.kernels.ops` from the tensor's device.
 
-What the TPU kernel needed and this one does not: head dims zero-padded
-to the 128-lane width, a ``(B*H, nq, nk)`` grid carrying the softmax
+What the TPU kernel needed and this one does not: every head dim
+zero-padded to the 128-lane width (here only a pair the kernel lacks is
+padded, to the nearest instantiated one), a ``(B*H, nq, nk)`` grid carrying the softmax
 state in VMEM across a sequential kv axis, ``pl.when`` block skipping and
 transposes around the call.  Here the kv loop runs inside the block over
 the chunks its rows can see, a few-row call splits the key axis over
@@ -24,8 +29,10 @@ strides.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
+import torch.nn.functional as F
 
 from ._build import load_library
 
@@ -117,6 +124,25 @@ def _position_operand(x, B: int, device, what: str):
     return int(x), None
 
 
+def _pad_heads(q, k, v, scale):
+    """The kernel's (D, Dv) for any head dims, as the Pallas kernel's
+    lane padding (``flash_attention.py:127-133``): a pair the kernel is
+    not instantiated for is zero-padded to the smallest instantiated pair
+    that covers it (reduced MLA's (48, 32) and (64, 32) to (64, 64)), the
+    scale kept at ``D ** -0.5`` of the true D unless given.  Zero columns
+    add nothing to q·k, and the padded value columns come out zero for
+    the caller to slice off.  Returns ``(q, k, v, scale)``; raises for a
+    pair no instantiation covers."""
+    D, Dv = q.shape[-1], v.shape[-1]
+    fits = [p for p in SUPPORTED_DIMS if p[0] >= D and p[1] >= Dv]
+    if not fits:
+        raise ValueError(f"head dims (D={D}, Dv={Dv}) exceed every "
+                         f"instantiated pair: {SUPPORTED_DIMS}")
+    pd, pdv = min(fits, key=sum)
+    return (F.pad(q, (0, pd - D)), F.pad(k, (0, pd - D)),
+            F.pad(v, (0, pdv - Dv)), D ** -0.5 if scale is None else scale)
+
+
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window=None,
                         softcap=None, scale=None, q_start=None,
                         k_valid_len=None, kv_splits=None) -> torch.Tensor:
@@ -127,8 +153,9 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window=None,
     == 0.  ``q_start`` (default ``S - Tq``) and ``k_valid_len`` (default
     ``S``) are ints or (B,) tensors.  ``kv_splits`` (private: tests and
     the chip check) fixes the number of blocks over the key axis; the
-    result is the same bits whatever it is.  Returns a contiguous
-    (B, Tq, H, Dv) tensor of q's dtype."""
+    result is the same bits whatever it is.  Returns a (B, Tq, H, Dv)
+    tensor of q's dtype: contiguous, or for a padded pair the leading Dv
+    columns of one."""
     B, Tq, H, D = q.shape
     Bk, S, KV, Dk = k.shape
     Dv = v.shape[-1]
@@ -141,11 +168,12 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window=None,
     if Bk != B or Dk != D or v.shape[:3] != k.shape[:3] or H % KV:
         raise ValueError(f"incompatible shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if (D, Dv) not in SUPPORTED_DIMS:
-        raise ValueError(f"head dims (D={D}, Dv={Dv}) not instantiated; "
-                         f"supported: {SUPPORTED_DIMS}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+    pair = (D, Dv)
+    if pair not in SUPPORTED_DIMS:
+        q, k, v, scale = _pad_heads(q, k, v, scale)
+        D, Dv = q.shape[-1], v.shape[-1]
     q, k, v = (aligned(t) for t in (q, k, v))
     if scale is None:
         scale = D ** -0.5
@@ -156,7 +184,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window=None,
                                        "k_valid_len")
     out = torch.empty((B, Tq, H, Dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
-        return out
+        return out[..., :pair[1]]
     # Few rows (decode, verify) take blocks of one 16-row team; more rows
     # take four teams, which share each K/V tile.  A row's bits are the
     # same either way.
@@ -191,14 +219,17 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window=None,
         raise RuntimeError("flash attention kernel launch failed: "
                            + lib.repro_cuda_error_string(rc).decode())
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.launches_by_dims[pair] += 1
     flash_attention_fwd.combine_launches += int(splits > 1)
     flash_attention_fwd.last_launch = dict(
         grid=(row_tiles * B, KV * splits, 1), threads=8 * block_rows,
         splits=splits)
-    return out
+    return out if Dv == pair[1] else out[..., :pair[1]]
 
 
 flash_attention_fwd.launches = 0
+#: the launches by the caller's (head dim, value head dim) pair
+flash_attention_fwd.launches_by_dims = Counter()
 flash_attention_fwd.combine_launches = 0
 #: the grid, threads per block and key-axis split of the last call
 flash_attention_fwd.last_launch = None

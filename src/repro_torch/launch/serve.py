@@ -6,7 +6,10 @@ engine (port of ``repro/launch/serve.py``).
         --top-k 40 --top-p 0.95] [--eos-id 1] [--reduced] [--device cpu]
 
 ``--arch`` is one of the dense zoo (gemma3-1b, gemma2-2b, granite-8b,
-qwen1.5-4b).  Random weights from ``--seed`` (full width in bf16,
+qwen1.5-4b) or the MoE family (grok-1-314b, deepseek-v3-671b; at full
+depth neither fits one card, so run them ``--reduced``; deepseek-v3-671b's
+latent cache has no paged form, and ``--continuous`` raises for it, as in
+the reference).  Random weights from ``--seed`` (full width in bf16,
 ``--reduced`` in f32), a random prompt batch, one warm-up generation (it
 builds the CUDA kernels on first use), then one timed generation
 reporting steady-state tokens/s.
@@ -51,7 +54,8 @@ def plan_shapes(prompt_len: int, page_size: int = 8):
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True,
-                    help="gemma3-1b, gemma2-2b, granite-8b or qwen1.5-4b")
+                    help="gemma3-1b, gemma2-2b, granite-8b, qwen1.5-4b, "
+                         "grok-1-314b or deepseek-v3-671b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16,

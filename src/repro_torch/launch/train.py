@@ -127,7 +127,8 @@ def launch(opts: TrainOptions, *, nproc: int, backend: str = "gloo",
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True,
-                    help="gemma3-1b, gemma2-2b, granite-8b or qwen1.5-4b")
+                    help="gemma3-1b, gemma2-2b, granite-8b, qwen1.5-4b, "
+                         "grok-1-314b or deepseek-v3-671b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--nproc", type=int, default=None,
                     help="start N local ranks, one node each")

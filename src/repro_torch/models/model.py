@@ -17,9 +17,12 @@ tensors keyed by its ``state_dict`` keys, which are the reference's
 param-tree paths with the stacked pattern blocks split per block
 (``stack.blocks.<block>.<position>.…``, see :mod:`repro_torch.convert`).
 The simulation engine trains through that dict, one node's slice at a
-time.  Caches and page pools are updated in place.  Encoder-decoder,
-frontend, multi-token-prediction and untied-head models are not ported
-yet.
+time.  Caches and page pools are updated in place.  MoE models add the
+router's aux loss to ``loss_fn``'s; an untied model projects through its
+own ``lm_head.w``, and a multi-token-prediction model (deepseek-v3) adds
+0.3 x its extra layer's loss on labels shifted one more
+(``model.py:121-154``).  Encoder-decoder and frontend models are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -29,35 +32,56 @@ import functools
 import torch
 from torch import nn
 
-from repro_torch.configs.common import ArchConfig
+from repro_torch.configs.common import ArchConfig, LayerSpec
 from repro_torch.device import resolve_device
 
-from .blocks import Stack, stack_cache_init, stack_paged_cache_init
+from .blocks import Layer, Stack, stack_cache_init, stack_paged_cache_init
 from .layers import Dense, Embed, RMSNorm, chunked_ce_loss
+from .moe import MoE
 
 DECODE_MODES = ("dus", "append_free", "paged")
+
+
+#: the multi-token-prediction layer's spec (``model.py:81-88``)
+MTP_SPEC = LayerSpec(kind="attn", ffn="dense")
+
+
+class MTP(nn.Module):
+    """deepseek's multi-token prediction: a norm and one extra attention +
+    dense layer over the final hidden states, predicting token t + 2."""
+
+    def __init__(self, cfg: ArchConfig, **kw):
+        super().__init__()
+        self.norm = RMSNorm(cfg.d_model, **kw)
+        self.layer = Layer(cfg, MTP_SPEC, **kw)
+
+    def forward(self, h):
+        return self.layer(self.norm(h))[0]
 
 
 class Model(nn.Module):
     def __init__(self, cfg: ArchConfig, *, dtype=torch.float32, device=None):
         super().__init__()
-        if (cfg.encoder is not None or cfg.frontend is not None or cfg.mtp
-                or not cfg.tie_embeddings):
+        if cfg.encoder is not None or cfg.frontend is not None:
             raise NotImplementedError(
-                f"{cfg.name}: encoder, frontend, multi-token-prediction and "
-                f"untied-head models are not ported to repro_torch yet; see "
-                f"ROADMAP.md")
+                f"{cfg.name}: encoder and frontend models are not ported to "
+                f"repro_torch yet; see ROADMAP.md")
         kw = dict(dtype=dtype, device=resolve_device(device))
         self.cfg = cfg
         self.embed = Embed(cfg.vocab_size, cfg.d_model, **kw)
         self.stack = Stack(cfg, **kw)
         self.final_norm = RMSNorm(cfg.d_model, **kw)
+        self.lm_head = None if cfg.tie_embeddings else Dense(
+            cfg.d_model, cfg.vocab_size, **kw)
+        self.mtp = MTP(cfg, **kw) if cfg.mtp else None
 
     def forward(self, tokens, remat=False):
-        """The final-normed hidden states (B, T, d_model) of a training
-        forward (no cache), each pattern block checkpointed with
-        ``remat``."""
-        return backbone(self.cfg, self, tokens, remat=remat)[0]
+        """A training forward (no cache): ``(h, aux, h_mtp)``, the
+        final-normed hidden states (B, T, d_model), the f32 router aux
+        loss and the MTP layer's hidden states (None without one), each
+        pattern block checkpointed with ``remat``."""
+        h, _, aux = backbone(self.cfg, self, tokens, remat=remat)
+        return h, aux, None if self.mtp is None else self.mtp(h)
 
 
 def init(cfg: ArchConfig, seed: int = 0, dtype=torch.float32,
@@ -71,7 +95,7 @@ def init(cfg: ArchConfig, seed: int = 0, dtype=torch.float32,
     gen = torch.Generator(device=model.embed.table.device)
     gen.manual_seed(seed)
     for module in model.modules():
-        if isinstance(module, (Dense, Embed)):
+        if isinstance(module, (Dense, Embed, MoE)):
             module.reset_parameters(gen)
     return model.eval()
 
@@ -132,21 +156,23 @@ def init_paged_cache(cfg: ArchConfig, layout: PagedCacheLayout,
 def backbone(cfg: ArchConfig, params: Model, tokens, *, caches=None,
              cache_index=None, decode_mode="dus", block_table=None,
              num_blocks_limit=None, remat=False):
-    """Returns ``(hidden, caches)``.  ``num_blocks_limit`` runs the
-    prologue and the first n pattern blocks only (the self-speculative
-    draft), sharing the final norm and head with the full model.
-    ``remat`` checkpoints each pattern block (training; no caches)."""
+    """Returns ``(hidden, caches, aux)``, ``aux`` the f32 router aux loss.
+    ``num_blocks_limit`` runs the prologue and the first n pattern blocks
+    only (the self-speculative draft), sharing the final norm and head
+    with the full model.  ``remat`` checkpoints each pattern block
+    (training; no caches)."""
     x = params.embed(tokens)
     if cfg.embed_scale:
         # the constant is rounded to x's dtype before the multiply, as the
         # reference does: in bf16, sqrt(1152) = 33.94 becomes 34.0
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)
-    x, caches = params.stack(x, caches=caches, cache_index=cache_index,
-                             decode_mode=decode_mode,
-                             block_table=block_table,
-                             num_blocks_limit=num_blocks_limit, remat=remat)
-    return params.final_norm(x), caches
+    x, caches, aux = params.stack(x, caches=caches, cache_index=cache_index,
+                                  decode_mode=decode_mode,
+                                  block_table=block_table,
+                                  num_blocks_limit=num_blocks_limit,
+                                  remat=remat)
+    return params.final_norm(x), caches, aux
 
 
 @functools.lru_cache(maxsize=8)
@@ -158,28 +184,40 @@ def _skeleton(cfg: ArchConfig) -> Model:
 
 def loss_fn(cfg: ArchConfig, params, batch, *, remat=False):
     """Next-token cross-entropy of ``batch = {"tokens", "labels"}``
-    (labels == -100 are ignored), as ``model.py:121-154``: the final
-    hidden states against the tied embedding table, chunked over
-    positions in f32.  ``params`` is a flat dict of a :class:`Model`'s
-    tensors (its ``state_dict`` keys).  ``remat`` checkpoints each pattern
-    block, as the reference's: the backward recomputes the block's
-    forward (the flash kernel launches again there) in place of keeping
-    its activations.  Returns ``(loss, {"aux": 0})``: the ported dense
-    models have no router loss.  VLM prefix embeddings raise."""
+    (labels == -100 are ignored), plus the router aux loss and the MTP
+    term, as ``model.py:121-154``: the final hidden states against the
+    output projection (the tied embedding table, or ``lm_head.w``),
+    chunked over positions in f32.  ``params`` is a flat dict of a
+    :class:`Model`'s tensors (its ``state_dict`` keys).  ``remat``
+    checkpoints each pattern block, as the reference's: the backward
+    recomputes the block's forward (the flash kernel launches again
+    there) in place of keeping its activations.  Returns ``(loss + aux,
+    {"aux": aux})``, aux 0 without an MoE.  VLM prefix embeddings
+    raise."""
     if batch.get("prefix_embeds") is not None:
         raise NotImplementedError(
             "prefix embeddings (VLM) are not ported to repro_torch yet; see "
             "ROADMAP.md")
-    h = torch.func.functional_call(_skeleton(cfg), params,
-                                   (batch["tokens"],), {"remat": remat})
-    loss = chunked_ce_loss(h, params["embed.table"].T, batch["labels"],
-                           logit_softcap=cfg.final_softcap)
-    return loss, {"aux": torch.zeros((), device=loss.device)}
+    h, aux, h_mtp = torch.func.functional_call(
+        _skeleton(cfg), params, (batch["tokens"],), {"remat": remat})
+    w_out = params["embed.table"].T if cfg.tie_embeddings \
+        else params["lm_head.w"]
+    labels = batch["labels"]
+    loss = chunked_ce_loss(h, w_out, labels, logit_softcap=cfg.final_softcap)
+    if h_mtp is not None:
+        # predict token t + 2: the labels shifted one step more
+        l2 = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1], -100)],
+                       dim=1)
+        loss = loss + 0.3 * chunked_ce_loss(h_mtp, w_out, l2,
+                                            logit_softcap=cfg.final_softcap)
+    return loss + aux, {"aux": aux}
 
 
 def logits_of(cfg: ArchConfig, params: Model, h):
-    """The output logits of final hidden states ``h`` (..., d_model)."""
-    logits = h @ params.embed.table.T           # tied output projection
+    """The output logits of final hidden states ``h`` (..., d_model),
+    through the tied embedding table or the untied ``lm_head``."""
+    logits = h @ (params.embed.table.T if params.lm_head is None
+                  else params.lm_head.w)
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits
@@ -193,7 +231,8 @@ def prefill(cfg: ArchConfig, params: Model, batch, max_seq: int,
     tokens = batch["tokens"]
     caches = init_cache(cfg, tokens.shape[0], max_seq, cache_dtype,
                         tokens.device)
-    h, caches = backbone(cfg, params, tokens, caches=caches, cache_index=0)
+    h, caches, _ = backbone(cfg, params, tokens, caches=caches,
+                            cache_index=0)
     return logits_of(cfg, params, h[:, -1:]), caches
 
 
@@ -215,8 +254,8 @@ def decode_step(cfg: ArchConfig, params: Model, caches, tokens, index, *,
         raise NotImplementedError(
             f"decode_mode {decode_mode!r} is not ported to repro_torch yet "
             f"(ported: {DECODE_MODES}); see ROADMAP.md")
-    h, caches = backbone(cfg, params, tokens, caches=caches,
-                         cache_index=index, decode_mode=decode_mode,
+    h, caches, _ = backbone(cfg, params, tokens, caches=caches,
+                            cache_index=index, decode_mode=decode_mode,
                          block_table=block_table,
                          num_blocks_limit=draft_layers)
     return logits_of(cfg, params, h), caches

@@ -165,8 +165,8 @@ class ContinuousEngine:
             toks = torch.zeros((1, bl), dtype=torch.int64, device=dev)
             toks[0, :r.prompt_len] = torch.tensor(r.tokens, device=dev)
             caches = M.init_cache(cfg, 1, bl, self.cache_dtype, dev)
-            h, caches = M.backbone(cfg, params, toks, caches=caches,
-                                   cache_index=0)
+            h, caches, _ = M.backbone(cfg, params, toks, caches=caches,
+                                      cache_index=0)
             # the prompt's last real row, not the padded row bl - 1
             logits = M.logits_of(cfg, params, h[:, r.prompt_len - 1])
             gens = ([stream_generator(seed, r.rid, r.prompt_len,
@@ -176,7 +176,7 @@ class ContinuousEngine:
             pidx = torch.tensor(pages[:npg], device=dev)
             for pool, dense in zip(layer_caches(self.pools),
                                    layer_caches(caches)):
-                for name in ("k", "v"):
+                for name in pool:
                     pool[name][pidx] = dense[name][0].reshape(
                         (npg, ps) + dense[name].shape[2:])
         return torch.cat(out).tolist()
@@ -206,7 +206,7 @@ class ContinuousEngine:
         win = pos[:, None] + torch.arange(k + 1, device=self.device)
         wpage = table.long().gather(1, win // ps)
         wslot = win % ps
-        saved = [{n: c[n][wpage, wslot] for n in ("k", "v")}
+        saved = [{n: c[n][wpage, wslot] for n in c}
                  for c in layer_caches(self.pools)]
         cur, dlg, dtk = tok, [], []
         for i in range(k):
@@ -231,7 +231,7 @@ class ContinuousEngine:
         keep = torch.arange(k + 1, device=self.device)[None, :] \
             < (acc + 1)[:, None]
         for c, s in zip(layer_caches(self.pools), saved):
-            for n in ("k", "v"):
+            for n in c:
                 rows = c[n][wpage, wslot]
                 mask = keep.reshape(keep.shape + (1,) * (rows.ndim - 2))
                 c[n][wpage, wslot] = torch.where(mask, rows, s[n])

@@ -12,7 +12,9 @@ is done, as the reference's ``lax.cond`` early exit does.
 (DESIGN.md Sec. 15).  Each round of the loop:
 
 * snapshots the cache rows ``[pos, pos + k]`` of every request (``pos``
-  its next write position) before anything is drafted;
+  its next write position), every per-position leaf of every layer
+  (dense K/V, or MLA's ``ckv`` / ``krope`` latent), before anything is
+  drafted;
 * drafts k tokens, one position per step at the (B,) positions: through
   the first ``draft_layers`` pattern blocks of the target itself
   (self-speculative, default ``num_blocks // 2``), or through a separate
@@ -233,8 +235,8 @@ class GenerationBundle:
             trace.mark("round")
             pos = self.prompt_len + n - 1                  # next write
             win = pos[:, None] + ar                        # (B, k+1)
-            saved = [{c: lc[c][rows, win] for c in ("k", "v")}
-                     for lc in layers]
+            # every per-position leaf: dense K/V, or MLA's latent rows
+            saved = [{c: lc[c][rows, win] for c in lc} for lc in layers]
             # host positions, read only by the sampled draws
             hpos = pos.tolist() if self.sampling.needs_rng else [0] * B
             trace.mark("draft")
@@ -276,7 +278,7 @@ class GenerationBundle:
             keep = ar[None, :] < m[:, None]                # (B, k+1)
             buf[rows, torch.where(keep, n[:, None] + ar, N)] = emit
             for lc, s in zip(layers, saved):
-                for c in ("k", "v"):
+                for c in lc:
                     now = lc[c][rows, win]
                     mask = keep.reshape(keep.shape + (1,) * (now.ndim - 2))
                     lc[c][rows, win] = torch.where(mask, now, s[c])
@@ -295,7 +297,8 @@ class GenerationBundle:
 
 def _check_spec_family(cfg, role: str) -> None:
     """Speculation rolls back per-position cache rows: every layer must be
-    attention with no cross-attention, and there is no encoder
+    attention (dense K/V or MLA's latent, both rolled back row by row)
+    with no cross-attention, and there is no encoder
     (``engine.py:175-193``)."""
     if cfg.encoder is not None:
         raise NotImplementedError(

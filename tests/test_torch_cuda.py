@@ -42,7 +42,13 @@ draft steps and verify) launches the dense kernel at per-request
 positions, within flash attention's tolerance of the plain
 ``grouped_sdpa_decode_ref``, its verify window equal to one-row calls bit
 for bit; the fixed-batch engine's tokens and speculative counters on the
-card are the CPU's, with the flash launches its rounds make.
+card are the CPU's, with the flash launches its rounds make.  Head dims
+the kernel is not instantiated for (reduced MLA's (48, 32), and (64, 32))
+go through ``ops.sdpa`` / ``ops.sdpa_decode`` into the kernel's wrapper,
+which zero-pads them to (64, 64) and counts the launch under the
+caller's pair, equal to the kernel on hand-padded inputs bit for bit; grok-1's 6 query
+heads per kv head with softcap 30 hold flash attention's tolerance; and
+an MoE layer at top-8 in bf16 gives the same bits on every run.
 """
 import pytest
 import torch
@@ -1319,3 +1325,95 @@ def test_qkv_bias_attention_forward_on_the_card(card):
     assert flash_attention_fwd.launches == before + 1
     assert layer.wq.b is not None and layer.wo.b is None
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,Dv", [(48, 32), (64, 32)])
+def test_padded_head_dims_match_plain(card, dtype, D, Dv):
+    """Head dims the kernel is not instantiated for (reduced MLA's
+    (48, 32), the reference's MLA test family (64, 32)): through
+    ``ops.sdpa`` and ``ops.sdpa_decode`` the wrapper zero-pads them to
+    (64, 64) with the scale of the true D, launches once, counts that
+    launch under (D, Dv), and equals the kernel on the hand-padded
+    inputs bit for bit and the plain version on the unpadded ones within
+    its tolerance."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=card).manual_seed(D + Dv)
+    B, H, KV, Tq, S = 2, 4, 4, 9, 40
+    q = torch.randn(B, Tq, H, D, generator=g, device=card).to(dtype)
+    k = torch.randn(B, S, KV, D, generator=g, device=card).to(dtype)
+    v = torch.randn(B, S, KV, Dv, generator=g, device=card).to(dtype)
+    scale = 48 ** -0.5          # MLA passes qk_dim ** -0.5 explicitly
+    pos = torch.tensor([20, 31], device=card, dtype=torch.int32)
+    for kw, plain, call in (
+            (dict(q_pos0=5, k_valid_len=14), ref.grouped_sdpa_ref, ops.sdpa),
+            (dict(q_start=pos, k_valid_len=pos + Tq),
+             ref.grouped_sdpa_decode_ref, ops.sdpa_decode)):
+        for sc in (scale, None):
+            before = flash_attention_fwd.launches
+            pair = flash_attention_fwd.launches_by_dims[(D, Dv)]
+            got = call(q, k, v, scale=sc, softcap=30.0, **kw)
+            torch.cuda.synchronize()
+            assert flash_attention_fwd.launches == before + 1
+            assert flash_attention_fwd.launches_by_dims[(D, Dv)] == pair + 1
+            assert got.shape == (B, Tq, H, Dv) and got.dtype == dtype
+            _assert_close(got, plain(q, k, v, scale=sc, softcap=30.0, **kw))
+            fkw = {("q_start" if n == "q_pos0" else n): x
+                   for n, x in kw.items()}
+            padded = flash_attention_fwd(
+                F.pad(q, (0, 64 - D)), F.pad(k, (0, 64 - D)),
+                F.pad(v, (0, 64 - Dv)), softcap=30.0,
+                scale=D ** -0.5 if sc is None else sc, **fkw)
+            assert torch.equal(_bits(got), _bits(padded[..., :Dv]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Tq,q0,valid", [(40, 0, 40), (1, 70, 71),
+                                         (5, 66, 71)])
+def test_six_query_heads_per_kv_head_with_softcap(card, dtype, Tq, q0,
+                                                  valid):
+    """grok-1's head layout: 6 query heads per kv head (12 / 2 here, 48 / 8
+    there), hd 128, softcap 30 in every layer; prefill, decode and a
+    verify window, NaN past k_valid, against the plain version; a decode
+    row split over the key axis equals unsplit bit for bit."""
+    g = torch.Generator(device=card).manual_seed(6 + Tq)
+    B, H, KV, D, S = 2, 12, 2, 128, 96
+    q = torch.randn(B, Tq, H, D, generator=g, device=card).to(dtype)
+    k = torch.randn(B, S, KV, D, generator=g, device=card).to(dtype)
+    v = torch.randn(B, S, KV, D, generator=g, device=card).to(dtype)
+    k[:, valid:] = float("nan")
+    v[:, valid:] = float("nan")
+    kw = dict(softcap=30.0, q_start=q0, k_valid_len=valid)
+    got = flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _assert_close(got, ref.grouped_sdpa_ref(q, k, v, softcap=30.0,
+                                            q_pos0=q0, k_valid_len=valid))
+    if Tq == 1:
+        one = flash_attention_fwd(q, k, v, kv_splits=1, **kw)
+        for splits in (None, 2, 5):
+            assert torch.equal(_bits(flash_attention_fwd(
+                q, k, v, kv_splits=splits, **kw)), _bits(one))
+
+
+def test_moe_combine_is_bitwise_across_runs_at_top_8(card):
+    """An MoE layer of 16 experts, top-8, one shared expert, in bf16 on the
+    card, 256 tokens: two runs give the same bits (the combine adds each
+    token's terms in a fixed order, where ``index_add_`` would add
+    through atomics in an order that changes from run to run)."""
+    from repro_torch.configs import MoEConfig
+    from repro_torch.models import moe
+    cfg = MoEConfig(num_experts=16, top_k=8, d_expert=64, num_shared=1)
+    g = torch.Generator().manual_seed(8)
+    layer = moe.MoE(128, cfg, act="silu", dtype=torch.bfloat16,
+                    device="cpu")
+    layer.reset_parameters(g)
+    layer = layer.to(card)
+    x = torch.randn(4, 64, 128, generator=g).bfloat16().to(card)
+    with torch.inference_mode():
+        a, aux_a = layer(x)
+        b, aux_b = layer(x)
+        r = moe.route(x.reshape(-1, 128), layer.router, cfg)
+        t1, t2 = moe.combine_table(r), moe.combine_table(r)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(a), _bits(b)) and torch.equal(aux_a, aux_b)
+    assert torch.equal(t1, t2) and t1.shape == (256, 8)

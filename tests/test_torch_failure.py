@@ -90,7 +90,7 @@ CASES = ([("dsgdm", r) for r in REGIMES]
          + [("dsgd", r) for r in ("drop", "delay")]
          + [("d2", r) for r in ("delay", "churn", "all_same", "drop")]
          + [("qg-dsgdm", r) for r in ("stragglers", "sign_flip")]
-         + [("gt", "drop")])
+         + [("gt", r) for r in ("drop", "churn", "stragglers")])
 # cases whose losses diverge past 1e3 in both packages
 DIVERGING = {("d2", "drop")}
 

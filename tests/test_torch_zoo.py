@@ -120,7 +120,8 @@ def test_config_matches_reference(arch, reduced):
 
 
 def test_registry_lists_the_dense_zoo():
-    assert ARCH_NAMES == ("gemma3-1b",) + ZOO
+    assert ARCH_NAMES == ("gemma3-1b",) + ZOO + ("grok-1-314b",
+                                                 "deepseek-v3-671b")
     with pytest.raises(NotImplementedError, match="gemma2-2b, granite-8b"):
         get_config("mamba2-2.7b")
 
