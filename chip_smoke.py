@@ -117,6 +117,9 @@ Phases (any failure exits non-zero and prints no result line):
      below (no ported path runs (64, 32), and its 0 is read, not set);
      row 2 at grok-1-314b's continuous decode (8 slots, page 16,
      softcap 30).
+   - Row 1 at jamba-1.5-large-398b's attention layer
+     (``[hybrid-kernels]``: 64 q / 8 kv heads of 128) at B=4 prompts of
+     1024 with 32 new tokens, prefill and last-step decode, as above.
 3. Serving: full-width gemma3-1b in bf16 (random weights from a seed),
    ``make_engine(batch=4, prompt_len=1024, max_new=64)``, one warm-up
    generation, then one timed greedy generation whose kernel launches
@@ -163,6 +166,14 @@ Phases (any failure exits non-zero and prints no result line):
    prefill by the E x C expert products).  ``[moe-continuous]``:
    grok-1-314b through the continuous engine with the
    ``[zoo-continuous]`` traffic, 4 paged launches per decode step.
+   ``[ssm-serve]``: mamba2-2.7b at full width and depth (2.70 B params),
+   the ``[moe-serve]`` traffic, no flash launch and no plain or SDPA
+   call; ``[hybrid-serve]``: jamba-1.5-large-398b at full width with its
+   pattern cut to its first 5 layers as one block (4 Mamba layers, 2 of
+   them with MoE, and the attention layer: 23.45 B params; one whole
+   8-layer block is 88.1 GB), 32 flash launches per generation.  Their
+   decode floors add each Mamba layer's state, read and written once a
+   step.
 4. Training: full-width gemma3-1b in bf16 as n = 3 nodes on the Base-2
    graph, DSGD-momentum (0.9, eta 0.01) through ``simulate_decentralized``,
    2 sequences of 1024 tokens per node; one warm-up step, then 6 timed
@@ -186,7 +197,11 @@ Phases (any failure exits non-zero and prints no result line):
    nodes on Base-2, the ``[train]`` method and batch, 3 steps: one
    grouped fused update and (layers + MTP) x 3 flash launches per step
    asserted (deepseek's attention at (48, 32) through ``ops.sdpa``'s
-   padding).  ``[remat]``: one
+   padding).  ``[ssm-train]``: mamba2-2.7b at full width in bf16 as n =
+   2 nodes, each pattern block checkpointed (``remat=True``), 3 steps:
+   one grouped fused update per step and no flash launch;
+   ``[hybrid-train]``: jamba-1.5-large-398b at ``reduced()`` as n = 3, 3
+   steps, one grouped update and 3 flash launches per step.  ``[remat]``: one
    gemma2-2b node's ``loss_fn`` gradients with ``remat=True`` against
    ``remat=False`` on the card, per gradient max |diff| / max |plain|
    <= 1e-6, with both peaks and both flash counts (26, and 52 with the
@@ -247,7 +262,9 @@ Phases (any failure exits non-zero and prints no result line):
    serving in f32 (greedy tokens equal, prefill logits within 1e-4);
    ``[moe-cpu-vs-card]``: reduced grok-1-314b and deepseek-v3-671b in
    f32, prefill and 4 decode steps' logits and ``loss_fn`` with the aux
-   (and MTP) terms within 1e-4; the
+   (and MTP) terms within 1e-4; ``[ssm-cpu-vs-card]``: the same for
+   reduced mamba2-2.7b and jamba-1.5-large-398b (the chunked scan in
+   prefill, the recurrent step in decode); the
    five methods on the paper MLP (losses within 1e-5) and reduced
    gemma3-1b DSGD-momentum training (losses within 1e-4).
    ``[compress-cpu-vs-card]``: ``compressed_dense_mix`` with every codec
@@ -283,6 +300,7 @@ and main-path shape; the last line is
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import statistics
@@ -347,6 +365,16 @@ REMAT_TOL = 1e-6      # max |remat - plain| / max |plain| per gradient
 MOE_BLOCKS = {"grok-1-314b": 4, "deepseek-v3-671b": 2}
 MOE_PROMPT, MOE_CONT_ARCH = 1024, "grok-1-314b"
 MOE_TRAIN_N, MOE_TRAIN_STEPS = 3, 3
+# the SSM family: mamba2-2.7b served at full width and depth (2.70 B
+# params) and trained at full width as n = 2 nodes on Base-2 with each
+# pattern block checkpointed (a Mamba layer keeps ~1 GB of activations
+# for 2 x 1024 tokens, 64 layers); jamba-1.5-large-398b served at full
+# width with its pattern cut to the first 5 layers as one block (mamba /
+# dense, mamba / MoE, mamba / dense, mamba / MoE, attn / dense: 22.91 B
+# params; one whole 8-layer block is 44.06 B, 88.1 GB in bf16), the
+# [moe-serve] traffic, and trained at reduced() as n = 3 nodes
+SSM_ARCH, HYBRID_ARCH, HYBRID_CUT = "mamba2-2.7b", "jamba-1.5-large-398b", 5
+SSM_TRAIN_N, HYBRID_TRAIN_N, SSM_TRAIN_STEPS = 2, 3, 3
 # the padded head-dim pairs: reduced MLA's, and the reference's MLA tests'
 # (tests/test_decode_attention.py:37), which no ported path runs; each
 # entry reports the launches counted under its pair over the path runs
@@ -360,6 +388,7 @@ CONT_MAXP = -(-(PROMPT + CONT_NEW + CONT_K) // CONT_PAGE)      # 69 pages
 # the distributed path: the [train] cell split over TRAIN_N processes,
 # one node each, sharing the card through gloo
 DIST_STEPS, DIST_TIMEOUT, DIST_LOSS_TOL = 3, 600.0, 1e-2
+DIST_CHECK_SLICE = 1 << 24     # elements per slice of [dist]'s check
 DIST_PEAK_GIB = 18.73     # peak per rank of the per-tensor mixer, measured
 # peak per rank of the leaf-by-leaf compressed mixer (int8 + EF: the 4 GB
 # of f32 residuals besides), measured on the H100 before the buckets
@@ -822,6 +851,34 @@ def phase_moe_kernels(torch, dev):
                 torch, dev, flush, F, ref, paged, f"{MOE_CONT_ARCH} decode",
                 "global", None, q, kp, vp, table, qs, err,
                 phase="moe-continuous-paged", softcap=cfg.attn_softcap))
+    del flush
+    torch.cuda.empty_cache()
+    return entries
+
+
+def phase_hybrid_kernels(torch, dev):
+    """``[hybrid-kernels]``: row 1 at jamba-1.5-large-398b's attention
+    layer (64 q / 8 kv heads of 128, 8 per kv head, no softcap), serving
+    B=4 prompts of 1024 with 32 new tokens, as ``[hybrid-serve]`` runs it:
+    prefill and last-step decode, bf16 timed, f32 checked, the decode
+    row's chosen split equal to kv_splits=1 bit for bit.  Returns (phase,
+    JSON entry) per timed shape."""
+    from repro_torch.configs import get_config
+
+    gen = torch.Generator(device=dev).manual_seed(33)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    cfg = get_config(HYBRID_ARCH)
+    seq = MOE_PROMPT + ZOO_NEW
+    entries = []
+    print("[hybrid-kernels] case dtype max_abs_err worst_err/tol")
+    for kind, Tq, q0, k_valid in (
+            ("prefill", MOE_PROMPT, 0, MOE_PROMPT),
+            (f"decode@{seq - 2}", 1, seq - 2, seq - 1)):
+        entries.append(flash_case(
+            torch, dev, gen, flush, name=f"{HYBRID_ARCH} {kind},global",
+            phase=f"hybrid-serve-{HYBRID_ARCH}", B=ZOO_BATCH, Tq=Tq, S=seq,
+            H=cfg.num_heads, KV=cfg.num_kv_heads, D=cfg.head_dim, q0=q0,
+            k_valid=k_valid, window=None, softcap=cfg.attn_softcap))
     del flush
     torch.cuda.empty_cache()
     return entries
@@ -1966,13 +2023,22 @@ def serve_floors(cfg, params, batch, prompt):
     tied table for the logits; an untied model's input table, of which it
     reads B rows, and its MTP layer are left out); prefill does 2 FLOPs
     per weight per prompt token, an MoE layer's experts only on the E x C
-    slots its capacity gives the B x prompt tokens (attention and the
-    output head, at the last position only, not counted).  With C = 1 at
-    decode every expert is read.  Returns (prefill ms, decode ms)."""
+    slots its capacity gives the B x prompt tokens (attention, the SSD
+    scan and the output head, at the last position only, not counted).
+    With C = 1 at decode every expert is read.  A decode step also reads
+    and writes each Mamba layer's state once: the f32 SSM state (B, h, p,
+    n) and the bf16 conv history (B, K - 1, conv_dim).  Returns (prefill
+    ms, decode ms)."""
     from repro_torch.models.moe import capacity
 
     tokens = batch * prompt
-    read = flops = 0
+    read = flops = state = 0
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        d_in, h = s.d_inner(cfg.d_model), s.nheads(cfg.d_model)
+        per_layer = batch * (4 * h * s.headdim * s.d_state
+                             + 2 * (s.d_conv - 1) * (d_in + 2 * s.d_state))
+        state = 2 * per_layer * mamba_layers(cfg)
     for name, p in params.named_parameters():
         n = p.numel()
         if name.startswith("mtp."):
@@ -1986,10 +2052,23 @@ def serve_floors(cfg, params, batch, prompt):
         else:
             flops += 2.0 * n * tokens
     return (flops / PEAK_FLOPS["bfloat16"] * 1e3,
-            2.0 * read / H100_BYTES_PER_S * 1e3)
+            (2.0 * read + state) / H100_BYTES_PER_S * 1e3)
 
 
-def phase_zoo_serve(torch, dev, card, arch, blocks=None):
+def attention_layers(cfg) -> int:
+    """The layers of ``cfg`` that attend (each launches the flash kernel
+    once per model pass); the MTP layer is not counted."""
+    return len(cfg.prologue) + cfg.num_blocks * len(cfg.pattern) \
+        - mamba_layers(cfg)
+
+
+def mamba_layers(cfg) -> int:
+    return sum(s.kind == "mamba" for s in cfg.prologue) \
+        + cfg.num_blocks * sum(s.kind == "mamba" for s in cfg.pattern)
+
+
+def phase_zoo_serve(torch, dev, card, arch, blocks=None, pattern=None,
+                    kind=None):
     """``[zoo-serve]``: full-width ``arch`` in bf16 (random weights from a
     seed) through ``make_engine``, B=4 prompts of ``ZOO_PROMPTS[arch]``
     tokens, 32 greedy tokens: a warm-up generation, then a timed one
@@ -1998,30 +2077,41 @@ def phase_zoo_serve(torch, dev, card, arch, blocks=None):
     timed, giving the engine's tokens.  For granite-8b, ``[zoo-continuous]``
     on the same weights.  With ``blocks`` (the MoE family) it is
     ``[moe-serve]``: the depth cut to that many pattern blocks, prompts
-    of ``MOE_PROMPT``, and for grok-1-314b ``[moe-continuous]``.  Returns
-    the launches by phase."""
-    import dataclasses
-
+    of ``MOE_PROMPT``, and for grok-1-314b ``[moe-continuous]``; with
+    ``pattern`` as well, only the first that many layers of the pattern
+    are kept (``[hybrid-serve]``, jamba).  ``kind`` names the phase
+    (``[ssm-serve]``: mamba2 at full depth).  The flash launches asserted
+    are the attention layers' (none for mamba2).  Returns the launches by
+    phase."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.models import model as M
     from repro_torch.serve import make_engine
 
     cfg = get_config(arch)
-    kind = "zoo" if blocks is None else "moe"
+    kind = kind or ("zoo" if blocks is None else "moe")
     tag = f"[{kind}-serve] {arch}"
     depth = ""
+    if pattern is not None:
+        depth = (f" (pattern cut: the first {pattern} of its "
+                 f"{len(cfg.pattern)} layers)")
+        cfg = dataclasses.replace(cfg, pattern=cfg.pattern[:pattern])
     if blocks is not None:
-        depth = f" (depth cut: {blocks} of {cfg.num_blocks} blocks)"
+        depth += f" (depth cut: {blocks} of {cfg.num_blocks} blocks)"
         cfg = dataclasses.replace(cfg, num_blocks=blocks)
     prompt = ZOO_PROMPTS.get(arch, MOE_PROMPT)
-    seq, L = prompt + ZOO_NEW, cfg.num_layers
+    seq, L = prompt + ZOO_NEW, attention_layers(cfg)
     t0 = time.perf_counter()
     params = M.init(cfg, seed=0, dtype=torch.bfloat16, device=dev)
     n_params = sum(p.numel() for p in params.parameters())
-    print(f"{tag} full width{depth}: {L} layers, d {cfg.d_model}, "
-          f"{cfg.num_heads} q / {cfg.num_kv_heads} kv heads of "
-          f"{cfg.head_dim}, {n_params / 1e9:.3f} B params in bf16 "
+    ssm = "" if cfg.ssm is None else (
+        f", {mamba_layers(cfg)} Mamba-2 layers of "
+        f"{cfg.ssm.nheads(cfg.d_model)} SSD heads of {cfg.ssm.headdim}, "
+        f"state {cfg.ssm.d_state}, chunk {cfg.ssm.chunk}")
+    print(f"{tag} full width{depth}: {cfg.num_layers} layers, d "
+          f"{cfg.d_model}, {L} attention layers of {cfg.num_heads} q / "
+          f"{cfg.num_kv_heads} kv heads of {cfg.head_dim}{ssm}, "
+          f"{n_params / 1e9:.3f} B params in bf16 "
           f"({2 * n_params / 1e9:.2f} GB), init "
           f"{time.perf_counter() - t0:.1f}s")
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -2085,12 +2175,14 @@ def phase_zoo_serve(torch, dev, card, arch, blocks=None):
     prefill_floor, decode_floor = serve_floors(cfg, params, ZOO_BATCH,
                                                prompt)
     print(f"{tag} floors: prefill >= {prefill_floor:.3f} ms (operations; "
-          f"{'experts on E x C slots, ' if cfg.moe else ''}attention not "
-          f"counted), decode >= {decode_floor:.3f} ms/step (bytes of the "
-          f"weights a step reads)")
+          f"{'experts on E x C slots, ' if cfg.moe else ''}attention"
+          f"{' and the SSD scan' if cfg.ssm else ''} not counted), decode "
+          f">= {decode_floor:.3f} ms/step (bytes of the weights a step "
+          f"reads{', and each Mamba state read and written' * bool(cfg.ssm)}"
+          f")")
     print(f"{tag} flash attention launches: generation "
-          f"{launches['generation']} (= {L} layers x {ZOO_NEW} model "
-          f"passes), prefill {launches['prefill']}, decode "
+          f"{launches['generation']} (= {L} attention layers x {ZOO_NEW} "
+          f"model passes), prefill {launches['prefill']}, decode "
           f"{launches['decode']}; plain or SDPA calls 0; first tokens "
           f"{toks[:, :6].tolist()}")
     out = {f"{kind}-serve-{arch}": launches["generation"]}
@@ -2404,19 +2496,23 @@ def phase_cpu_vs_card(torch, dev):
                          f"card {out['card'].tolist()}")
 
 
-def phase_moe_cpu_vs_card(torch, dev):
+def phase_moe_cpu_vs_card(torch, dev, archs=tuple(MOE_BLOCKS),
+                          tag="[moe-cpu-vs-card]"):
     """``[moe-cpu-vs-card]``: reduced grok-1-314b and deepseek-v3-671b in
     f32, one model's weights on the CPU and the card: prefill logits, 4
     teacher-forced decode steps' logits and ``loss_fn`` (with the aux
     loss, and deepseek's MTP term through its untied head) within 1e-4,
     the [cpu-vs-card] tolerance (cuBLAS, the kernel at (64, 64) for
     grok and at MLA's padded (48, 32) for deepseek, and the CPU sum in
-    other orders)."""
+    other orders).  With ``archs=(SSM_ARCH, HYBRID_ARCH)`` it is
+    ``[ssm-cpu-vs-card]``: the prefill runs the chunked scan (2 chunks of
+    8), each decode step the recurrent step, on cuBLAS in f32 with TF32
+    off."""
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import token_batches
     from repro_torch.models import model as M
 
-    for arch in MOE_BLOCKS:
+    for arch in archs:
         cfg = get_config(arch).reduced()
         cpu = M.init(cfg, seed=3, dtype=torch.float32, device="cpu")
         card = M.Model(cfg, dtype=torch.float32, device=dev)
@@ -2443,25 +2539,26 @@ def phase_moe_cpu_vs_card(torch, dev):
                          torch.stack([loss, aux["aux"]]).detach().cpu())
         errs = [float((out["card"][i] - out["cpu"][i]).abs().max())
                 for i in range(2)]
-        print(f"[moe-cpu-vs-card] reduced {arch} f32: prefill + 4 decode "
+        print(f"{tag} reduced {arch} f32: prefill + 4 decode "
               f"logits max abs err {errs[0]:.3e}, loss and aux "
               f"{errs[1]:.3e} (tol 1e-4; loss {float(out['card'][1][0]):.6f}"
               f", aux {float(out['card'][1][1]):.6f})")
         if not max(errs) <= 1e-4:
-            raise SystemExit(f"[moe-cpu-vs-card] {arch}: card vs cpu differ "
-                             f"by {errs}")
+            raise SystemExit(f"{tag} {arch}: card vs cpu differ by {errs}")
 
 
 def phase_train(torch, dev, card, profile=False, compression=None,
                 arch="gemma3-1b", nodes=TRAIN_N, steps=TRAIN_STEPS,
-                tag=None, pre=None, reduced=False):
+                tag=None, pre=None, reduced=False, remat=False):
     """Full-width (or, with ``reduced``, ``reduced()``) DSGD-momentum
     training of ``arch`` in bf16 on the card as ``nodes`` nodes, through
     ``simulate_decentralized``, uncompressed (``[train]``) or with
     ``compression`` (``[train-compress]``), or under ``tag`` with
-    launches keyed by ``pre`` (``[zoo-train]``, ``[moe-train]``); returns
-    the launch counts of the timed run by phase.  With ``profile``, one
-    more step runs under the profiler (kernel time by name)."""
+    launches keyed by ``pre`` (``[zoo-train]``, ``[moe-train]``,
+    ``[ssm-train]``, ``[hybrid-train]``), each pattern block checkpointed
+    with ``remat``; returns the launch counts of the timed run by phase.
+    With ``profile``, one more step runs under the profiler (kernel time
+    by name)."""
     from repro_torch import trace
     from repro_torch.compress import reference_leaves
     from repro_torch.configs import get_config
@@ -2469,6 +2566,7 @@ def phase_train(torch, dev, card, profile=False, compression=None,
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.fused_dsgd import fused_dsgd, fused_dsgd_many
+    from repro_torch.kernels.multi_tensor import capacity
     from repro_torch.dist.gossip import BUCKET_BYTES, plan_buckets
     from repro_torch.kernels.quantized_gossip import (quantize_ef,
                                                       quantize_ef_many)
@@ -2487,8 +2585,11 @@ def phase_train(torch, dev, card, profile=False, compression=None,
                     device=dev).state_dict()
     n_params = sum(p.numel() for p in params.values())
     tokens = nodes * TRAIN_B * TRAIN_SEQ
-    # attention layers a forward runs: the MTP layer's besides
-    n_attn = cfg.num_layers + (1 if cfg.mtp else 0)
+    # attention layers a forward runs: the MTP layer's besides; with
+    # remat the backward runs the pattern blocks' again
+    n_attn = attention_layers(cfg) + (1 if cfg.mtp else 0)
+    if remat:
+        n_attn += attention_layers(dataclasses.replace(cfg, prologue=()))
     spec = TopologySpec(name="base", n=nodes, k=1)
 
     def batches(step):
@@ -2497,12 +2598,14 @@ def phase_train(torch, dev, card, profile=False, compression=None,
         return {k: v.reshape(nodes, TRAIN_B, TRAIN_SEQ)
                 for k, v in b.items()}
 
-    kw = dict(loss_fn=lambda p, b: M.loss_fn(cfg, p, b)[0], params=params,
+    kw = dict(loss_fn=lambda p, b: M.loss_fn(cfg, p, b, remat=remat)[0],
+              params=params,
               method=make_method("dsgdm", momentum=TRAIN_MOMENTUM,
                                  compression=compression),
               schedule=spec, batches=batches, eta=TRAIN_ETA, device=dev)
     print(f"{tag} {arch} {'reduced' if reduced else 'full width'}: "
-          f"{n_attn} attention layers, "
+          f"{cfg.num_layers} layers, {n_attn} attention layer runs a "
+          f"forward{' and backward (remat)' if remat else ''}, "
           f"{len(params)} parameter tensors, {n_params / 1e9:.3f} B params "
           f"in bf16; n={nodes} nodes on base k=1, dsgdm "
           f"{TRAIN_MOMENTUM}, eta {TRAIN_ETA}, {TRAIN_B} x {TRAIN_SEQ} "
@@ -2570,7 +2673,12 @@ def phase_train(torch, dev, card, profile=False, compression=None,
     peak = torch.cuda.max_memory_allocated()
 
     leaves = reference_leaves(params)
-    dtypes = len({v.dtype for v in params.values()})
+    # one grouped update per table of segments (``multi_tensor.capacity``
+    # of its 5 pointers: 440 tensors) per dtype per step
+    per_dtype = {}
+    for v in params.values():
+        per_dtype[v.dtype] = per_dtype.get(v.dtype, 0) + 1
+    tables = sum(-(-n // capacity(5)) for n in per_dtype.values())
     # one grouped quantize per bucket of reference leaves (f32 chunk rows
     # of all nodes) per step
     buckets = len(plan_buckets(
@@ -2578,7 +2686,7 @@ def phase_train(torch, dev, card, profile=False, compression=None,
                                       // CHUNK)) for g in leaves],
         BUCKET_BYTES))
     n_quant = steps * buckets if compression else 0
-    want = {pre + "fused_dsgd": steps * dtypes,
+    want = {pre + "fused_dsgd": steps * tables,
             pre + "fused_dsgd-tensors": steps * len(params),
             pre + "fused_dsgd-single": 0,
             pre + "flash": steps * n_attn * nodes,
@@ -2638,12 +2746,13 @@ def phase_train(torch, dev, card, profile=False, compression=None,
           f"bf16); update >= {update_floor:.2f} ms/step "
           f"({update_bytes / 1e9:.1f} GB at 3.35 TB/s)")
     print(f"{tag} launches in {steps} steps: fused_dsgd "
-          f"{launches[pre + 'fused_dsgd']} (= {dtypes} dtype x "
+          f"{launches[pre + 'fused_dsgd']} (= {tables} table(s) of at "
+          f"most {capacity(5)} tensors x "
           f"{steps} steps) over "
           f"{launches[pre + 'fused_dsgd-tensors']} tensors (= "
           f"{len(params)} x {steps}), flash "
           f"{launches[pre + 'flash']} (= "
-          f"{n_attn} layers x {nodes} nodes x {steps})"
+          f"{n_attn} attention layer runs x {nodes} nodes x {steps})"
           + (f", quantize_ef_many {launches['train-quantize_ef']} (= "
              f"{buckets} buckets of at most {BUCKET_BYTES >> 20} MiB x "
              f"{steps} steps) over "
@@ -3926,45 +4035,60 @@ def _dist_rank(rank, device, opts, ref_paths, disp, n_leaves):
     launches = {k: c.launches for k, c in counters.items()}
     launches.update({k: c.segments for k, c in grouped.items()})
     peak = torch.cuda.max_memory_allocated(device)
+    reserved = torch.cuda.max_memory_reserved(device)
     spans = _step_spans(marks)
     del marks
     on_card = all(v.device == device for v in res.params.values())
     if res.state.get("ef") is not None:
         on_card &= all(v.device == device for v in res.state["ef"].values())
+    params, ef, ct = res.params, res.state.get("ef"), res.state.get("ct")
+    losses, sent = res.losses, dict(res.bundle.mixer.stats)
+    # the momentum and the mixer's buffers go before the check: the three
+    # ranks share the card, and one still training needs its room
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
 
     def compare(got, want, floor):
         """Elementwise |got - want| <= 2^-5 |want| + floor[k]: four bf16
-        ulps of the element or more, plus a per-tensor floor."""
+        ulps of the element or more, plus a per-tensor floor; in slices
+        of ``DIST_CHECK_SLICE`` elements, so that the check needs little
+        memory beside the parameters."""
         worst = {"differing": 0, "violations": 0, "max_abs": 0.0,
                  "max_ratio": 0.0, "elements": 0}
         for k, g in got.items():
-            s = want[k].to(device).float()
-            diff = (g[0].float() - s).abs()
-            tol = 2.0 ** -5 * s.abs() + floor[k]
-            worst["elements"] += diff.numel()
-            worst["differing"] += int((diff > 0).sum())
-            worst["violations"] += int((diff > tol).sum())
-            worst["max_abs"] = max(worst["max_abs"], float(diff.max()))
-            pos = tol > 0
-            if bool(pos.any()):
-                worst["max_ratio"] = max(worst["max_ratio"], float(
-                    (diff[pos] / tol[pos]).max()))
-            del s, diff, tol, pos
+            for a, b in zip(g[0].reshape(-1).split(DIST_CHECK_SLICE),
+                            want[k].reshape(-1).split(DIST_CHECK_SLICE)):
+                s = b.to(device).float()
+                diff = (a.float() - s).abs()
+                tol = 2.0 ** -5 * s.abs() + floor[k]
+                worst["elements"] += diff.numel()
+                worst["differing"] += int((diff > 0).sum())
+                worst["violations"] += int((diff > tol).sum())
+                worst["max_abs"] = max(worst["max_abs"],
+                                       float(diff.max()))
+                pos = tol > 0
+                if bool(pos.any()):
+                    worst["max_ratio"] = max(worst["max_ratio"], float(
+                        (diff[pos] / tol[pos]).max()))
+                del s, diff, tol, pos
         return worst
 
     ref = torch.load(ref_paths[rank], mmap=True)
-    checks = {"params": compare(res.params, ref["params"],
+    checks = {"params": compare(params, ref["params"],
                                 {k: 2.0 ** -1 * v for k, v in disp.items()})}
     if "ef" in ref:
         checks["ef"] = compare(
-            res.state["ef"], ref["ef"],
+            ef, ref["ef"],
             {k: 2.0 ** -1 * float(v.float().abs().max())
              for k, v in ref["ef"].items()})
     del ref
+    check_peak = torch.cuda.max_memory_allocated(device)
     return {"rank": rank, "device": str(device), "on_card": on_card,
-            "losses": res.losses, "launches": launches, "peak": peak,
-            "wall": wall, "spans": spans, "sent": dict(res.bundle.mixer.stats),
-            "ct": res.state.get("ct"), "digests": digests,
+            "losses": losses, "launches": launches, "peak": peak,
+            "check_peak": check_peak, "reserved": reserved, "wall": wall,
+            "spans": spans, "sent": sent, "ct": ct, "digests": digests,
             "checks": checks}
 
 
@@ -4054,7 +4178,18 @@ def phase_dist(torch, dev, card, compression=None):
           f"{sim_s:.1f}s; per-node results written in "
           f"{time.perf_counter() - t0:.1f}s")
     del res
+    # the ranks share the card with this process: what it still holds,
+    # cycles of earlier phases included, goes back to the card first
+    before = torch.cuda.memory_allocated(dev)
+    gc.collect()
     torch.cuda.empty_cache()
+    free, total_mem = torch.cuda.mem_get_info(dev)
+    print(f"{tag} before the spawn this process holds "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated "
+          f"({before / 2**30:.2f} before gc.collect()), "
+          f"{torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB reserved; "
+          f"{free / 2**30:.2f} of {total_mem / 2**30:.2f} GiB free on the "
+          f"card")
 
     t0 = time.perf_counter()
     try:
@@ -4166,7 +4301,9 @@ def phase_dist(torch, dev, card, compression=None):
               + (f", quantize {med['quantize']:.1f}" if compression else "")
               + f", exchange {med['exchange']:.1f}, combine "
               f"{med['combine']:.1f} ms; wall {res['wall']:.1f}s; peak "
-              f"memory {res['peak'] / 2**30:.2f} GiB; losses "
+              f"memory {res['peak'] / 2**30:.2f} GiB (the check after it "
+              f"{res['check_peak'] / 2**30:.2f} GiB; training reserved at "
+              f"most {res['reserved'] / 2**30:.2f} GiB); losses "
               f"{[round(x, 4) for x in got_l]} (simulation "
               f"{[round(x, 4) for x in sim_l]}, equal per step: "
               f"{[a == b for a, b in zip(got_l, sim_l)]}, max diff "
@@ -4371,6 +4508,7 @@ def main() -> None:
     entries += phase_paged_kernels(torch, dev)
     entries += phase_zoo_kernels(torch, dev)
     entries += phase_moe_kernels(torch, dev)
+    entries += phase_hybrid_kernels(torch, dev)
     entries += phase_gossip_kernels(torch, dev)
     # the padded pairs' entries report the launches counted under their
     # (D, Dv) over every path run from here to the sweep
@@ -4388,6 +4526,9 @@ def main() -> None:
         launches.update(phase_zoo_serve(torch, dev, card, arch))
     for arch, blocks in MOE_BLOCKS.items():
         launches.update(phase_zoo_serve(torch, dev, card, arch, blocks))
+    launches.update(phase_zoo_serve(torch, dev, card, SSM_ARCH, kind="ssm"))
+    launches.update(phase_zoo_serve(torch, dev, card, HYBRID_ARCH, blocks=1,
+                                    pattern=HYBRID_CUT, kind="hybrid"))
     launches.update(phase_train(torch, dev, card, profile=args.profile))
     launches.update(phase_train(
         torch, dev, card, profile=args.profile,
@@ -4401,6 +4542,14 @@ def main() -> None:
             torch, dev, card, arch=arch, nodes=MOE_TRAIN_N,
             steps=MOE_TRAIN_STEPS, tag="[moe-train]",
             pre=f"moe-train-{arch}-", reduced=True))
+    launches.update(phase_train(
+        torch, dev, card, arch=SSM_ARCH, nodes=SSM_TRAIN_N,
+        steps=SSM_TRAIN_STEPS, tag="[ssm-train]", pre="ssm-train-",
+        remat=True))
+    launches.update(phase_train(
+        torch, dev, card, arch=HYBRID_ARCH, nodes=HYBRID_TRAIN_N,
+        steps=SSM_TRAIN_STEPS, tag="[hybrid-train]", pre="hybrid-train-",
+        reduced=True))
     launches.update(phase_remat(torch, dev, card))
     launches.update(phase_dist(torch, dev, card))
     launches.update(phase_dist(
@@ -4434,6 +4583,8 @@ def main() -> None:
                          f"{idle}")
     phase_cpu_vs_card(torch, dev)
     phase_moe_cpu_vs_card(torch, dev)
+    phase_moe_cpu_vs_card(torch, dev, archs=(SSM_ARCH, HYBRID_ARCH),
+                          tag="[ssm-cpu-vs-card]")
     phase_train_cpu_vs_card(torch, dev)
     phase_compress_cpu_vs_card(torch, dev)
     phase_continuous_cpu_vs_card(torch, dev)

@@ -2,7 +2,8 @@
 
 Only the architectures the port serves and trains are registered (the
 dense zoo: gemma3-1b, gemma2-2b, granite-8b and qwen1.5-4b; the MoE
-family: grok-1-314b and deepseek-v3-671b); the others are still on
+family: grok-1-314b and deepseek-v3-671b; the SSM family: mamba2-2.7b
+and the hybrid jamba-1.5-large-398b); the others are still on
 ROADMAP.md's queue and raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -19,6 +20,8 @@ _MODULES = {
     "qwen1.5-4b": "qwen15_4b",
     "grok-1-314b": "grok_1_314b",
     "deepseek-v3-671b": "deepseek_v3_671b",
+    "mamba2-2.7b": "mamba2_27b",
+    "jamba-1.5-large-398b": "jamba_15_large_398b",
 }
 
 ARCH_NAMES = tuple(_MODULES)

@@ -6,13 +6,15 @@ blocks are stacked in the reference (``stack.blocks[i]`` leaves carry a
 leading ``num_blocks`` axis, ``blocks.py:146-160``) and are one module
 per block here (``stack.blocks.<block>.<i>``).  Every leaf under the
 blocks is split the same way, a projection's bias (``….attn.wq.b``,
-qwen's QKV biases) as its weight.  Weight orientation is the same on
-both sides, so each leaf is a copy.  Paged KV caches (page pools)
-cross the same way, in both directions (:func:`paged_cache_from_jax`,
-:func:`paged_cache_to_numpy`).  The distributed runtime holds one node per
-rank: :func:`rank_slice` cuts rank r's ``(1, ...)`` slice out of a
-node-stacked tree or method state, and :func:`stack_ranks` puts the
-ranks' slices back together.
+qwen's QKV biases) as its weight, and a Mamba layer's leaves
+(``….mamba.in_proj.w``, ``conv_w``, ``conv_b``, ``A_log``, ``D``,
+``dt_bias``, ``norm.scale``, ``out_proj.w``) as any other.  Weight
+orientation is the same on both sides, so each leaf is a copy.  Paged
+KV caches (page pools) cross the same way, in both directions
+(:func:`paged_cache_from_jax`, :func:`paged_cache_to_numpy`).  The
+distributed runtime holds one node per rank: :func:`rank_slice` cuts
+rank r's ``(1, ...)`` slice out of a node-stacked tree or method state,
+and :func:`stack_ranks` puts the ranks' slices back together.
 """
 from __future__ import annotations
 

@@ -6,13 +6,17 @@ engine (port of ``repro/launch/serve.py``).
         --top-k 40 --top-p 0.95] [--eos-id 1] [--reduced] [--device cpu]
 
 ``--arch`` is one of the dense zoo (gemma3-1b, gemma2-2b, granite-8b,
-qwen1.5-4b) or the MoE family (grok-1-314b, deepseek-v3-671b; at full
+qwen1.5-4b), the MoE family (grok-1-314b, deepseek-v3-671b; at full
 depth neither fits one card, so run them ``--reduced``; deepseek-v3-671b's
 latent cache has no paged form, and ``--continuous`` raises for it, as in
-the reference).  Random weights from ``--seed`` (full width in bf16,
-``--reduced`` in f32), a random prompt batch, one warm-up generation (it
-builds the CUDA kernels on first use), then one timed generation
-reporting steady-state tokens/s.
+the reference) or the SSM family (mamba2-2.7b, which fits at full width
+and depth, and the hybrid jamba-1.5-large-398b, ``--reduced``; a Mamba
+layer's recurrent state has no paged form and takes no speculation, so
+``--continuous`` and ``--speculate-k`` raise for both).  Random
+weights from ``--seed`` (full width in bf16, ``--reduced`` in f32), a
+random prompt batch, one warm-up generation (it builds the CUDA kernels
+on first use), then one timed generation reporting steady-state
+tokens/s.
 
 ``--continuous`` serves a seeded Poisson trace through
 :class:`repro_torch.serve.ContinuousEngine` over a paged KV cache,
@@ -55,7 +59,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True,
                     help="gemma3-1b, gemma2-2b, granite-8b, qwen1.5-4b, "
-                         "grok-1-314b or deepseek-v3-671b")
+                         "grok-1-314b, deepseek-v3-671b, mamba2-2.7b or "
+                         "jamba-1.5-large-398b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16,

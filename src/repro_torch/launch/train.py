@@ -128,7 +128,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True,
                     help="gemma3-1b, gemma2-2b, granite-8b, qwen1.5-4b, "
-                         "grok-1-314b or deepseek-v3-671b")
+                         "grok-1-314b, deepseek-v3-671b, mamba2-2.7b or "
+                         "jamba-1.5-large-398b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--nproc", type=int, default=None,
                     help="start N local ranks, one node each")

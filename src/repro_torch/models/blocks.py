@@ -7,11 +7,14 @@ one module per block (``stack.blocks.<block>.<position>``) and loops.
 With ``remat`` each pattern block runs under activation checkpointing,
 as the reference's ``jax.checkpoint`` around the scan body
 (``blocks.py:206``); prologue layers are not checkpointed.
-Attention (GQA with or without QKV biases, or MLA) with a dense or MoE
-feed-forward; each layer returns the MoE router's aux loss, and the
-stack sums it over the prologue and the blocks, under ``remat`` too, as
-``stack_apply``.  Mamba and cross-attention layers raise
-``NotImplementedError`` until they are ported.
+Attention (GQA with or without QKV biases, or MLA) or a Mamba-2 mixer,
+with a dense or MoE feed-forward or none; each layer returns the MoE
+router's aux loss, and the stack sums it over the prologue and the
+blocks, under ``remat`` too, as ``stack_apply``.  A Mamba layer's cache
+is its recurrent state (``{"mamba": {"conv", "ssm"}}``), which it updates
+in place in every decode mode and which has no paged form.
+Cross-attention layers raise ``NotImplementedError`` until they are
+ported.
 """
 from __future__ import annotations
 
@@ -23,25 +26,24 @@ from repro_torch.configs.common import ArchConfig, LayerSpec
 
 from .attention import Attention
 from .layers import MLP, RMSNorm
+from .mamba2 import Mamba, mamba_cache_init
 from .mla import MLA
 from .moe import MoE
 
 
 def _check_ported(cfg: ArchConfig, spec: LayerSpec) -> None:
-    why = None
-    if spec.kind != "attn":
-        why = f"{spec.kind} layers"
-    elif spec.cross_attn:
-        why = "cross-attention layers"
-    if why is not None:
-        raise NotImplementedError(f"{why} are not ported to repro_torch yet "
-                                  f"({cfg.name}); see ROADMAP.md")
+    if spec.cross_attn:
+        raise NotImplementedError(f"cross-attention layers are not ported to "
+                                  f"repro_torch yet ({cfg.name}); see "
+                                  f"ROADMAP.md")
 
 
 class Layer(nn.Module):
     """One pre-norm residual layer (``layer_init`` / ``layer_apply``):
-    attention (MLA when ``cfg.mla``), then a gated MLP or an MoE, each
-    with gemma's sandwich post-norm when ``cfg.post_norm``."""
+    attention (MLA when ``cfg.mla``) or, for ``kind="mamba"``, a Mamba-2
+    mixer, then a gated MLP or an MoE, each with gemma's sandwich
+    post-norm when ``cfg.post_norm`` (attention's only, as the
+    reference)."""
 
     def __init__(self, cfg: ArchConfig, spec: LayerSpec, *, dtype, device):
         super().__init__()
@@ -50,13 +52,17 @@ class Layer(nn.Module):
         kw = dict(dtype=dtype, device=device)
         d = cfg.d_model
         self.ln1 = RMSNorm(d, **kw)
-        if cfg.mla is not None:
+        self.attn = self.mamba = None
+        if spec.kind == "mamba":
+            self.mamba = Mamba(d, cfg.ssm, **kw)
+        elif cfg.mla is not None:
             self.attn = MLA(d, cfg.num_heads, cfg.mla, **kw)
         else:
             self.attn = Attention(d, cfg.num_heads, cfg.num_kv_heads,
                                   cfg.head_dim, qkv_bias=cfg.qkv_bias,
                                   qk_norm=cfg.qk_norm, **kw)
-        self.ln1_post = RMSNorm(d, **kw) if cfg.post_norm else None
+        self.ln1_post = RMSNorm(d, **kw) \
+            if cfg.post_norm and self.attn is not None else None
         ffn = spec.ffn != "none"
         self.ln2 = RMSNorm(d, **kw) if ffn else None
         self.mlp = MLP(d, cfg.d_ff, act=cfg.mlp_act, **kw) \
@@ -68,15 +74,20 @@ class Layer(nn.Module):
     def forward(self, x, *, cache=None, cache_index=None, decode_mode="dus",
                 block_table=None):
         """Returns ``(x, aux)``: the router's f32 aux loss, or None when
-        the layer has no MoE."""
+        the layer has no MoE.  A Mamba layer ignores ``cache_index``,
+        ``decode_mode`` and ``block_table``."""
         cfg, spec = self.cfg, self.spec
-        kw = dict(rope_theta=spec.rope_theta, softcap=cfg.attn_softcap,
-                  cache=None if cache is None else cache["attn"],
-                  cache_index=cache_index)
-        if cfg.mla is None:     # MLA's cache is never paged (its init raises)
-            kw.update(window=spec.window, scale=cfg.attn_scale,
-                      decode_mode=decode_mode, block_table=block_table)
-        a = self.attn(self.ln1(x), **kw)
+        if self.mamba is not None:
+            a = self.mamba(self.ln1(x),
+                           cache=None if cache is None else cache["mamba"])
+        else:
+            kw = dict(rope_theta=spec.rope_theta, softcap=cfg.attn_softcap,
+                      cache=None if cache is None else cache["attn"],
+                      cache_index=cache_index)
+            if cfg.mla is None:  # MLA's cache is never paged (init raises)
+                kw.update(window=spec.window, scale=cfg.attn_scale,
+                          decode_mode=decode_mode, block_table=block_table)
+            a = self.attn(self.ln1(x), **kw)
         if self.ln1_post is not None:
             a = self.ln1_post(a)
         x = x + a
@@ -186,8 +197,12 @@ def layer_cache_init(cfg: ArchConfig, spec: LayerSpec, batch: int,
                      max_seq: int, dtype, device) -> dict:
     """A layer's dense cache: K/V ``(batch, max_seq, KV, hd)``, or MLA's
     latent ``{"ckv": (batch, max_seq, kv_lora), "krope": (batch, max_seq,
-    rope)}``."""
+    rope)}``, or a Mamba layer's ``{"mamba": {"conv", "ssm"}}`` state (no
+    ``max_seq`` axis)."""
     _check_ported(cfg, spec)
+    if spec.kind == "mamba":
+        return {"mamba": mamba_cache_init(batch, cfg.d_model, cfg.ssm, dtype,
+                                          device)}
     if cfg.mla is not None:
         rows = {"ckv": (cfg.mla.kv_lora_rank,),
                 "krope": (cfg.mla.qk_rope_dim,)}
@@ -212,8 +227,14 @@ def stack_paged_cache_init(cfg: ArchConfig, num_pages: int, page_size: int,
                            dtype, device) -> dict:
     """Page pools with :func:`stack_cache_init`'s structure: each layer's
     k/v is a pool ``(num_pages, page_size, KV, hd)`` shared by every slot
-    through the block table (``blocks.py:228-276``).  The MLA latent
-    cache has no paged form, as in the reference."""
+    through the block table (``blocks.py:228-276``).  Neither a Mamba
+    layer's recurrent state nor the MLA latent cache has a paged form, as
+    in the reference."""
+    for spec in tuple(cfg.prologue) + tuple(cfg.pattern):
+        if spec.kind != "attn":
+            raise NotImplementedError(
+                f"paged KV cache supports attn layers only, got "
+                f"{spec.kind!r}")
     if cfg.mla is not None:
         raise NotImplementedError(
             "paged KV cache does not support the MLA latent cache "
@@ -223,11 +244,12 @@ def stack_paged_cache_init(cfg: ArchConfig, num_pages: int, page_size: int,
 
 
 def layer_caches(caches: dict):
-    """Every layer's cache dict, whatever its leaves (``{"k", "v"}``, or
-    MLA's ``{"ckv", "krope"}``), prologue first, then the blocks in
-    order."""
-    for c in caches["prologue"]:
-        yield c["attn"]
-    for block in caches["blocks"]:
-        for c in block:
+    """Every attention layer's cache dict, whatever its leaves (``{"k",
+    "v"}``, or MLA's ``{"ckv", "krope"}``), prologue first, then the
+    blocks in order: the per-position rows a speculative round snapshots
+    and a paged prefill packs.  A Mamba layer's recurrent state has no
+    such rows and is left out; speculation and paging refuse models
+    that have one."""
+    for c in caches["prologue"] + [c for b in caches["blocks"] for c in b]:
+        if "attn" in c:
             yield c["attn"]

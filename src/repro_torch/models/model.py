@@ -21,8 +21,12 @@ time.  Caches and page pools are updated in place.  MoE models add the
 router's aux loss to ``loss_fn``'s; an untied model projects through its
 own ``lm_head.w``, and a multi-token-prediction model (deepseek-v3) adds
 0.3 x its extra layer's loss on labels shifted one more
-(``model.py:121-154``).  Encoder-decoder and frontend models are not
-ported yet.
+(``model.py:121-154``).  SSM and hybrid models (mamba2, jamba) run
+their Mamba layers' chunked scan in prefill, ``loss_fn`` and a decode
+step of T > 1 tokens (continued from the cached state), and the
+recurrent step at T = 1; their state ignores the index and is updated in
+every decode mode, ``"append_free"`` included.  Encoder-decoder and
+frontend models are not ported yet.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ from repro_torch.device import resolve_device
 
 from .blocks import Layer, Stack, stack_cache_init, stack_paged_cache_init
 from .layers import Dense, Embed, RMSNorm, chunked_ce_loss
+from .mamba2 import Mamba
 from .moe import MoE
 
 DECODE_MODES = ("dus", "append_free", "paged")
@@ -87,7 +92,8 @@ class Model(nn.Module):
 def init(cfg: ArchConfig, seed: int = 0, dtype=torch.float32,
          device=None) -> Model:
     """Random weights, N(0, 0.02) from a seeded ``torch.Generator`` on the
-    target device (norm scales zero, as the reference).  The
+    target device (norm scales zero, as the reference; a Mamba layer's
+    ``conv_w`` N(0, 0.1), its ``D`` 1 and its other leaves zero).  The
     numbers differ from the reference's ``jax.random`` draws; parity runs
     carry the reference's weights across with ``convert.params_from_jax``.
     """
@@ -95,7 +101,7 @@ def init(cfg: ArchConfig, seed: int = 0, dtype=torch.float32,
     gen = torch.Generator(device=model.embed.table.device)
     gen.manual_seed(seed)
     for module in model.modules():
-        if isinstance(module, (Dense, Embed, MoE)):
+        if isinstance(module, (Dense, Embed, MoE, Mamba)):
             module.reset_parameters(gen)
     return model.eval()
 
@@ -145,7 +151,8 @@ def init_paged_cache(cfg: ArchConfig, layout: PagedCacheLayout,
     """Page pools for paged serving: :func:`init_cache`'s structure with
     leaves ``(num_pages, page_size, KV, hd)``, to pair with a
     (B, max_pages) int32 block table and ``decode_mode="paged"``.
-    Attention-family decoder-only models only; others raise."""
+    Attention-family decoder-only models only; others (MLA, any Mamba
+    layer, an encoder) raise."""
     if cfg.encoder is not None:
         raise NotImplementedError(
             "paged serving does not cover encoder-decoder models")

@@ -198,11 +198,12 @@ def test_unported_decode_paths_raise():
     with pytest.raises(ValueError, match="vector"):
         TM.decode_step(cfg, params, caches, tok, torch.tensor([[3]]))
     # QKV biases (tests/test_torch_zoo.py), MoE and MLA layers
-    # (tests/test_torch_moe.py, tests/test_torch_mla.py) are ported;
-    # mamba layers are not
-    mamba = dataclasses.replace(cfg.pattern[0], kind="mamba")
+    # (tests/test_torch_moe.py, tests/test_torch_mla.py) and Mamba layers
+    # (tests/test_torch_mamba2.py) are ported; cross-attention layers are
+    # not
+    cross = dataclasses.replace(cfg.pattern[0], cross_attn=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.Model(dataclasses.replace(cfg, pattern=(mamba,)), device="cpu")
+        TM.Model(dataclasses.replace(cfg, pattern=(cross,)), device="cpu")
 
 
 @pytest.mark.parametrize("softcap", [None, 30.0])

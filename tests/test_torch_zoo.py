@@ -120,10 +120,11 @@ def test_config_matches_reference(arch, reduced):
 
 
 def test_registry_lists_the_dense_zoo():
-    assert ARCH_NAMES == ("gemma3-1b",) + ZOO + ("grok-1-314b",
-                                                 "deepseek-v3-671b")
+    assert ARCH_NAMES == ("gemma3-1b",) + ZOO + (
+        "grok-1-314b", "deepseek-v3-671b", "mamba2-2.7b",
+        "jamba-1.5-large-398b")
     with pytest.raises(NotImplementedError, match="gemma2-2b, granite-8b"):
-        get_config("mamba2-2.7b")
+        get_config("llava-next-34b")
 
 
 @pytest.mark.parametrize("case", ["qwen1.5-4b", "qwen1.5-4b/mha"])

@@ -1,9 +1,12 @@
-"""Reduced MoE models against the JAX reference on the CPU, shared by
-``tests/test_torch_moe.py`` (grok-1-314b) and ``tests/test_torch_mla.py``
-(deepseek-v3-671b): each arch's ``reduced()`` config with the reference's
-weights (norm scales made random, since they start at zero) carried
-across by ``convert.params_from_jax``.  The reference runs through
-``M.*`` with its plain attention; its gradient is compiled once per arch.
+"""Reduced models against the JAX reference on the CPU, shared by
+``tests/test_torch_moe.py`` (grok-1-314b), ``tests/test_torch_mla.py``
+(deepseek-v3-671b) and ``tests/test_torch_mamba2.py`` (mamba2-2.7b,
+jamba-1.5-large-398b): each arch's ``reduced()`` config with the
+reference's weights carried across by ``convert.params_from_jax``, the
+leaves that start at a constant made random (norm scales, and a Mamba
+layer's ``A_log``, ``D``, ``dt_bias`` and ``conv_b``).  The reference
+runs through ``M.*`` with its plain attention; its gradient is compiled
+once per arch.
 """
 import functools
 
@@ -29,6 +32,13 @@ from repro_torch.topology import TopologySpec
 LAYER_TOL = 1e-5
 MODEL_TOL = 1e-4
 REF = KernelConfig(backend="ref")
+#: leaves initialised to a constant, drawn at random for the parity runs
+CONSTANT_LEAVES = ("scale", "A_log", "D", "dt_bias", "conv_b")
+#: archs whose reference weights are drawn with numpy over the shapes of
+#: ``jax.eval_shape(JM.init)``, at the reference's scales (N(0, 0.02),
+#: ``conv_w`` N(0, 0.1)): compiling ``JM.init`` costs ~7 s for reduced
+#: jamba on the CPU
+NUMPY_INIT = ("mamba2-2.7b", "jamba-1.5-large-398b")
 
 
 def err(got, want):
@@ -38,15 +48,28 @@ def err(got, want):
 
 @functools.lru_cache(maxsize=None)
 def pair(arch):
-    """The reference's reduced params (norm scales random) and the port's
-    model holding them."""
+    """The reference's reduced params (``CONSTANT_LEAVES`` random) and the
+    port's model holding them."""
     jcfg, cfg = jget_config(arch).reduced(), get_config(arch).reduced()
     rng = np.random.default_rng(11)
+    if arch in NUMPY_INIT:
+        def draw(path, a):
+            key = path[-1].key
+            if key in CONSTANT_LEAVES:
+                return jnp.full(a.shape, 1.0 if key == "D" else 0.0)
+            scale = 0.1 if key == "conv_w" else 0.02
+            return jnp.asarray(scale * rng.standard_normal(
+                a.shape, dtype=np.float32))
+
+        jparams = jax.tree_util.tree_map_with_path(draw, jax.eval_shape(
+            lambda k: JM.init(jcfg, k, jnp.float32), jax.random.PRNGKey(0)))
+    else:
+        jparams = jax.jit(JM.init, static_argnums=(0, 2))(
+            jcfg, jax.random.PRNGKey(0), jnp.float32)
     jparams = jax.tree_util.tree_map_with_path(
         lambda path, a: a + jnp.asarray(0.3 * rng.standard_normal(
-            a.shape, dtype=np.float32)) if path[-1].key == "scale" else a,
-        jax.jit(JM.init, static_argnums=(0, 2))(jcfg, jax.random.PRNGKey(0),
-                                                jnp.float32))
+            a.shape, dtype=np.float32))
+        if path[-1].key in CONSTANT_LEAVES else a, jparams)
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
                               device="cpu")
     return jcfg, cfg, jparams, tparams
@@ -100,11 +123,12 @@ def _jvalue_and_grad(arch):
         has_aux=True))
 
 
-def loss_and_grads(arch):
+def loss_and_grads(arch, seq=12):
     """``loss_fn`` (with the aux loss, and deepseek's MTP term through its
-    untied head) and every gradient against ``jax.value_and_grad``."""
+    untied head) and every gradient against ``jax.value_and_grad``, on 2
+    sequences of ``seq`` tokens."""
     _, cfg, jparams, tparams = pair(arch)
-    batch = jsynthetic.token_batches(0, batch=2, seq=12,
+    batch = jsynthetic.token_batches(0, batch=2, seq=seq,
                                      vocab=cfg.vocab_size)
     (jloss, jaux), jgrads = _jvalue_and_grad(arch)(
         jparams, jax.tree.map(jnp.asarray, batch))
@@ -112,7 +136,7 @@ def loss_and_grads(arch):
               for k, v in tparams.state_dict().items()}
     loss, aux = TM.loss_fn(cfg, params, {k: torch.from_numpy(v)
                                          for k, v in batch.items()})
-    assert float(aux["aux"].detach()) > 0.0
+    assert (float(aux["aux"].detach()) > 0.0) == (cfg.moe is not None)
     assert err(aux["aux"].detach(), jaux["aux"]) <= LAYER_TOL
     assert err(loss.detach(), jloss) <= LAYER_TOL
     grads = dict(zip(params, torch.autograd.grad(loss,
@@ -124,14 +148,15 @@ def loss_and_grads(arch):
     return grads
 
 
-def sim_step(arch):
+def sim_step(arch, T=12):
     """One DSGD-momentum step of n = 3 nodes on Base-2 through the port's
     ``simulate_decentralized`` against the reference engine's step
     (``sim/engine.py:121-129``: each node's loss and gradients, their
     mean loss, then ``method.step``), node by node through the compiled
-    gradient of the loss test: the loss and every parameter."""
+    gradient of the loss test, on 2 sequences of ``T`` tokens per node:
+    the loss and every parameter."""
     _, cfg, jparams, _ = pair(arch)
-    n, eta, B, T = 3, 0.05, 2, 12
+    n, eta, B = 3, 0.05, 2
 
     def batches(step):
         b = jsynthetic.token_batches(step, batch=n * B, seq=T,
