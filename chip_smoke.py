@@ -120,6 +120,17 @@ Phases (any failure exits non-zero and prints no result line):
    - Row 1 at jamba-1.5-large-398b's attention layer
      (``[hybrid-kernels]``: 64 q / 8 kv heads of 128) at B=4 prompts of
      1024 with 32 new tokens, prefill and last-step decode, as above.
+   - Row 1 at llava-next-34b's attention (``[vlm-kernels]``: 56 q / 8 kv
+     heads of 128, 7 per kv head): B=4 prefill of the 2880 patch
+     embeddings and a 1024-token prompt (3904 rows) in a cache of 3936,
+     and decode at 3934; and at seamless-m4t-large-v2's
+     (``[encdec-kernels]``: 16 heads of 64, MHA, B=4) without the causal
+     mask: the encoder (Tq = S = 1024), the cross-attention's prefill (64
+     rows against 1024) and decode (1 against 1024, split == unsplit
+     bitwise), a call whose 2048 queries outnumber its 1024 keys (q0 =
+     -1024, on no path: its entry reads 0 launches), and the decoder's
+     causal self-attention at 64 + 32.  SDPA runs non-causal, without a
+     mask, where the case is non-causal.
 3. Serving: full-width gemma3-1b in bf16 (random weights from a seed),
    ``make_engine(batch=4, prompt_len=1024, max_new=64)``, one warm-up
    generation, then one timed greedy generation whose kernel launches
@@ -174,6 +185,18 @@ Phases (any failure exits non-zero and prints no result line):
    8-layer block is 88.1 GB), 32 flash launches per generation.  Their
    decode floors add each Mamba layer's state, read and written once a
    step.
+   ``[vlm-serve]``: llava-next-34b at full width and depth (34.39 B
+   params, 68.78 GB; the depth is cut, and the cut printed, only if the
+   free memory cannot hold its weights, its cache and 5 GiB of
+   transients) through ``make_engine(prefix_len=2880)``: B=4 prompts of
+   1024 tokens after 2880 stub patch embeddings, 32 greedy tokens, 60 x
+   32 = 1,920 flash launches per generation.  ``[encdec-serve]``:
+   seamless-m4t-large-v2 at full width and depth (1.77 B) over 1024 stub
+   audio frames, prompts of 64 tokens, 24 + 48 x 32 = 1,560 launches (the
+   encoder once, then each decoder layer's self- and cross-attention).
+   Both with no plain or SDPA call; their floors count the K/V cache a
+   decode step reads, and seamless's the encoder and the cross K/V
+   projections over the frames (recomputed every decode step).
 4. Training: full-width gemma3-1b in bf16 as n = 3 nodes on the Base-2
    graph, DSGD-momentum (0.9, eta 0.01) through ``simulate_decentralized``,
    2 sequences of 1024 tokens per node; one warm-up step, then 6 timed
@@ -201,7 +224,14 @@ Phases (any failure exits non-zero and prints no result line):
    2 nodes, each pattern block checkpointed (``remat=True``), 3 steps:
    one grouped fused update per step and no flash launch;
    ``[hybrid-train]``: jamba-1.5-large-398b at ``reduced()`` as n = 3, 3
-   steps, one grouped update and 3 flash launches per step.  ``[remat]``: one
+   steps, one grouped update and 3 flash launches per step.
+   ``[encdec-train]``: seamless-m4t-large-v2 at full width as n = 2
+   nodes on Base-2, the ``[train]`` batch over 1024 stub frames per
+   sequence, 3 steps: 2 grouped updates per step (555 tensors fill two
+   tables) and 72 flash launches per node forward (the encoder's 24, the
+   decoder's 24 self- and 24 cross-attention calls); ``[vlm-train]``:
+   llava-next-34b ``reduced()`` with a 16-patch prefix, n = 3.
+   ``[remat]``: one
    gemma2-2b node's ``loss_fn`` gradients with ``remat=True`` against
    ``remat=False`` on the card, per gradient max |diff| / max |plain|
    <= 1e-6, with both peaks and both flash counts (26, and 52 with the
@@ -264,7 +294,9 @@ Phases (any failure exits non-zero and prints no result line):
    f32, prefill and 4 decode steps' logits and ``loss_fn`` with the aux
    (and MTP) terms within 1e-4; ``[ssm-cpu-vs-card]``: the same for
    reduced mamba2-2.7b and jamba-1.5-large-398b (the chunked scan in
-   prefill, the recurrent step in decode); the
+   prefill, the recurrent step in decode); ``[encdec-cpu-vs-card]``: the
+   same for reduced llava-next-34b after 16 stub prefix embeddings and
+   reduced seamless-m4t-large-v2 over 16 stub frames; the
    five methods on the paper MLP (losses within 1e-5) and reduced
    gemma3-1b DSGD-momentum training (losses within 1e-4).
    ``[compress-cpu-vs-card]``: ``compressed_dense_mix`` with every codec
@@ -293,8 +325,9 @@ Phases (any failure exits non-zero and prints no result line):
    ``[spec]`` (per round) and one training step, kernel time by name
    (what bounds a step).
 
-The line before the last is a JSON object with one entry per kernel
-and main-path shape; the last line is
+``[seconds]`` lines give each group of phases' seconds.  The line
+before the last is a JSON object with one entry per kernel and
+main-path shape; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -375,6 +408,20 @@ MOE_TRAIN_N, MOE_TRAIN_STEPS = 3, 3
 # [moe-serve] traffic, and trained at reduced() as n = 3 nodes
 SSM_ARCH, HYBRID_ARCH, HYBRID_CUT = "mamba2-2.7b", "jamba-1.5-large-398b", 5
 SSM_TRAIN_N, HYBRID_TRAIN_N, SSM_TRAIN_STEPS = 2, 3, 3
+# the last two archs, at full width and depth: llava-next-34b (34.39 B
+# params, 68.78 GB in bf16) serves B = 4 prompts of 1024 tokens after
+# its 2880 stub patch embeddings (index0 3904, a cache of 3936), and
+# trains at reduced() with a 16-patch prefix as n = 3 nodes;
+# seamless-m4t-large-v2 (1.77 B) serves B = 4 prompts of 64 tokens over
+# 1024 stub audio frames, and trains at full width as n = 2 nodes on
+# Base-2 (the [train] batch: 2 x 1024 tokens per node, over 1024 frames
+# each); 32 greedy tokens each; the stubs' stream starts at STUB_SEED
+VLM_ARCH, ENCDEC_ARCH = "llava-next-34b", "seamless-m4t-large-v2"
+VLM_PATCHES, VLM_PROMPT = 2880, 1024
+ENCDEC_FRAMES, ENCDEC_PROMPT = 1024, 64
+VLM_TRAIN_N, VLM_TRAIN_PATCHES, ENCDEC_TRAIN_N = 3, 16, 2
+STUB_SEED = 1 << 20
+FIT_MARGIN = 5 << 30      # transients of llava's prefill (~2.3 GiB), kept
 # the padded head-dim pairs: reduced MLA's, and the reference's MLA tests'
 # (tests/test_decode_attention.py:37), which no ported path runs; each
 # entry reports the launches counted under its pair over the path runs
@@ -435,6 +482,20 @@ CSWEEP_TOPOS = (("base", 1), ("exp", None), ("ring", None))
 CSWEEP_SEEDS, CSWEEP_STEPS = (0, 1), 30
 
 
+class PhaseClock:
+    """Prints the seconds since its last call (and since it was made) under
+    the name of the phases they covered."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+
+    def __call__(self, phases: str) -> None:
+        now = time.perf_counter()
+        print(f"[seconds] {phases}: {now - self.last:.1f} s (total "
+              f"{now - self.start:.1f} s)")
+        self.last = now
+
+
 def card_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -442,14 +503,15 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def attention_work(*, B, Tq, H, KV, D, Dv, q0, k_valid, window, elt):
+def attention_work(*, B, Tq, H, KV, D, Dv, q0, k_valid, window, elt,
+                   causal=True):
     """Bytes and FLOPs the attention call must move and do for these
     inputs: each (query, visible key) pair costs 2*(D + Dv) FLOPs; the
     bytes are q and out once plus the K/V rows any query can see."""
     lo_all, hi_all, pairs = None, None, 0
     for t in range(Tq):
         qpos = q0 + t
-        hi = min(k_valid, qpos + 1)
+        hi = min(k_valid, qpos + 1) if causal else k_valid
         lo = max(0, qpos - window + 1) if window else 0
         pairs += max(0, hi - lo)
         lo_all = lo if lo_all is None else min(lo_all, lo)
@@ -545,18 +607,23 @@ def phase_build(torch):
     torch.backends.cudnn.allow_tf32 = False
 
 
-def sdpa_call(torch, q, k, v, *, q0, k_valid, window, scale):
+def sdpa_call(torch, q, k, v, *, q0, k_valid, window, scale, causal=True):
     """SDPA on the same inputs (boolean mask for causal, window and the
-    valid prefix, keys past it zeroed): the yardstick.  It has no
-    softcap, so it computes the function only where there is none."""
+    valid prefix, keys past it zeroed; no mask at all for a non-causal
+    call over every key): the yardstick.  It has no softcap, so it
+    computes the function only where there is none."""
     import torch.nn.functional as F
     dev = q.device
     Tq, S = q.shape[1], k.shape[1]
     qpos = q0 + torch.arange(Tq, device=dev)[:, None]
     kpos = torch.arange(S, device=dev)[None, :]
-    mask = (kpos <= qpos) & (kpos < k_valid)
+    mask = kpos < k_valid
+    if causal:
+        mask = mask & (kpos <= qpos)
     if window:
-        mask &= kpos > qpos - window
+        mask = mask & (kpos > qpos - window)
+    if not causal and not window and k_valid == S:
+        mask = None
     kk = torch.where(kpos[0, :, None, None] < k_valid, k, 0)
     vv = torch.where(kpos[0, :, None, None] < k_valid, v, 0)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, vv))
@@ -566,7 +633,7 @@ def sdpa_call(torch, q, k, v, *, q0, k_valid, window, scale):
 
 def flash_case(torch, dev, gen, flush, *, name, phase, B, Tq, S, H, KV, D,
                q0, k_valid, window, softcap, poison=False, Dv=None,
-               scale=None):
+               scale=None, causal=True):
     """One flash attention case, in bf16 and f32: the kernel against its
     plain version (``check_close``), its grid and split printed; with a
     ``phase``, the bf16 case timed and returned as (phase, JSON entry),
@@ -576,7 +643,10 @@ def flash_case(torch, dev, gen, flush, *, name, phase, B, Tq, S, H, KV, D,
     softcap is kept beside it as ``sdpa_without_softcap_ms``.  ``Dv``
     (default D) is the value head dim, ``scale`` an explicit softmax
     scale (MLA's); a pair the kernel is not instantiated for goes through
-    the wrapper's zero padding, as on the model path."""
+    the wrapper's zero padding, as on the model path.  ``causal=False``
+    drops the causal mask (the encoder's and the cross-attention's calls;
+    ``q0`` is then ``S - Tq``, the model's default, negative when the
+    queries outnumber the keys)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (SUPPORTED_DIMS,
                                                      flash_attention_fwd)
@@ -593,10 +663,10 @@ def flash_case(torch, dev, gen, flush, *, name, phase, B, Tq, S, H, KV, D,
         v[:, k_valid:] = fill
         q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
         kw = dict(q_start=q0, k_valid_len=k_valid, window=window,
-                  softcap=softcap, scale=scale)
+                  softcap=softcap, scale=scale, causal=causal)
         want = ref.grouped_sdpa_ref(q, k, v, q_pos0=q0, k_valid_len=k_valid,
                                     window=window, softcap=softcap,
-                                    scale=scale)
+                                    scale=scale, causal=causal)
         got = flash_attention_fwd(q, k, v, **kw)
         torch.cuda.synchronize()
         err, worst, ok = check_close(torch, got, want)
@@ -612,12 +682,13 @@ def flash_case(torch, dev, gen, flush, *, name, phase, B, Tq, S, H, KV, D,
         fa = lambda: flash_attention_fwd(q, k, v, **kw)  # noqa: E731
         plain = lambda: ref.grouped_sdpa_ref(  # noqa: E731
             q, k, v, q_pos0=q0, k_valid_len=k_valid, window=window,
-            softcap=softcap, scale=scale)
+            softcap=softcap, scale=scale, causal=causal)
         lib = sdpa_call(torch, q, k, v, q0=q0, k_valid=k_valid,
-                        window=window, scale=scale or D ** -0.5)
+                        window=window, scale=scale or D ** -0.5,
+                        causal=causal)
         nbytes, flops = attention_work(
             B=B, Tq=Tq, H=H, KV=KV, D=D, Dv=Dv, q0=q0, k_valid=k_valid,
-            window=window, elt=q.element_size())
+            window=window, elt=q.element_size(), causal=causal)
         b_ms, b_by = bound_ms(nbytes, flops, dname)
         lib_ms, lib_dev = time_ms(torch, lib, flush), graph_ms(torch, lib,
                                                                flush)
@@ -879,6 +950,80 @@ def phase_hybrid_kernels(torch, dev):
             phase=f"hybrid-serve-{HYBRID_ARCH}", B=ZOO_BATCH, Tq=Tq, S=seq,
             H=cfg.num_heads, KV=cfg.num_kv_heads, D=cfg.head_dim, q0=q0,
             k_valid=k_valid, window=None, softcap=cfg.attn_softcap))
+    del flush
+    torch.cuda.empty_cache()
+    return entries
+
+
+def phase_vlm_kernels(torch, dev):
+    """``[vlm-kernels]``: row 1 at llava-next-34b's attention (56 q / 8 kv
+    heads of 128, 7 per kv head) as ``[vlm-serve]`` runs it: B=4 prefill
+    of the 2880 patch embeddings and a 1024-token prompt (Tq 3904) in a
+    cache of 3936, and decode at 3934, bf16 timed, f32 checked, the
+    decode row's chosen split equal to kv_splits=1 bit for bit.  Returns
+    (phase, JSON entry) per timed shape."""
+    from repro_torch.configs import get_config
+
+    gen = torch.Generator(device=dev).manual_seed(44)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    cfg = get_config(VLM_ARCH)
+    index0 = VLM_PATCHES + VLM_PROMPT
+    seq = index0 + ZOO_NEW
+    entries = []
+    print("[vlm-kernels] case dtype max_abs_err worst_err/tol")
+    for kind, Tq, q0, k_valid in (
+            ("prefill", index0, 0, index0),
+            (f"decode@{seq - 2}", 1, seq - 2, seq - 1)):
+        entries.append(flash_case(
+            torch, dev, gen, flush, name=f"{VLM_ARCH} {kind},global",
+            phase=f"vlm-serve-{VLM_ARCH}", B=ZOO_BATCH, Tq=Tq, S=seq,
+            H=cfg.num_heads, KV=cfg.num_kv_heads, D=cfg.head_dim, q0=q0,
+            k_valid=k_valid, window=None, softcap=cfg.attn_softcap))
+        torch.cuda.empty_cache()
+    del flush
+    torch.cuda.empty_cache()
+    return entries
+
+
+def phase_encdec_kernels(torch, dev):
+    """``[encdec-kernels]``: row 1 at seamless-m4t-large-v2's attention
+    (16 q / 16 kv heads of 64, MHA, the kernel's native (64, 64)) as
+    ``[encdec-serve]`` runs it, B=4: the encoder over the 1024 frames
+    (non-causal, Tq = S = 1024), the decoder's cross-attention at prefill
+    (the 64-token prompt against the 1024 encoder rows, non-causal, q0 =
+    S - Tq = 960) and at decode (one row against 1024, the chosen split
+    equal to kv_splits=1 bit for bit), and its causal self-attention
+    (prefill of 64 in a cache of 96, decode at 94); then a non-causal
+    call whose 2048 queries outnumber its 1024 keys (q0 = -1024; on no
+    path: its entry reports the launches of no run and is exempt from the
+    idle check).  bf16 timed against the plain version and SDPA
+    (non-causal SDPA over every key where the case is non-causal), f32
+    checked.  Returns (phase, JSON entry) per timed shape."""
+    from repro_torch.configs import get_config
+
+    gen = torch.Generator(device=dev).manual_seed(55)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    cfg = get_config(ENCDEC_ARCH)
+    F_, P = ENCDEC_FRAMES, ENCDEC_PROMPT
+    seq = P + ZOO_NEW
+    serve = f"encdec-serve-{ENCDEC_ARCH}"
+    entries = []
+    print("[encdec-kernels] case dtype max_abs_err worst_err/tol")
+    # (name, phase, Tq, S, q0, k_valid, causal)
+    for name, phase, Tq, S, q0, k_valid, causal in (
+            ("encoder", serve, F_, F_, 0, F_, False),
+            ("cross prefill", serve, P, F_, F_ - P, F_, False),
+            ("cross decode", serve, 1, F_, F_ - 1, F_, False),
+            ("self prefill", serve, P, seq, 0, P, True),
+            (f"self decode@{seq - 2}", serve, 1, seq, seq - 2, seq - 1,
+             True),
+            ("non-causal Tq > S", "encdec-noncausal-tq-gt-s", 2 * F_, F_,
+             -F_, F_, False)):
+        entries.append(flash_case(
+            torch, dev, gen, flush, name=f"{ENCDEC_ARCH} {name}",
+            phase=phase, B=ZOO_BATCH, Tq=Tq, S=S, H=cfg.num_heads,
+            KV=cfg.num_kv_heads, D=cfg.head_dim, q0=q0, k_valid=k_valid,
+            window=None, softcap=cfg.attn_softcap, causal=causal))
     del flush
     torch.cuda.empty_cache()
     return entries
@@ -2017,22 +2162,30 @@ class plain_attention_calls:
             setattr(mod, name, fn)
 
 
-def serve_floors(cfg, params, batch, prompt):
+def serve_floors(cfg, params, batch, prompt, prefix=0, frames=0,
+                 cache_len=0):
     """The least time of one prefill and of one decode step on the card,
     from the weights: a decode step reads every weight it uses once (the
     tied table for the logits; an untied model's input table, of which it
     reads B rows, and its MTP layer are left out); prefill does 2 FLOPs
-    per weight per prompt token, an MoE layer's experts only on the E x C
-    slots its capacity gives the B x prompt tokens (attention, the SSD
-    scan and the output head, at the last position only, not counted).
-    With C = 1 at decode every expert is read.  A decode step also reads
-    and writes each Mamba layer's state once: the f32 SSM state (B, h, p,
-    n) and the bf16 conv history (B, K - 1, conv_dim).  Returns (prefill
-    ms, decode ms)."""
+    per weight per position (the ``prefix`` embeddings and the prompt),
+    an MoE layer's experts only on the E x C slots its capacity gives
+    the tokens (attention, the SSD scan and the output head, at the last
+    position only, not counted).  With C = 1 at decode every expert is
+    read.  A decode step also reads and writes each Mamba layer's state
+    once: the f32 SSM state (B, h, p, n) and the bf16 conv history (B,
+    K - 1, conv_dim).  An encoder-decoder's encoder runs over the
+    ``frames`` in prefill only; its cross-attention K/V projections run
+    over the frames in prefill and again in every decode step (the
+    reference recomputes them), which a decode step's floor counts as
+    operations beside the bytes.  ``cache_len`` > 0 adds the bf16 K/V
+    rows a decode step reads from the cache (the earlier phases leave
+    them out).  Returns (prefill ms, decode ms)."""
     from repro_torch.models.moe import capacity
 
-    tokens = batch * prompt
-    read = flops = state = 0
+    tokens = batch * (prompt + prefix)
+    src = batch * frames
+    read = flops = step_flops = state = 0
     if cfg.ssm is not None:
         s = cfg.ssm
         d_in, h = s.d_inner(cfg.d_model), s.nheads(cfg.d_model)
@@ -2046,13 +2199,23 @@ def serve_floors(cfg, params, batch, prompt):
         if name in ("embed.table", "lm_head.w"):
             read += n if name == "lm_head.w" or cfg.tie_embeddings else 0
             continue
+        if name.startswith("encoder."):
+            flops += 2.0 * n * src
+            continue
         read += n
-        if ".moe.w_" in name:          # (E, D, F) or (E, F, D) experts
+        if ".cross.wk." in name or ".cross.wv." in name:
+            flops += 2.0 * n * src
+            step_flops += 2.0 * n * src
+        elif ".moe.w_" in name:        # (E, D, F) or (E, F, D) experts
             flops += 2.0 * n * capacity(tokens, cfg.moe)
         else:
             flops += 2.0 * n * tokens
+    kv = 2 * batch * cache_len * 2 * cfg.num_kv_heads * cfg.head_dim \
+        * attention_layers(cfg)
+    step_bytes = 2.0 * read + state + kv + 2 * src * cfg.d_model
     return (flops / PEAK_FLOPS["bfloat16"] * 1e3,
-            (2.0 * read + state) / H100_BYTES_PER_S * 1e3)
+            max(step_bytes / H100_BYTES_PER_S,
+                step_flops / PEAK_FLOPS["bfloat16"]) * 1e3)
 
 
 def attention_layers(cfg) -> int:
@@ -2067,8 +2230,45 @@ def mamba_layers(cfg) -> int:
         + cfg.num_blocks * sum(s.kind == "mamba" for s in cfg.pattern)
 
 
+def flash_calls(cfg) -> int:
+    """Flash launches of one decoder pass: each attention layer's, and
+    each cross-attention layer's second one."""
+    return attention_layers(cfg) + cfg.num_blocks * sum(
+        s.cross_attn for s in cfg.pattern)
+
+
+def encoder_layers(cfg) -> int:
+    """Flash launches of one encoder pass (0 without an encoder)."""
+    return 0 if cfg.encoder is None else cfg.encoder.num_layers
+
+
+def fit_blocks(torch, cfg, tag, seq):
+    """The most pattern blocks of ``cfg`` whose bf16 weights and K/V cache
+    (``ZOO_BATCH`` x ``seq`` positions), with ``FIT_MARGIN`` bytes of
+    transients beside them, fit the card's free memory (all of them where
+    they fit).  Prints the free memory and the reckoning."""
+    from repro_torch.models import model as M
+    free, _ = torch.cuda.mem_get_info()
+    meta = M.Model(cfg, dtype=torch.bfloat16, device="meta")
+    per_block = sum(p.numel() for p in meta.stack.blocks[0].parameters())
+    rest = sum(p.numel() for p in meta.parameters()) \
+        - per_block * cfg.num_blocks
+    one = dataclasses.replace(cfg, prologue=(), num_blocks=1)
+    kv_block = 2 * 2 * ZOO_BATCH * seq * cfg.num_kv_heads * cfg.head_dim \
+        * attention_layers(one)
+    fit = int((free - FIT_MARGIN - 2 * rest) // (2 * per_block + kv_block))
+    blocks = max(1, min(cfg.num_blocks, fit))
+    need = 2 * rest + blocks * (2 * per_block + kv_block)
+    print(f"{tag} free memory before init {free / 2**30:.2f} GiB; "
+          f"{blocks} of {cfg.num_blocks} blocks fit: weights and K/V cache "
+          f"{need / 2**30:.2f} GiB (a block {2 * per_block / 2**30:.3f} GiB "
+          f"+ {kv_block / 2**30:.3f} GiB of cache), "
+          f"{FIT_MARGIN / 2**30:.0f} GiB kept for transients")
+    return blocks
+
+
 def phase_zoo_serve(torch, dev, card, arch, blocks=None, pattern=None,
-                    kind=None):
+                    kind=None, prompt=None, stub_len=0):
     """``[zoo-serve]``: full-width ``arch`` in bf16 (random weights from a
     seed) through ``make_engine``, B=4 prompts of ``ZOO_PROMPTS[arch]``
     tokens, 32 greedy tokens: a warm-up generation, then a timed one
@@ -2080,12 +2280,20 @@ def phase_zoo_serve(torch, dev, card, arch, blocks=None, pattern=None,
     of ``MOE_PROMPT``, and for grok-1-314b ``[moe-continuous]``; with
     ``pattern`` as well, only the first that many layers of the pattern
     are kept (``[hybrid-serve]``, jamba).  ``kind`` names the phase
-    (``[ssm-serve]``: mamba2 at full depth).  The flash launches asserted
-    are the attention layers' (none for mamba2).  Returns the launches by
-    phase."""
+    (``[ssm-serve]``: mamba2 at full depth).  With ``stub_len`` the batch
+    carries a frontend's stub embeddings from a stream of their own:
+    llava's prefix (``[vlm-serve]``, ``make_engine(prefix_len=...)``) or
+    seamless's encoder frames (``[encdec-serve]``); the depth is cut to
+    the most blocks whose weights, cache and transients fit the free
+    memory, printed, and full where they fit.  The flash launches
+    asserted are the attention layers' (none for mamba2), a
+    cross-attention layer's twice, and the encoder's once a generation.
+    The timed generation's caches are dropped before prefill and decode
+    are timed alone.  Returns the launches by phase."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.models import model as M
+    from repro_torch.models.frontends import stub_inputs
     from repro_torch.serve import make_engine
 
     cfg = get_config(arch)
@@ -2096,11 +2304,17 @@ def phase_zoo_serve(torch, dev, card, arch, blocks=None, pattern=None,
         depth = (f" (pattern cut: the first {pattern} of its "
                  f"{len(cfg.pattern)} layers)")
         cfg = dataclasses.replace(cfg, pattern=cfg.pattern[:pattern])
-    if blocks is not None:
+    prompt = prompt or ZOO_PROMPTS.get(arch, MOE_PROMPT)
+    prefix = stub_len if cfg.frontend == "vision" else 0
+    frames = stub_len if cfg.frontend == "audio" else 0
+    index0 = prompt + prefix
+    seq = index0 + ZOO_NEW
+    if stub_len:
+        blocks = fit_blocks(torch, cfg, tag, seq)
+    if blocks is not None and blocks != cfg.num_blocks:
         depth += f" (depth cut: {blocks} of {cfg.num_blocks} blocks)"
         cfg = dataclasses.replace(cfg, num_blocks=blocks)
-    prompt = ZOO_PROMPTS.get(arch, MOE_PROMPT)
-    seq, L = prompt + ZOO_NEW, attention_layers(cfg)
+    L, E = flash_calls(cfg), encoder_layers(cfg)
     t0 = time.perf_counter()
     params = M.init(cfg, seed=0, dtype=torch.bfloat16, device=dev)
     n_params = sum(p.numel() for p in params.parameters())
@@ -2108,34 +2322,45 @@ def phase_zoo_serve(torch, dev, card, arch, blocks=None, pattern=None,
         f", {mamba_layers(cfg)} Mamba-2 layers of "
         f"{cfg.ssm.nheads(cfg.d_model)} SSD heads of {cfg.ssm.headdim}, "
         f"state {cfg.ssm.d_state}, chunk {cfg.ssm.chunk}")
+    n_cross = L - attention_layers(cfg)
+    stub = "" if not stub_len else (
+        f", {prefix} prefix embeddings" if prefix else
+        f", an encoder of {E} layers over {frames} frames, {n_cross} "
+        f"cross-attention layers")
     print(f"{tag} full width{depth}: {cfg.num_layers} layers, d "
-          f"{cfg.d_model}, {L} attention layers of {cfg.num_heads} q / "
-          f"{cfg.num_kv_heads} kv heads of {cfg.head_dim}{ssm}, "
-          f"{n_params / 1e9:.3f} B params in bf16 "
-          f"({2 * n_params / 1e9:.2f} GB), init "
+          f"{cfg.d_model}, {attention_layers(cfg)} attention layers of "
+          f"{cfg.num_heads} q / {cfg.num_kv_heads} kv heads of "
+          f"{cfg.head_dim}{ssm}{stub}, {n_params / 1e9:.3f} B params in "
+          f"bf16 ({2 * n_params / 1e9:.2f} GB), init "
           f"{time.perf_counter() - t0:.1f}s")
     gen = torch.Generator(device=dev).manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (ZOO_BATCH, prompt),
                            generator=gen, device=dev)
+    gen.manual_seed(STUB_SEED)
+    inputs = {"tokens": tokens, **stub_inputs(
+        cfg, gen, ZOO_BATCH, stub_len, torch.bfloat16, dev)}
     engine = make_engine(cfg, batch=ZOO_BATCH, prompt_len=prompt,
-                         max_new=ZOO_NEW, param_dtype=torch.bfloat16,
+                         max_new=ZOO_NEW, prefix_len=prefix,
+                         param_dtype=torch.bfloat16,
                          cache_dtype=torch.bfloat16, device=dev)
-    engine.generate(params, {"tokens": tokens})          # warm-up
+    engine.generate(params, inputs)                      # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     launches = {}
     with plain_attention_calls() as plain:
         flash_attention_fwd.launches = 0
         t0 = time.perf_counter()
-        res = engine.generate_with_state(params, {"tokens": tokens})
+        res = engine.generate_with_state(params, inputs)
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
         launches["generation"] = flash_attention_fwd.launches
         peak = torch.cuda.max_memory_allocated()
+        toks = res.tokens
+        del res                      # its caches, before prefill alone
         with torch.inference_mode():
             flash_attention_fwd.launches = 0
             t0 = time.perf_counter()
-            logits, caches = M.prefill(cfg, params, {"tokens": tokens}, seq,
+            logits, caches = M.prefill(cfg, params, inputs, seq,
                                        torch.bfloat16)
             torch.cuda.synchronize()
             prefill_s = time.perf_counter() - t0
@@ -2146,21 +2371,20 @@ def phase_zoo_serve(torch, dev, card, arch, blocks=None, pattern=None,
             t0 = time.perf_counter()
             for i in range(1, ZOO_NEW):
                 logits, caches = M.decode_step(cfg, params, caches,
-                                               tok[:, None], prompt + i - 1)
+                                               tok[:, None], index0 + i - 1)
                 tok = logits[:, -1].argmax(-1)
                 steps.append(tok)
             torch.cuda.synchronize()
             decode_s = time.perf_counter() - t0
             launches["decode"] = flash_attention_fwd.launches
         del caches, logits
-    for what, want in (("generation", L * ZOO_NEW), ("prefill", L),
+    for what, want in (("generation", E + L * ZOO_NEW), ("prefill", E + L),
                        ("decode", L * (ZOO_NEW - 1))):
         if launches[what] != want or plain.calls:
             raise SystemExit(f"{tag}: flash attention launched "
                              f"{launches[what]} times in the {what}, "
                              f"expected {want}; {plain.calls} plain or SDPA "
                              f"calls")
-    toks = res.tokens
     same = torch.equal(torch.stack(steps, 1), toks)
     if toks.shape != (ZOO_BATCH, ZOO_NEW) or not bool(
             ((toks >= 0) & (toks < cfg.vocab_size)).all()) or not same:
@@ -2172,21 +2396,25 @@ def phase_zoo_serve(torch, dev, card, arch, blocks=None, pattern=None,
           f"{ZOO_BATCH * ZOO_NEW / total_s:.1f} tokens/s end to end, "
           f"{ZOO_BATCH * (ZOO_NEW - 1) / decode_s:.1f} decode tokens/s; "
           f"peak memory {peak / 2**30:.2f} GiB (max_memory_allocated)")
-    prefill_floor, decode_floor = serve_floors(cfg, params, ZOO_BATCH,
-                                               prompt)
+    prefill_floor, decode_floor = serve_floors(
+        cfg, params, ZOO_BATCH, prompt, prefix=prefix, frames=frames,
+        cache_len=seq - 1 if stub_len else 0)
+    enc = "; the encoder and the cross K/V over the frames"
     print(f"{tag} floors: prefill >= {prefill_floor:.3f} ms (operations; "
           f"{'experts on E x C slots, ' if cfg.moe else ''}attention"
-          f"{' and the SSD scan' if cfg.ssm else ''} not counted), decode "
-          f">= {decode_floor:.3f} ms/step (bytes of the weights a step "
-          f"reads{', and each Mamba state read and written' * bool(cfg.ssm)}"
-          f")")
+          f"{' and the SSD scan' if cfg.ssm else ''} not counted"
+          f"{enc * bool(frames)}), decode >= {decode_floor:.3f} ms/step "
+          f"(bytes of the weights a step reads"
+          f"{', and each Mamba state read and written' * bool(cfg.ssm)}"
+          f"{', the K/V cache at its last step' * bool(stub_len)}"
+          f"{'; the cross K/V projections as operations' * bool(frames)})")
     print(f"{tag} flash attention launches: generation "
-          f"{launches['generation']} (= {L} attention layers x {ZOO_NEW} "
-          f"model passes), prefill {launches['prefill']}, decode "
-          f"{launches['decode']}; plain or SDPA calls 0; first tokens "
+          f"{launches['generation']} (= {E} encoder layers + {L} attention "
+          f"calls x {ZOO_NEW} model passes), prefill {launches['prefill']}, "
+          f"decode {launches['decode']}; plain or SDPA calls 0; first tokens "
           f"{toks[:, :6].tolist()}")
     out = {f"{kind}-serve-{arch}": launches["generation"]}
-    del engine, res, toks, steps, tokens
+    del engine, toks, steps, tokens, inputs
     torch.cuda.empty_cache()
     if arch in (ZOO_CONT_ARCH, MOE_CONT_ARCH):
         with plain_attention_calls() as plain:
@@ -2507,31 +2735,42 @@ def phase_moe_cpu_vs_card(torch, dev, archs=tuple(MOE_BLOCKS),
     other orders).  With ``archs=(SSM_ARCH, HYBRID_ARCH)`` it is
     ``[ssm-cpu-vs-card]``: the prefill runs the chunked scan (2 chunks of
     8), each decode step the recurrent step, on cuBLAS in f32 with TF32
-    off."""
+    off.  With ``archs=(VLM_ARCH, ENCDEC_ARCH)`` it is
+    ``[encdec-cpu-vs-card]``: llava's prefill after 16 stub prefix
+    embeddings (decode at 32-35) and seamless's encoder over 16 stub
+    frames with the decoder's cross-attention over it, the same stubs
+    (drawn on the CPU) on both sides, the loss with 16 of them per
+    sequence."""
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import token_batches
     from repro_torch.models import model as M
+    from repro_torch.models.frontends import stub_inputs
 
     for arch in archs:
         cfg = get_config(arch).reduced()
         cpu = M.init(cfg, seed=3, dtype=torch.float32, device="cpu")
         card = M.Model(cfg, dtype=torch.float32, device=dev)
         card.load_state_dict(cpu.state_dict())
-        tokens = torch.randint(0, cfg.vocab_size, (2, 20),
-                               generator=torch.Generator().manual_seed(4))
+        g = torch.Generator().manual_seed(4)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 20), generator=g)
+        stubs = stub_inputs(cfg, g, 2, 16, torch.float32, "cpu")
+        npfx = 16 if "prefix_embeds" in stubs else 0
         batch = {k: torch.from_numpy(v) for k, v in token_batches(
             0, batch=2, seq=16, vocab=cfg.vocab_size).items()}
+        batch.update(stub_inputs(cfg, g, 2, 16, torch.float32, "cpu"))
         out = {}
         for name, params, d in (("cpu", cpu, torch.device("cpu")),
                                 ("card", card, dev)):
             t = tokens.to(d)
             with torch.inference_mode():
-                lg, caches = M.prefill(cfg, params, {"tokens": t[:, :16]},
-                                       24, torch.float32)
+                lg, caches = M.prefill(cfg, params, {
+                    "tokens": t[:, :16],
+                    **{k: v.to(d) for k, v in stubs.items()}},
+                    24 + npfx, torch.float32)
                 logits = [lg]
                 for i in range(16, 20):
                     lg, caches = M.decode_step(cfg, params, caches,
-                                               t[:, i:i + 1], i)
+                                               t[:, i:i + 1], npfx + i)
                     logits.append(lg)
             loss, aux = M.loss_fn(cfg, dict(params.state_dict()),
                                   {k: v.to(d) for k, v in batch.items()})
@@ -2539,8 +2778,9 @@ def phase_moe_cpu_vs_card(torch, dev, archs=tuple(MOE_BLOCKS),
                          torch.stack([loss, aux["aux"]]).detach().cpu())
         errs = [float((out["card"][i] - out["cpu"][i]).abs().max())
                 for i in range(2)]
-        print(f"{tag} reduced {arch} f32: prefill + 4 decode "
-              f"logits max abs err {errs[0]:.3e}, loss and aux "
+        print(f"{tag} reduced {arch} f32"
+              f"{' (16 stub embeddings)' if stubs else ''}: prefill + 4 "
+              f"decode logits max abs err {errs[0]:.3e}, loss and aux "
               f"{errs[1]:.3e} (tol 1e-4; loss {float(out['card'][1][0]):.6f}"
               f", aux {float(out['card'][1][1]):.6f})")
         if not max(errs) <= 1e-4:
@@ -2549,14 +2789,18 @@ def phase_moe_cpu_vs_card(torch, dev, archs=tuple(MOE_BLOCKS),
 
 def phase_train(torch, dev, card, profile=False, compression=None,
                 arch="gemma3-1b", nodes=TRAIN_N, steps=TRAIN_STEPS,
-                tag=None, pre=None, reduced=False, remat=False):
+                tag=None, pre=None, reduced=False, remat=False,
+                stub_len=0):
     """Full-width (or, with ``reduced``, ``reduced()``) DSGD-momentum
     training of ``arch`` in bf16 on the card as ``nodes`` nodes, through
     ``simulate_decentralized``, uncompressed (``[train]``) or with
     ``compression`` (``[train-compress]``), or under ``tag`` with
     launches keyed by ``pre`` (``[zoo-train]``, ``[moe-train]``,
-    ``[ssm-train]``, ``[hybrid-train]``), each pattern block checkpointed
-    with ``remat``; returns the launch counts of the timed run by phase.
+    ``[ssm-train]``, ``[hybrid-train]``, ``[encdec-train]``,
+    ``[vlm-train]``), each pattern block checkpointed with ``remat``; a
+    frontend model's batch carries ``stub_len`` stub frames or prefix
+    embeddings per sequence, drawn per step from a stream of their own;
+    returns the launch counts of the timed run by phase.
     With ``profile``, one more step runs under the profiler (kernel time
     by name)."""
     from repro_torch import trace
@@ -2571,6 +2815,7 @@ def phase_train(torch, dev, card, profile=False, compression=None,
     from repro_torch.kernels.quantized_gossip import (quantize_ef,
                                                       quantize_ef_many)
     from repro_torch.models import model as M
+    from repro_torch.models.frontends import stub_inputs
     from repro_torch.optim.decentralized import make_method
     from repro_torch.sim.engine import (_consensus_error,
                                         simulate_decentralized)
@@ -2585,18 +2830,23 @@ def phase_train(torch, dev, card, profile=False, compression=None,
                     device=dev).state_dict()
     n_params = sum(p.numel() for p in params.values())
     tokens = nodes * TRAIN_B * TRAIN_SEQ
-    # attention layers a forward runs: the MTP layer's besides; with
-    # remat the backward runs the pattern blocks' again
-    n_attn = attention_layers(cfg) + (1 if cfg.mtp else 0)
+    # flash launches a forward runs: the encoder's, the decoder's (a
+    # cross-attention layer's twice) and the MTP layer's; with remat the
+    # backward runs the decoder's pattern blocks' again
+    n_attn = encoder_layers(cfg) + flash_calls(cfg) + (1 if cfg.mtp else 0)
     if remat:
-        n_attn += attention_layers(dataclasses.replace(cfg, prologue=()))
+        n_attn += flash_calls(dataclasses.replace(cfg, prologue=()))
     spec = TopologySpec(name="base", n=nodes, k=1)
 
     def batches(step):
         b = token_batches(step, batch=nodes * TRAIN_B, seq=TRAIN_SEQ,
                           vocab=cfg.vocab_size)
-        return {k: v.reshape(nodes, TRAIN_B, TRAIN_SEQ)
-                for k, v in b.items()}
+        b = {k: v.reshape(nodes, TRAIN_B, TRAIN_SEQ) for k, v in b.items()}
+        gen = torch.Generator(device=dev).manual_seed(STUB_SEED + step)
+        for k, v in stub_inputs(cfg, gen, nodes * TRAIN_B, stub_len,
+                                torch.bfloat16, dev).items():
+            b[k] = v.reshape((nodes, TRAIN_B) + v.shape[1:])
+        return b
 
     kw = dict(loss_fn=lambda p, b: M.loss_fn(cfg, p, b, remat=remat)[0],
               params=params,
@@ -2610,6 +2860,9 @@ def phase_train(torch, dev, card, profile=False, compression=None,
           f"in bf16; n={nodes} nodes on base k=1, dsgdm "
           f"{TRAIN_MOMENTUM}, eta {TRAIN_ETA}, {TRAIN_B} x {TRAIN_SEQ} "
           f"tokens per node"
+          + (f", each sequence with {stub_len} stub "
+             f"{'frames' if cfg.encoder else 'prefix embeddings'}"
+             if stub_len else "")
           + (f"; compression {compression.to_json()}" if compression
              else ""))
     t0 = time.perf_counter()
@@ -4501,15 +4754,23 @@ def main() -> None:
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
+    lap = PhaseClock()
     phase_build(torch)
+    lap("[build]")
     entries = phase_flash_kernels(torch, dev)
     entries += phase_dsgd_kernels(torch, dev)
     entries += phase_quantize_kernels(torch, dev)
     entries += phase_paged_kernels(torch, dev)
+    lap("[kernels] [dsgd] [quantize] [paged]")
     entries += phase_zoo_kernels(torch, dev)
     entries += phase_moe_kernels(torch, dev)
     entries += phase_hybrid_kernels(torch, dev)
+    lap("[zoo-kernels] [moe-kernels] [hybrid-kernels]")
+    entries += phase_vlm_kernels(torch, dev)
+    entries += phase_encdec_kernels(torch, dev)
+    lap("[vlm-kernels] [encdec-kernels]")
     entries += phase_gossip_kernels(torch, dev)
+    lap("[gossip-mix]")
     # the padded pairs' entries report the launches counted under their
     # (D, Dv) over every path run from here to the sweep
     flash_attention_fwd.launches_by_dims.clear()
@@ -4522,6 +4783,7 @@ def main() -> None:
         phase_profile(torch, dev, params, engine, tokens)
     del params, engine, tokens, plain
     torch.cuda.empty_cache()
+    lap("[main] [spec] [continuous] [continuous-spec]")
     for arch in ZOO_PROMPTS:        # each model freed before the next
         launches.update(phase_zoo_serve(torch, dev, card, arch))
     for arch, blocks in MOE_BLOCKS.items():
@@ -4529,6 +4791,13 @@ def main() -> None:
     launches.update(phase_zoo_serve(torch, dev, card, SSM_ARCH, kind="ssm"))
     launches.update(phase_zoo_serve(torch, dev, card, HYBRID_ARCH, blocks=1,
                                     pattern=HYBRID_CUT, kind="hybrid"))
+    lap("[zoo-serve] [moe-serve] [ssm-serve] [hybrid-serve]")
+    launches.update(phase_zoo_serve(torch, dev, card, VLM_ARCH, kind="vlm",
+                                    prompt=VLM_PROMPT, stub_len=VLM_PATCHES))
+    launches.update(phase_zoo_serve(
+        torch, dev, card, ENCDEC_ARCH, kind="encdec", prompt=ENCDEC_PROMPT,
+        stub_len=ENCDEC_FRAMES))
+    lap("[vlm-serve] [encdec-serve]")
     launches.update(phase_train(torch, dev, card, profile=args.profile))
     launches.update(phase_train(
         torch, dev, card, profile=args.profile,
@@ -4550,16 +4819,29 @@ def main() -> None:
         torch, dev, card, arch=HYBRID_ARCH, nodes=HYBRID_TRAIN_N,
         steps=SSM_TRAIN_STEPS, tag="[hybrid-train]", pre="hybrid-train-",
         reduced=True))
+    lap("[train] ... [hybrid-train]")
+    launches.update(phase_train(
+        torch, dev, card, arch=ENCDEC_ARCH, nodes=ENCDEC_TRAIN_N,
+        steps=SSM_TRAIN_STEPS, tag="[encdec-train]", pre="encdec-train-",
+        stub_len=ENCDEC_FRAMES))
+    launches.update(phase_train(
+        torch, dev, card, arch=VLM_ARCH, nodes=VLM_TRAIN_N,
+        steps=SSM_TRAIN_STEPS, tag="[vlm-train]", pre="vlm-train-",
+        reduced=True, stub_len=VLM_TRAIN_PATCHES))
+    lap("[encdec-train] [vlm-train]")
     launches.update(phase_remat(torch, dev, card))
+    lap("[remat]")
     launches.update(phase_dist(torch, dev, card))
     launches.update(phase_dist(
         torch, dev, card,
         compression=CompressionConfig(codec=COMPRESS_CODEC, chunk=CHUNK,
                                       error_feedback=True, seed=0)))
+    lap("[dist] [dist-compress]")
     launches.update(phase_failure(torch, dev, card))
     sweep_launches, sweep_kernels = phase_sweep(torch, dev, card)
     launches.update(sweep_launches)
     entries += sweep_kernels
+    lap("[failure] [sweep]")
     # [failure] runs row 1 at the training shapes and row 3 over the 340
     # leaves at unit pre-scale (its mixer closure): the entries measured
     # at those shapes report its launches as well
@@ -4571,26 +4853,32 @@ def main() -> None:
     for D, Dv in MOE_PADDED:
         launches[f"path-flash-{D}x{Dv}"] = \
             flash_attention_fwd.launches_by_dims[(D, Dv)]
+    # the non-causal Tq > S case is on no path: its entry reads 0
+    launches["encdec-noncausal-tq-gt-s"] = 0
     for phase, e in entries:
         e["launches"] = launches[phase]
         if "segments" in e:
             e["segments"] = launches[phase + "-segments"]
     idle = [e["name"] for phase, e in entries
             if not e["launches"] and phase not in (
-                "dist-gossip_mix_stacked", "path-flash-64x32")]
-    if idle:        # the stacked and the (64, 32) entries are on no path
+                "dist-gossip_mix_stacked", "path-flash-64x32",
+                "encdec-noncausal-tq-gt-s")]
+    if idle:        # the stacked, (64, 32) and Tq > S entries: on no path
         raise SystemExit(f"kernels of a main path launched no time there: "
                          f"{idle}")
     phase_cpu_vs_card(torch, dev)
     phase_moe_cpu_vs_card(torch, dev)
     phase_moe_cpu_vs_card(torch, dev, archs=(SSM_ARCH, HYBRID_ARCH),
                           tag="[ssm-cpu-vs-card]")
+    phase_moe_cpu_vs_card(torch, dev, archs=(VLM_ARCH, ENCDEC_ARCH),
+                          tag="[encdec-cpu-vs-card]")
     phase_train_cpu_vs_card(torch, dev)
     phase_compress_cpu_vs_card(torch, dev)
     phase_continuous_cpu_vs_card(torch, dev)
     phase_spec_cpu_vs_card(torch, dev)
     phase_failure_cpu_vs_card(torch, dev)
     phase_consensus(torch, dev)
+    lap("the cpu-vs-card phases and [consensus]")
     print(card)
     print(json.dumps({"kernels": [e for _, e in entries]}))
     print(json.dumps({"ok": True, "device": {

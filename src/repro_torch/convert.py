@@ -6,9 +6,13 @@ blocks are stacked in the reference (``stack.blocks[i]`` leaves carry a
 leading ``num_blocks`` axis, ``blocks.py:146-160``) and are one module
 per block here (``stack.blocks.<block>.<i>``).  Every leaf under the
 blocks is split the same way, a projection's bias (``….attn.wq.b``,
-qwen's QKV biases) as its weight, and a Mamba layer's leaves
+qwen's QKV biases) as its weight, a Mamba layer's leaves
 (``….mamba.in_proj.w``, ``conv_w``, ``conv_b``, ``A_log``, ``D``,
-``dt_bias``, ``norm.scale``, ``out_proj.w``) as any other.  Weight
+``dt_bias``, ``norm.scale``, ``out_proj.w``) and a decoder layer's
+cross-attention leaves (``….ln_x.scale``, ``….cross.w{q,k,v,o}.w``) as
+any other.  An encoder-decoder's encoder stack
+(``encoder.stack.blocks.<block>.0.…``, and ``encoder.final_norm.scale``)
+is split the same way as the decoder's.  Weight
 orientation is the same on both sides, so each leaf is a copy.  Paged
 KV caches (page pools) cross the same way, in both directions
 (:func:`paged_cache_from_jax`, :func:`paged_cache_to_numpy`).  The

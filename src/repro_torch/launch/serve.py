@@ -9,12 +9,16 @@ engine (port of ``repro/launch/serve.py``).
 qwen1.5-4b), the MoE family (grok-1-314b, deepseek-v3-671b; at full
 depth neither fits one card, so run them ``--reduced``; deepseek-v3-671b's
 latent cache has no paged form, and ``--continuous`` raises for it, as in
-the reference) or the SSM family (mamba2-2.7b, which fits at full width
+the reference), the SSM family (mamba2-2.7b, which fits at full width
 and depth, and the hybrid jamba-1.5-large-398b, ``--reduced``; a Mamba
 layer's recurrent state has no paged form and takes no speculation, so
-``--continuous`` and ``--speculate-k`` raise for both).  Random
-weights from ``--seed`` (full width in bf16, ``--reduced`` in f32), a
-random prompt batch, one warm-up generation (it builds the CUDA kernels
+``--continuous`` and ``--speculate-k`` raise for both), llava-next-34b
+(a stub vision prefix of 16 patch embeddings in front of the prompt,
+``prefix_len=16``) or seamless-m4t-large-v2 (16 stub audio frames for
+its encoder; ``--continuous`` and ``--speculate-k`` raise for it).
+Random weights from ``--seed`` (full width in bf16, ``--reduced`` in
+f32), a random prompt batch (and the stub frontend's embeddings, from a
+stream of their own), one warm-up generation (it builds the CUDA kernels
 on first use), then one timed generation reporting steady-state
 tokens/s.
 
@@ -46,6 +50,10 @@ import time
 
 from repro_torch.serve.paged import bucket_for, prompt_buckets
 
+#: stub frontend frames (audio) or patches (vision) per request, as the
+#: reference's launcher (``launch/serve.py:150-159``)
+STUB_LEN = 16
+
 
 def plan_shapes(prompt_len: int, page_size: int = 8):
     """The bucket list covering prompts up to ``prompt_len`` and the
@@ -59,8 +67,9 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True,
                     help="gemma3-1b, gemma2-2b, granite-8b, qwen1.5-4b, "
-                         "grok-1-314b, deepseek-v3-671b, mamba2-2.7b or "
-                         "jamba-1.5-large-398b")
+                         "grok-1-314b, deepseek-v3-671b, mamba2-2.7b, "
+                         "jamba-1.5-large-398b, llava-next-34b or "
+                         "seamless-m4t-large-v2")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16,
@@ -119,6 +128,7 @@ def main(argv=None) -> None:
     from repro_torch.configs import get_config
     from repro_torch.device import resolve_device
     from repro_torch.models import model as M
+    from repro_torch.models.frontends import stub_inputs
     from repro_torch.serve import SamplingParams, make_engine
 
     try:
@@ -148,6 +158,10 @@ def main(argv=None) -> None:
     gen.manual_seed(args.seed + 1)       # prompts: a stream of their own
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, padded_len),
                                      generator=gen, device=device)}
+    # the stub frontend's 16 frames or patches, a stream of their own
+    gen.manual_seed(args.seed + 2)
+    batch.update(stub_inputs(cfg, gen, B, STUB_LEN, dtype, device))
+    npfx = STUB_LEN if "prefix_embeds" in batch else 0
     draft_cfg = draft_params = None
     if args.draft_config:
         draft_cfg = get_config(args.draft_config)
@@ -157,7 +171,8 @@ def main(argv=None) -> None:
                               device=device)
     engine = make_engine(cfg, batch=B, prompt_len=padded_len,
                          max_new=args.gen, sampling=sampling, eos_id=eos_id,
-                         param_dtype=dtype, cache_dtype=dtype,
+                         prefix_len=npfx, param_dtype=dtype,
+                         cache_dtype=dtype,
                          speculate_k=args.speculate_k,
                          draft_layers=args.draft_layers or None,
                          draft_cfg=draft_cfg, device=device)

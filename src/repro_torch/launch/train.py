@@ -13,11 +13,14 @@ REPRO_* variables (``--coordinator --num-processes --process-id``), as
 each process of a multi-host deployment is started.  Every rank starts
 from the same parameters (``models.model.init`` with seed 0; full width
 in bf16, ``--reduced`` in f32), takes rows ``r*b:(r+1)*b`` of the global
-batch of ``data.synthetic.token_batches`` (b = batch / nodes) and prints
-its loss per step; with ``--nproc`` the launcher then prints the mean
-over nodes.  As the reference's launcher, it checkpoints each pattern
-block at full width and not with ``--reduced`` (``remat=not reduced``).
-Runs on the card unless ``--device cpu`` is given; without a card it
+batch of ``data.synthetic.token_batches`` (b = batch / nodes; for
+llava-next-34b and seamless-m4t-large-v2 with 16 stub patch or frame
+embeddings per sequence, drawn per step from a stream of their own, as
+the reference's launcher) and prints its loss per step; with
+``--nproc`` the launcher then prints the mean over nodes. As the
+reference's launcher, it checkpoints each pattern block at full width
+and not with ``--reduced`` (``remat=not reduced``). Runs on the card
+unless ``--device cpu`` is given; without a card it
 exits with an error.
 
 Not ported yet (they raise): ``--mesh-model > 1`` (tensor-parallel
@@ -35,6 +38,12 @@ import torch.distributed as dist
 from repro_torch.launch.distributed import (BACKENDS, add_distributed_args,
                                             config_from_args, initialize,
                                             spawn_local)
+
+
+#: stub frontend frames (audio) or patches (vision) per sequence, as the
+#: reference's launcher (``launch/train.py:115-127``), and the seed of
+#: their stream (step s draws from ``STUB_SEED + s``)
+STUB_LEN, STUB_SEED = 16, 1 << 20
 
 
 @dataclass(frozen=True)
@@ -69,6 +78,7 @@ def train_rank(opts: TrainOptions, device, group=None) -> TrainResult:
     from repro_torch.data.synthetic import token_batches
     from repro_torch.dist.steps import make_train_step
     from repro_torch.models import model as M
+    from repro_torch.models.frontends import stub_inputs
     from repro_torch.sim.engine import node_stack
 
     cfg = get_config(opts.arch)
@@ -100,6 +110,11 @@ def train_rank(opts: TrainOptions, device, group=None) -> TrainResult:
         raw = token_batches(step, batch=n * b, seq=opts.seq,
                             vocab=cfg.vocab_size)
         batch = {k: v.reshape(n, b, -1)[me:me + 1] for k, v in raw.items()}
+        # every rank draws the global batch's stubs, then takes its rows
+        gen = torch.Generator(device=device).manual_seed(STUB_SEED + step)
+        for k, v in stub_inputs(cfg, gen, n * b, STUB_LEN, dtype,
+                                device).items():
+            batch[k] = v.reshape((n, b) + v.shape[1:])[me:me + 1]
         params, opt, loss = bundle.step_fn(params, opt, batch, step)
         losses.append(loss.detach())
         if step % opts.log_every == 0 or step == opts.steps - 1:
@@ -128,8 +143,9 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True,
                     help="gemma3-1b, gemma2-2b, granite-8b, qwen1.5-4b, "
-                         "grok-1-314b, deepseek-v3-671b, mamba2-2.7b or "
-                         "jamba-1.5-large-398b")
+                         "grok-1-314b, deepseek-v3-671b, mamba2-2.7b, "
+                         "jamba-1.5-large-398b, llava-next-34b or "
+                         "seamless-m4t-large-v2")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--nproc", type=int, default=None,
                     help="start N local ranks, one node each")

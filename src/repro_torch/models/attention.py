@@ -30,6 +30,14 @@ It covers the no-cache path and these cache paths:
 
 Caches are updated in place — the port's caches are not copied each
 step, which saves a whole-cache write per layer per token.
+
+``causal=False`` drops the causal mask (the encoder's self-attention).
+``kv_override`` is cross-attention (``attention.py:176-186, 264-277``):
+K and V are projected from the source sequence (an encoder's output) on
+every call, nothing is cached, no rope is applied, and the queries attend
+over the whole source through ``ops.sdpa`` with the default ``q_pos0 = S
+- Tq`` (a negative start when the queries outnumber the source), the
+caller passing ``causal=False``.
 """
 from __future__ import annotations
 
@@ -106,28 +114,40 @@ class Attention(nn.Module):
         self.q_norm = RMSNorm(head_dim, **kw) if qk_norm else None
         self.k_norm = RMSNorm(head_dim, **kw) if qk_norm else None
 
-    def forward(self, x, *, rope_theta=10000.0, window=None, softcap=None,
-                scale=None, cache=None, cache_index=None, decode_mode="dus",
-                block_table=None):
-        """Causal self-attention.  x: (B, T, D).  With ``cache`` (dict k/v
-        (B, S, KV, hd)) writes the fresh K/V at ``cache_index`` (an int, or
-        a (B,) tensor of per-request positions; in place) and attends over
-        the cache, or with ``decode_mode="append_free"``, an int index and
-        T = 1, attends without writing; with ``decode_mode="paged"`` the
-        cache is a pair of page pools (P, ps, KV, hd), ``cache_index`` a
-        (B,) tensor and ``block_table`` (B, maxp) int32.  See the module
-        docstring.  Returns y (B, T, D)."""
+    def forward(self, x, *, rope_theta=10000.0, causal=True, window=None,
+                softcap=None, scale=None, cache=None, cache_index=None,
+                decode_mode="dus", block_table=None, kv_override=None):
+        """Self-attention, causal unless ``causal=False``.  x: (B, T, D).
+        With ``cache`` (dict k/v (B, S, KV, hd)) writes the fresh K/V at
+        ``cache_index`` (an int, or a (B,) tensor of per-request positions;
+        in place) and attends over the cache, or with
+        ``decode_mode="append_free"``, an int index and T = 1, attends
+        without writing; with ``decode_mode="paged"`` the cache is a pair
+        of page pools (P, ps, KV, hd), ``cache_index`` a (B,) tensor and
+        ``block_table`` (B, maxp) int32.  With ``kv_override`` (B, S_src,
+        D) it is cross-attention over that source, uncached.  See the
+        module docstring.  ``rope_theta=None`` applies no rope.  Returns y
+        (B, T, D)."""
         if decode_mode == "paged":
-            return self._paged(x, rope_theta=rope_theta, window=window,
-                               softcap=softcap, scale=scale, cache=cache,
-                               cache_index=cache_index,
+            if kv_override is not None:
+                raise NotImplementedError(
+                    "paged decode does not support cross-attention K/V")
+            return self._paged(x, rope_theta=rope_theta, causal=causal,
+                               window=window, softcap=softcap, scale=scale,
+                               cache=cache, cache_index=cache_index,
                                block_table=block_table)
         if decode_mode not in ("dus", "append_free"):
             raise NotImplementedError(
                 f"decode_mode {decode_mode!r} is not ported to repro_torch "
                 f"yet; see ROADMAP.md")
-        kw = dict(rope_theta=rope_theta, window=window, softcap=softcap,
-                  scale=scale, cache=cache)
+        if kv_override is not None:
+            if cache is not None:
+                raise ValueError("cross-attention takes no cache: its K/V "
+                                 "are projected from the source each call")
+            return self._cross(x, kv_override, causal=causal, window=window,
+                               softcap=softcap, scale=scale)
+        kw = dict(rope_theta=rope_theta, causal=causal, window=window,
+                  softcap=softcap, scale=scale, cache=cache)
         if isinstance(cache_index, torch.Tensor):
             if cache is None or cache_index.ndim != 1:
                 raise ValueError(
@@ -148,28 +168,43 @@ class Attention(nn.Module):
                                  f"hold positions [{pos0}, {pos0 + T})")
             k[:, pos0:pos0 + T] = xk
             v[:, pos0:pos0 + T] = xv
-            out = ops.sdpa(q, k, v, window=window, softcap=softcap,
-                           scale=scale, q_pos0=pos0, k_valid_len=pos0 + T)
+            out = ops.sdpa(q, k, v, causal=causal, window=window,
+                           softcap=softcap, scale=scale, q_pos0=pos0,
+                           k_valid_len=pos0 + T)
         else:
-            out = ops.sdpa(q, xk, xv, window=window, softcap=softcap,
-                           scale=scale, q_pos0=0)
+            out = ops.sdpa(q, xk, xv, causal=causal, window=window,
+                           softcap=softcap, scale=scale, q_pos0=0)
         return self.wo(out.reshape(B, T, self.n_heads * self.head_dim))
 
-    def _qkv(self, x, positions, rope_theta):
+    def _qkv(self, x, positions, rope_theta, src=None):
+        """q from ``x``; k, v from ``src`` (default ``x``).  Rope at
+        ``positions`` unless ``rope_theta`` is None."""
         B, T, _ = x.shape
+        src = x if src is None else src
         H, KV, hd = self.n_heads, self.n_kv, self.head_dim
         # the projections add their biases, then the QK-norm, then rope,
         # in the reference's order (``attention.py:175-197``)
         q = self.wq(x).reshape(B, T, H, hd)
-        xk = self.wk(x).reshape(B, T, KV, hd)
-        xv = self.wv(x).reshape(B, T, KV, hd)
+        xk = self.wk(src).reshape(B, src.shape[1], KV, hd)
+        xv = self.wv(src).reshape(B, src.shape[1], KV, hd)
         if self.q_norm is not None:
             q = self.q_norm(q)
             xk = self.k_norm(xk)
+        if rope_theta is None:
+            return q, xk, xv
         return rope(q, positions, rope_theta), rope(xk, positions,
                                                     rope_theta), xv
 
-    def _dense_ragged(self, x, *, rope_theta, window, softcap, scale,
+    def _cross(self, x, src, *, causal, window, softcap, scale):
+        """Cross-attention over ``src`` (B, S_src, D): K/V projected from
+        it, no rope, no cache, queries at the default ``S_src - T``."""
+        B, T, _ = x.shape
+        q, xk, xv = self._qkv(x, None, None, src=src)
+        out = ops.sdpa(q, xk, xv, causal=causal, window=window,
+                       softcap=softcap, scale=scale)
+        return self.wo(out.reshape(B, T, self.n_heads * self.head_dim))
+
+    def _dense_ragged(self, x, *, rope_theta, causal, window, softcap, scale,
                       cache, cache_index):
         """A (B,) ``cache_index`` over a dense cache
         (``attention.py:225-243``): scatter request b's fresh K/V to
@@ -189,14 +224,17 @@ class Attention(nn.Module):
         k[rows, pos] = xk.to(k.dtype)
         v[rows, pos] = xv.to(v.dtype)
         out = ops.sdpa_decode(q, k, v, q_start=idx, k_valid_len=idx + T,
-                              window=window, softcap=softcap, scale=scale)
+                              causal=causal, window=window, softcap=softcap,
+                              scale=scale)
         return self.wo(out.reshape(B, T, self.n_heads * self.head_dim))
 
-    def _append_free(self, x, *, rope_theta, window, softcap, scale, cache,
-                     cache_index):
+    def _append_free(self, x, *, rope_theta, causal, window, softcap, scale,
+                     cache, cache_index):
         """The append-free step (``attention.py:244-259``): one token at
         the int ``cache_index`` attends over the frozen cache ``[0,
-        cache_index)`` and its own fresh K/V, and writes nothing."""
+        cache_index)`` and its own fresh K/V, and writes nothing.  The
+        cache piece has no causal term, as the reference's, so ``causal``
+        changes nothing here."""
         B, T, _ = x.shape
         q, xk, xv = self._qkv(
             x, cache_index + torch.arange(T, device=x.device), rope_theta)
@@ -205,7 +243,7 @@ class Attention(nn.Module):
                              q_position=cache_index)
         return self.wo(out.reshape(B, T, self.n_heads * self.head_dim))
 
-    def _paged(self, x, *, rope_theta, window, softcap, scale, cache,
+    def _paged(self, x, *, rope_theta, causal, window, softcap, scale, cache,
                cache_index, block_table):
         """The ``"paged"`` branch (``attention.py:200-226``): scatter the
         fresh K/V of slot b's positions ``cache_index[b] + [0, T)`` into
@@ -229,6 +267,6 @@ class Attention(nn.Module):
         k[page, slot] = xk.to(k.dtype)
         v[page, slot] = xv.to(v.dtype)
         out = ops.paged_sdpa(q, k, v, block_table, q_start=idx,
-                             k_valid_len=idx + T, window=window,
-                             softcap=softcap, scale=scale)
+                             k_valid_len=idx + T, causal=causal,
+                             window=window, softcap=softcap, scale=scale)
         return self.wo(out.reshape(B, T, self.n_heads * self.head_dim))

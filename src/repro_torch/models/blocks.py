@@ -13,8 +13,13 @@ router's aux loss, and the stack sums it over the prologue and the
 blocks, under ``remat`` too, as ``stack_apply``.  A Mamba layer's cache
 is its recurrent state (``{"mamba": {"conv", "ssm"}}``), which it updates
 in place in every decode mode and which has no paged form.
-Cross-attention layers raise ``NotImplementedError`` until they are
-ported.
+A layer whose spec has ``cross_attn`` (an encoder-decoder's decoder)
+adds cross-attention after its self-attention: ``ln_x``, then ``cross``
+over the encoder output ``enc_out``, non-causal and without rope, its K/V
+projected from ``enc_out`` on every call (under ``remat`` inside the
+checkpointed block, as the reference's), never cached and never paged.
+``causal=False`` (the encoder stack) drops the self-attention's causal
+mask.
 """
 from __future__ import annotations
 
@@ -31,23 +36,16 @@ from .mla import MLA
 from .moe import MoE
 
 
-def _check_ported(cfg: ArchConfig, spec: LayerSpec) -> None:
-    if spec.cross_attn:
-        raise NotImplementedError(f"cross-attention layers are not ported to "
-                                  f"repro_torch yet ({cfg.name}); see "
-                                  f"ROADMAP.md")
-
-
 class Layer(nn.Module):
     """One pre-norm residual layer (``layer_init`` / ``layer_apply``):
     attention (MLA when ``cfg.mla``) or, for ``kind="mamba"``, a Mamba-2
-    mixer, then a gated MLP or an MoE, each with gemma's sandwich
-    post-norm when ``cfg.post_norm`` (attention's only, as the
+    mixer, then with ``spec.cross_attn`` cross-attention over the
+    encoder output, then a gated MLP or an MoE, each with gemma's
+    sandwich post-norm when ``cfg.post_norm`` (attention's only, as the
     reference)."""
 
     def __init__(self, cfg: ArchConfig, spec: LayerSpec, *, dtype, device):
         super().__init__()
-        _check_ported(cfg, spec)
         self.cfg, self.spec = cfg, spec
         kw = dict(dtype=dtype, device=device)
         d = cfg.d_model
@@ -63,6 +61,11 @@ class Layer(nn.Module):
                                   qk_norm=cfg.qk_norm, **kw)
         self.ln1_post = RMSNorm(d, **kw) \
             if cfg.post_norm and self.attn is not None else None
+        # ``attn_init`` without biases or QK-norm (``blocks.py:38-41``)
+        self.ln_x = RMSNorm(d, **kw) if spec.cross_attn else None
+        self.cross = Attention(d, cfg.num_heads, cfg.num_kv_heads,
+                               cfg.head_dim, **kw) \
+            if spec.cross_attn else None
         ffn = spec.ffn != "none"
         self.ln2 = RMSNorm(d, **kw) if ffn else None
         self.mlp = MLP(d, cfg.d_ff, act=cfg.mlp_act, **kw) \
@@ -72,10 +75,11 @@ class Layer(nn.Module):
         self.ln2_post = RMSNorm(d, **kw) if ffn and cfg.post_norm else None
 
     def forward(self, x, *, cache=None, cache_index=None, decode_mode="dus",
-                block_table=None):
+                block_table=None, enc_out=None, causal=True):
         """Returns ``(x, aux)``: the router's f32 aux loss, or None when
         the layer has no MoE.  A Mamba layer ignores ``cache_index``,
-        ``decode_mode`` and ``block_table``."""
+        ``decode_mode``, ``block_table`` and ``causal``; a cross-attention
+        layer needs ``enc_out`` (B, S_src, d_model)."""
         cfg, spec = self.cfg, self.spec
         if self.mamba is not None:
             a = self.mamba(self.ln1(x),
@@ -86,11 +90,19 @@ class Layer(nn.Module):
                       cache_index=cache_index)
             if cfg.mla is None:  # MLA's cache is never paged (init raises)
                 kw.update(window=spec.window, scale=cfg.attn_scale,
-                          decode_mode=decode_mode, block_table=block_table)
+                          decode_mode=decode_mode, block_table=block_table,
+                          causal=causal)
             a = self.attn(self.ln1(x), **kw)
         if self.ln1_post is not None:
             a = self.ln1_post(a)
         x = x + a
+        if self.cross is not None:
+            if enc_out is None:
+                raise ValueError(f"{cfg.name}: a cross-attention layer needs "
+                                 f"the encoder output (enc_out)")
+            # no window, softcap or explicit scale, as ``blocks.py:87-96``
+            x = x + self.cross(self.ln_x(x), rope_theta=None, causal=False,
+                               kv_override=enc_out)
         aux = None
         if self.ln2 is not None:
             h = self.ln2(x)
@@ -108,12 +120,12 @@ class Block(nn.ModuleList):
     """One copy of the pattern: its layers in order (a list, so the
     ``state_dict`` keys stay ``stack.blocks.<block>.<position>``)."""
 
-    def forward(self, x):
+    def forward(self, x, enc_out=None, causal=True):
         """Returns ``(x, aux)``, the block's summed aux loss (None without
         an MoE)."""
         aux = None
         for layer in self:
-            x, a = layer(x)
+            x, a = layer(x, enc_out=enc_out, causal=causal)
             aux = _add(aux, a)
         return x, aux
 
@@ -122,19 +134,21 @@ def _add(total, a):
     return a if total is None else total if a is None else total + a
 
 
-def _remat(block: Block, x):
-    """``block(x)`` under activation checkpointing: only ``x`` is kept,
-    and the backward runs the block's forward again.  Its parameters are
-    inputs of the checkpoint, bound to the block through
+def _remat(block: Block, x, enc_out=None, causal=True):
+    """``block(x, enc_out)`` under activation checkpointing: only ``x``
+    (and ``enc_out``) is kept, and the backward runs the block's forward
+    again, its cross-attention projecting ``enc_out`` once more.  Its
+    parameters are inputs of the checkpoint, bound to the block through
     ``functional_call`` on each run: under ``model.loss_fn`` the block
     holds the caller's tensors only while the forward runs, not when the
     backward recomputes it."""
     names, tensors = zip(*block.named_parameters())
 
-    def run(x, *ps):
-        return torch.func.functional_call(block, dict(zip(names, ps)), (x,))
+    def run(x, enc_out, *ps):
+        return torch.func.functional_call(block, dict(zip(names, ps)),
+                                          (x, enc_out, causal))
 
-    return checkpoint(run, x, *tensors, use_reentrant=False)
+    return checkpoint(run, x, enc_out, *tensors, use_reentrant=False)
 
 
 class Stack(nn.Module):
@@ -151,7 +165,8 @@ class Stack(nn.Module):
             for _ in range(cfg.num_blocks))
 
     def forward(self, x, *, caches=None, cache_index=None, decode_mode="dus",
-                block_table=None, num_blocks_limit=None, remat=False):
+                block_table=None, num_blocks_limit=None, remat=False,
+                enc_out=None, causal=True):
         """caches: ``{"prologue": [...], "blocks": [[...] per block]}``
         (updated in place, except in the ``"append_free"`` mode).
         ``cache_index`` (an int, or a (B,) tensor of per-request or
@@ -160,9 +175,10 @@ class Stack(nn.Module):
         the prologue and only the first n pattern blocks, the
         self-speculative draft's early exit (``blocks.py:166-226``): the
         other blocks' caches are left as they are.  ``remat`` checkpoints
-        each pattern block of a training forward (no caches).  Returns
-        ``(x, caches, aux)``, ``aux`` the f32 sum of the MoE layers' aux
-        losses (0 without one)."""
+        each pattern block of a training forward (no caches).  ``enc_out``
+        goes to every cross-attention layer, ``causal`` to every
+        self-attention.  Returns ``(x, caches, aux)``, ``aux`` the f32 sum
+        of the MoE layers' aux losses (0 without one)."""
         if remat and caches is not None:
             raise ValueError("remat recomputes a training forward; it takes "
                              "no caches")
@@ -173,7 +189,7 @@ class Stack(nn.Module):
                                  f"{len(blocks)}], got {num_blocks_limit}")
             blocks = blocks[:num_blocks_limit]
         kw = dict(cache_index=cache_index, decode_mode=decode_mode,
-                  block_table=block_table)
+                  block_table=block_table, enc_out=enc_out, causal=causal)
         aux = None
         for i, layer in enumerate(self.prologue):
             c = None if caches is None else caches["prologue"][i]
@@ -181,7 +197,7 @@ class Stack(nn.Module):
             aux = _add(aux, a)
         for b, block in enumerate(blocks):
             if remat:
-                x, a = _remat(block, x)
+                x, a = _remat(block, x, enc_out, causal)
                 aux = _add(aux, a)
                 continue
             for i, layer in enumerate(block):
@@ -198,8 +214,9 @@ def layer_cache_init(cfg: ArchConfig, spec: LayerSpec, batch: int,
     """A layer's dense cache: K/V ``(batch, max_seq, KV, hd)``, or MLA's
     latent ``{"ckv": (batch, max_seq, kv_lora), "krope": (batch, max_seq,
     rope)}``, or a Mamba layer's ``{"mamba": {"conv", "ssm"}}`` state (no
-    ``max_seq`` axis)."""
-    _check_ported(cfg, spec)
+    ``max_seq`` axis).  Cross-attention keeps no cache: its K/V are
+    projected from the encoder output on every call, as the reference's
+    (``blocks.py:90-93``)."""
     if spec.kind == "mamba":
         return {"mamba": mamba_cache_init(batch, cfg.d_model, cfg.ssm, dtype,
                                           device)}
@@ -229,12 +246,16 @@ def stack_paged_cache_init(cfg: ArchConfig, num_pages: int, page_size: int,
     k/v is a pool ``(num_pages, page_size, KV, hd)`` shared by every slot
     through the block table (``blocks.py:228-276``).  Neither a Mamba
     layer's recurrent state nor the MLA latent cache has a paged form, as
-    in the reference."""
+    in the reference, and the paged decode does not take cross-attention
+    (``attention.py:201-203``)."""
     for spec in tuple(cfg.prologue) + tuple(cfg.pattern):
         if spec.kind != "attn":
             raise NotImplementedError(
                 f"paged KV cache supports attn layers only, got "
                 f"{spec.kind!r}")
+        if spec.cross_attn:
+            raise NotImplementedError(
+                "paged decode does not support cross-attention K/V")
     if cfg.mla is not None:
         raise NotImplementedError(
             "paged KV cache does not support the MLA latent cache "

@@ -1,8 +1,9 @@
-"""Decoder-only LM (port of ``repro/models/model.py``).
+"""Decoder-only LM and encoder-decoder (port of ``repro/models/model.py``).
 
     params = init(cfg, seed, dtype, device)
     loss, aux = loss_fn(cfg, params, batch[, remat=True])   # training
     logits, caches = prefill(cfg, params, batch, max_seq, cache_dtype)
+    enc_out = encode(cfg, params, frames)                  # encoder only
     logits, caches = decode_step(cfg, params, caches, tokens, index)
     logits, caches = decode_step(cfg, params, caches, tokens,
                                  index_vector)               # verify window
@@ -25,8 +26,16 @@ own ``lm_head.w``, and a multi-token-prediction model (deepseek-v3) adds
 their Mamba layers' chunked scan in prefill, ``loss_fn`` and a decode
 step of T > 1 tokens (continued from the cached state), and the
 recurrent step at T = 1; their state ignores the index and is updated in
-every decode mode, ``"append_free"`` included.  Encoder-decoder and
-frontend models are not ported yet.
+every decode mode, ``"append_free"`` included.
+
+Batches are dicts: ``{"tokens", "labels"}``, plus ``"prefix_embeds"``
+(B, P, d_model) for a vision model (llava-next-34b: the embeddings go in
+front of the token embeddings, and ``loss_fn`` gives them ``-100``
+labels) or ``"frames"`` (B, S_src, d_model) for an encoder-decoder
+(seamless-m4t-large-v2: the encoder runs over them non-causally, and each
+decoder layer's cross-attention attends over its output).  The encoder
+output is serve state: ``prefill`` returns it in the caches dict under
+``"enc_out"``, and ``decode_step`` reads it from there.
 """
 from __future__ import annotations
 
@@ -64,13 +73,30 @@ class MTP(nn.Module):
         return self.layer(self.norm(h))[0]
 
 
+def _enc_cfg(cfg: ArchConfig) -> ArchConfig:
+    """The encoder stack as an ArchConfig (``model.py:28-35``): one dense
+    attention layer a block, ``encoder.num_layers`` blocks, the encoder's
+    d_ff, no prologue, MoE, MLA or SSM."""
+    return dataclasses.replace(
+        cfg, pattern=(LayerSpec(kind="attn", ffn="dense"),), prologue=(),
+        num_blocks=cfg.encoder.num_layers, d_ff=cfg.encoder.d_ff, moe=None,
+        mla=None, ssm=None)
+
+
+class Encoder(nn.Module):
+    """The encoder of an encoder-decoder: a :class:`Stack` of
+    :func:`_enc_cfg` and its final norm (``encoder.stack``,
+    ``encoder.final_norm``)."""
+
+    def __init__(self, cfg: ArchConfig, **kw):
+        super().__init__()
+        self.stack = Stack(_enc_cfg(cfg), **kw)
+        self.final_norm = RMSNorm(cfg.d_model, **kw)
+
+
 class Model(nn.Module):
     def __init__(self, cfg: ArchConfig, *, dtype=torch.float32, device=None):
         super().__init__()
-        if cfg.encoder is not None or cfg.frontend is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: encoder and frontend models are not ported to "
-                f"repro_torch yet; see ROADMAP.md")
         kw = dict(dtype=dtype, device=resolve_device(device))
         self.cfg = cfg
         self.embed = Embed(cfg.vocab_size, cfg.d_model, **kw)
@@ -78,14 +104,22 @@ class Model(nn.Module):
         self.final_norm = RMSNorm(cfg.d_model, **kw)
         self.lm_head = None if cfg.tie_embeddings else Dense(
             cfg.d_model, cfg.vocab_size, **kw)
+        self.encoder = Encoder(cfg, **kw) if cfg.encoder is not None \
+            else None
         self.mtp = MTP(cfg, **kw) if cfg.mtp else None
 
-    def forward(self, tokens, remat=False):
+    def forward(self, tokens, remat=False, prefix_embeds=None, frames=None):
         """A training forward (no cache): ``(h, aux, h_mtp)``, the
-        final-normed hidden states (B, T, d_model), the f32 router aux
-        loss and the MTP layer's hidden states (None without one), each
-        pattern block checkpointed with ``remat``."""
-        h, _, aux = backbone(self.cfg, self, tokens, remat=remat)
+        final-normed hidden states (B, P + T, d_model) over the prefix
+        embeddings and the tokens, the f32 router aux loss and the MTP
+        layer's hidden states (None without one), each pattern block of
+        the decoder checkpointed with ``remat`` (the encoder is not, as
+        the reference's ``encode``).  An encoder model takes
+        ``frames``."""
+        enc_out = None if frames is None else encode(self.cfg, self, frames)
+        h, _, aux = backbone(self.cfg, self, tokens,
+                             prefix_embeds=prefix_embeds, enc_out=enc_out,
+                             remat=remat)
         return h, aux, None if self.mtp is None else self.mtp(h)
 
 
@@ -152,7 +186,7 @@ def init_paged_cache(cfg: ArchConfig, layout: PagedCacheLayout,
     leaves ``(num_pages, page_size, KV, hd)``, to pair with a
     (B, max_pages) int32 block table and ``decode_mode="paged"``.
     Attention-family decoder-only models only; others (MLA, any Mamba
-    layer, an encoder) raise."""
+    layer, an encoder, a cross-attention layer) raise."""
     if cfg.encoder is not None:
         raise NotImplementedError(
             "paged serving does not cover encoder-decoder models")
@@ -160,25 +194,38 @@ def init_paged_cache(cfg: ArchConfig, layout: PagedCacheLayout,
                                   dtype, resolve_device(device))
 
 
-def backbone(cfg: ArchConfig, params: Model, tokens, *, caches=None,
-             cache_index=None, decode_mode="dus", block_table=None,
-             num_blocks_limit=None, remat=False):
+def encode(cfg: ArchConfig, params: Model, frames):
+    """The encoder over ``frames`` (B, S_src, d_model), the stub
+    frontend's embeddings cast to the parameters' dtype: its stack with
+    ``causal=False``, then its final norm (``model.py:91-96``)."""
+    x, _, _ = params.encoder.stack(frames.to(params.embed.table.dtype),
+                                   causal=False)
+    return params.encoder.final_norm(x)
+
+
+def backbone(cfg: ArchConfig, params: Model, tokens, *, prefix_embeds=None,
+             enc_out=None, caches=None, cache_index=None, decode_mode="dus",
+             block_table=None, num_blocks_limit=None, remat=False):
     """Returns ``(hidden, caches, aux)``, ``aux`` the f32 router aux loss.
-    ``num_blocks_limit`` runs the prologue and the first n pattern blocks
-    only (the self-speculative draft), sharing the final norm and head
-    with the full model.  ``remat`` checkpoints each pattern block
-    (training; no caches)."""
+    ``prefix_embeds`` (B, P, d_model), cast to the activations' dtype, go
+    in front of the (scaled) token embeddings; ``enc_out`` goes to the
+    cross-attention layers.  ``num_blocks_limit`` runs the prologue and
+    the first n pattern blocks only (the self-speculative draft), sharing
+    the final norm and head with the full model.  ``remat`` checkpoints
+    each pattern block (training; no caches)."""
     x = params.embed(tokens)
     if cfg.embed_scale:
         # the constant is rounded to x's dtype before the multiply, as the
         # reference does: in bf16, sqrt(1152) = 33.94 becomes 34.0
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     x, caches, aux = params.stack(x, caches=caches, cache_index=cache_index,
                                   decode_mode=decode_mode,
                                   block_table=block_table,
                                   num_blocks_limit=num_blocks_limit,
-                                  remat=remat)
+                                  remat=remat, enc_out=enc_out)
     return params.final_norm(x), caches, aux
 
 
@@ -198,18 +245,23 @@ def loss_fn(cfg: ArchConfig, params, batch, *, remat=False):
     :class:`Model`'s tensors (its ``state_dict`` keys).  ``remat``
     checkpoints each pattern block, as the reference's: the backward
     recomputes the block's forward (the flash kernel launches again
-    there) in place of keeping its activations.  Returns ``(loss + aux,
-    {"aux": aux})``, aux 0 without an MoE.  VLM prefix embeddings
-    raise."""
-    if batch.get("prefix_embeds") is not None:
-        raise NotImplementedError(
-            "prefix embeddings (VLM) are not ported to repro_torch yet; see "
-            "ROADMAP.md")
+    there) in place of keeping its activations.  A vision batch's
+    ``prefix_embeds`` positions get ``-100`` labels in front of
+    ``labels``; an encoder model encodes ``batch["frames"]``.  Returns
+    ``(loss + aux, {"aux": aux})``, aux 0 without an MoE."""
+    prefix = batch.get("prefix_embeds")
+    kw = {"remat": remat, "prefix_embeds": prefix}
+    if cfg.encoder is not None:
+        kw["frames"] = batch["frames"]
     h, aux, h_mtp = torch.func.functional_call(
-        _skeleton(cfg), params, (batch["tokens"],), {"remat": remat})
+        _skeleton(cfg), params, (batch["tokens"],), kw)
     w_out = params["embed.table"].T if cfg.tie_embeddings \
         else params["lm_head.w"]
     labels = batch["labels"]
+    if prefix is not None:
+        ignore = torch.full(labels.shape[:1] + prefix.shape[1:2], -100,
+                            dtype=labels.dtype, device=labels.device)
+        labels = torch.cat([ignore, labels], dim=1)
     loss = chunked_ce_loss(h, w_out, labels, logit_softcap=cfg.final_softcap)
     if h_mtp is not None:
         # predict token t + 2: the labels shifted one step more
@@ -232,14 +284,22 @@ def logits_of(cfg: ArchConfig, params: Model, h):
 
 def prefill(cfg: ArchConfig, params: Model, batch, max_seq: int,
             cache_dtype=torch.bfloat16):
-    """Run the prompt through the model, filling a fresh KV cache of
-    ``max_seq`` positions.  Returns (last-position logits (B, 1, V),
-    caches)."""
+    """Run the prompt (after ``batch["prefix_embeds"]``, if any) through
+    the model, filling a fresh KV cache of ``max_seq`` positions; an
+    encoder model first encodes ``batch["frames"]`` and keeps the output
+    in the caches, under ``"enc_out"``.  Returns (last-position logits
+    (B, 1, V), caches)."""
     tokens = batch["tokens"]
+    enc_out = None
+    if cfg.encoder is not None:
+        enc_out = encode(cfg, params, batch["frames"])
     caches = init_cache(cfg, tokens.shape[0], max_seq, cache_dtype,
                         tokens.device)
-    h, caches, _ = backbone(cfg, params, tokens, caches=caches,
-                            cache_index=0)
+    h, caches, _ = backbone(cfg, params, tokens,
+                            prefix_embeds=batch.get("prefix_embeds"),
+                            enc_out=enc_out, caches=caches, cache_index=0)
+    if enc_out is not None:
+        caches["enc_out"] = enc_out
     return logits_of(cfg, params, h[:, -1:]), caches
 
 
@@ -256,13 +316,16 @@ def decode_step(cfg: ArchConfig, params: Model, caches, tokens, index, *,
     reference's); ``"paged"`` takes page pools, a (B,) tensor ``index`` of
     per-slot positions and ``block_table`` (B, max_pages) int32.
     ``draft_layers`` runs the self-speculative early exit (the first n
-    pattern blocks).  Returns (logits (B, T, V), caches)."""
+    pattern blocks).  An encoder model's cross-attention reads the
+    encoder output from ``caches["enc_out"]`` (``prefill`` put it there).
+    Returns (logits (B, T, V), caches)."""
     if decode_mode not in DECODE_MODES:
         raise NotImplementedError(
             f"decode_mode {decode_mode!r} is not ported to repro_torch yet "
             f"(ported: {DECODE_MODES}); see ROADMAP.md")
-    h, caches, _ = backbone(cfg, params, tokens, caches=caches,
+    h, caches, _ = backbone(cfg, params, tokens,
+                            enc_out=caches.get("enc_out"), caches=caches,
                             cache_index=index, decode_mode=decode_mode,
-                         block_table=block_table,
-                         num_blocks_limit=draft_layers)
+                            block_table=block_table,
+                            num_blocks_limit=draft_layers)
     return logits_of(cfg, params, h), caches

@@ -38,6 +38,14 @@ continuous engine's; the plain engine keeps one generator per row.  Each
 round's phases are bracketed by :func:`repro_torch.trace.mark`:
 ``"round"`` (the snapshot), ``"draft"``, ``"verify"``, ``"accept"`` (the
 accept rule, the restore and the counters), then ``"end"``.
+
+``prefix_len`` counts the positions a vision model's ``prefix_embeds``
+take in front of the prompt (``engine.py:194-244``): generation starts at
+``index0 = prompt_len + prefix_len``, and the cache covers ``index0 +
+max_new + speculate_k`` positions.  An encoder-decoder's batch carries
+``frames``; prefill keeps the encoder output in the caches, where every
+decode step reads it.  Speculation takes a prefix self-speculatively
+only, and no encoder model, as the reference's.
 """
 from __future__ import annotations
 
@@ -109,13 +117,20 @@ class GenerationBundle:
     speculate_k: int = 0
     draft_layers: int | None = None
     draft_cfg: Any = None
+    prefix_len: int = 0
     dispatch_counter: list = field(default_factory=lambda: [0])
 
     @property
+    def index0(self) -> int:
+        """The position of the first generated token: after the prefix
+        embeddings and the prompt."""
+        return self.prompt_len + self.prefix_len
+
+    @property
     def seq(self) -> int:
-        """Cache length: the prompt, every generated position and
-        ``speculate_k`` rows of headroom for the last verify window."""
-        return self.prompt_len + self.max_new + self.speculate_k
+        """Cache length: the prefix, the prompt, every generated position
+        and ``speculate_k`` rows of headroom for the last verify window."""
+        return self.index0 + self.max_new + self.speculate_k
 
     def generate(self, params, batch, seed: int = 0, *, draft_params=None):
         """Prefill ``batch`` then generate ``max_new`` tokens.  Returns
@@ -127,13 +142,22 @@ class GenerationBundle:
     def generate_with_state(self, params, batch, seed: int = 0, *,
                             draft_params=None) -> GenerationResult:
         """Like :meth:`generate`, and also returns the final caches and
-        the per-request lengths.  ``draft_params`` are required iff the
-        engine has a ``draft_cfg``; the draft's caches are dropped."""
+        the per-request lengths.  ``batch`` holds ``tokens``, and
+        ``prefix_embeds`` (B, prefix_len, d_model) or ``frames`` where the
+        model takes them.  ``draft_params`` are required iff the engine
+        has a ``draft_cfg``; the draft's caches are dropped."""
         tokens = batch["tokens"]
         want = (self.batch, self.prompt_len)
         if tuple(tokens.shape) != want or tokens.device != self.device:
             raise ValueError(f"tokens must be {want} on {self.device}, got "
                              f"{tuple(tokens.shape)} on {tokens.device}")
+        prefix = batch.get("prefix_embeds")
+        got = None if prefix is None else tuple(prefix.shape)
+        if (0 if got is None else got[1]) != self.prefix_len:
+            raise ValueError(f"the engine takes {self.prefix_len} prefix "
+                             f"positions, got prefix_embeds of shape {got}")
+        inputs = {k: batch[k] for k in ("tokens", "prefix_embeds", "frames")
+                  if batch.get(k) is not None}
         for p in (params, draft_params):
             if p is not None and p.embed.table.dtype != self.param_dtype:
                 raise TypeError(f"engine built for {self.param_dtype} "
@@ -144,8 +168,8 @@ class GenerationBundle:
                              "pass draft_params")
         self.dispatch_counter[0] += 1
         with torch.inference_mode():
-            logits, caches = M.prefill(self.cfg, params, {"tokens": tokens},
-                                       self.seq, self.cache_dtype)
+            logits, caches = M.prefill(self.cfg, params, inputs, self.seq,
+                                       self.cache_dtype)
             spec = None
             if self.speculate_k:
                 dcaches = None
@@ -192,7 +216,7 @@ class GenerationBundle:
             if eos is not None and bool(done.all()):
                 break           # the remaining columns already hold eos
             logits, caches = M.decode_step(cfg, params, caches, tok[:, None],
-                                           self.prompt_len + i - 1)
+                                           self.index0 + i - 1)
             nxt = sample_token(logits[:, -1].float(), self.sampling, gens)
             if eos is not None:
                 nxt = torch.where(done, eos, nxt)
@@ -218,7 +242,7 @@ class GenerationBundle:
         k, B, N, dev = self.speculate_k, self.batch, self.max_new, self.device
         ar = torch.arange(k + 1, device=dev)
         tok, done, out = self._first(
-            logits, self._streams(seed, [self.prompt_len] * B, TOKEN_STREAM))
+            logits, self._streams(seed, [self.index0] * B, TOKEN_STREAM))
         # one spare column takes the writes of what a round does not keep
         buf = torch.cat([out, out[:, :1]], dim=1)
         rows = torch.arange(B, device=dev)[:, None]
@@ -233,7 +257,7 @@ class GenerationBundle:
             if not bool(live.any()):
                 break
             trace.mark("round")
-            pos = self.prompt_len + n - 1                  # next write
+            pos = self.index0 + n - 1                      # next write
             win = pos[:, None] + ar                        # (B, k+1)
             # every per-position leaf: dense K/V, or MLA's latent rows
             saved = [{c: lc[c][rows, win] for c in lc} for lc in layers]
@@ -314,13 +338,15 @@ def _check_spec_family(cfg, role: str) -> None:
 
 def make_engine(cfg, *, batch: int, prompt_len: int, max_new: int,
                 sampling: SamplingParams = SamplingParams(),
-                eos_id: int | None = None, param_dtype=torch.bfloat16,
-                cache_dtype=torch.bfloat16, speculate_k: int = 0,
-                draft_layers: int | None = None, draft_cfg=None,
-                device=None) -> GenerationBundle:
-    """The generation engine for one serving shape.  The KV cache covers
-    ``prompt_len + max_new + speculate_k`` positions; prefill attends over
-    all of it with the empty tail masked, as the reference does.
+                eos_id: int | None = None, prefix_len: int = 0,
+                param_dtype=torch.bfloat16, cache_dtype=torch.bfloat16,
+                speculate_k: int = 0, draft_layers: int | None = None,
+                draft_cfg=None, device=None) -> GenerationBundle:
+    """The generation engine for one serving shape.  ``prefix_len``
+    counts the non-token prefix positions (a vision model's
+    ``prefix_embeds``).  The KV cache covers ``prompt_len + prefix_len +
+    max_new + speculate_k`` positions; prefill attends over all of it
+    with the empty tail masked, as the reference does.
 
     ``speculate_k > 0`` speculates (see the module docstring):
     self-speculatively through the first ``draft_layers`` pattern blocks
@@ -328,9 +354,10 @@ def make_engine(cfg, *, batch: int, prompt_len: int, max_new: int,
     ``draft_cfg`` of the same vocabulary, whose params ``generate`` then
     takes as ``draft_params``.  Without ``speculate_k`` both are
     ignored, as in the reference (``engine.py:218-241``)."""
-    if batch < 1 or prompt_len < 1 or max_new < 1:
-        raise ValueError(f"batch, prompt_len and max_new must be >= 1, got "
-                         f"{batch}, {prompt_len}, {max_new}")
+    if batch < 1 or prompt_len < 1 or max_new < 1 or prefix_len < 0:
+        raise ValueError(f"batch, prompt_len and max_new must be >= 1 and "
+                         f"prefix_len >= 0, got {batch}, {prompt_len}, "
+                         f"{max_new}, {prefix_len}")
     if speculate_k < 0:
         raise ValueError(f"speculate_k must be >= 0, got {speculate_k}")
     if speculate_k:
@@ -344,6 +371,10 @@ def make_engine(cfg, *, batch: int, prompt_len: int, max_new: int,
                 raise ValueError(
                     f"draft vocab {draft_cfg.vocab_size} != target vocab "
                     f"{cfg.vocab_size}")
+            if prefix_len:
+                raise NotImplementedError(
+                    "draft_cfg speculation does not cover prefix embeddings"
+                    " (the draft frontend differs); use self-speculative")
         else:
             if draft_layers is None:
                 draft_layers = max(1, cfg.num_blocks // 2)
@@ -359,4 +390,5 @@ def make_engine(cfg, *, batch: int, prompt_len: int, max_new: int,
                             cache_dtype=cache_dtype,
                             device=resolve_device(device),
                             speculate_k=speculate_k,
-                            draft_layers=draft_layers, draft_cfg=draft_cfg)
+                            draft_layers=draft_layers, draft_cfg=draft_cfg,
+                            prefix_len=prefix_len)

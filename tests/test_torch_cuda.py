@@ -48,7 +48,12 @@ go through ``ops.sdpa`` / ``ops.sdpa_decode`` into the kernel's wrapper,
 which zero-pads them to (64, 64) and counts the launch under the
 caller's pair, equal to the kernel on hand-padded inputs bit for bit; grok-1's 6 query
 heads per kv head with softcap 30 hold flash attention's tolerance; and
-an MoE layer at top-8 in bf16 gives the same bits on every run.
+an MoE layer at top-8 in bf16 gives the same bits on every run.  The
+kernel without the causal mask (the encoder's and the cross-attention's
+calls), at the default query start ``S - Tq`` (negative when the queries
+outnumber the keys) and at llava-next's 7 query heads per kv head, holds
+the same tolerance, its split decode equal to unsplit bit for bit; a
+decoder layer with cross-attention on the card agrees with the CPU.
 """
 import pytest
 import torch
@@ -1417,3 +1422,61 @@ def test_moe_combine_is_bitwise_across_runs_at_top_8(card):
     torch.cuda.synchronize()
     assert torch.equal(_bits(a), _bits(b)) and torch.equal(aux_a, aux_b)
     assert torch.equal(t1, t2) and t1.shape == (256, 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,D,Tq,S,valid", [
+    (16, 16, 64, 64, 96, 96),      # seamless's cross prefill, Tq < S
+    (16, 16, 64, 80, 80, 80),      # its encoder, Tq = S
+    (16, 16, 64, 150, 70, 70),     # Tq > S: q_start = S - Tq < 0
+    (14, 2, 128, 3, 130, 101),     # llava's G = 7, a masked tail
+    (16, 16, 64, 1, 200, 200),     # cross decode: split and unsplit
+])
+def test_non_causal_kernel_matches_plain(card, dtype, H, KV, D, Tq, S,
+                                         valid):
+    """``causal=False`` (the encoder and cross-attention) with the
+    default query start ``S - Tq``, negative when the queries outnumber
+    the keys: within tolerance of the plain version, the tail past
+    ``valid`` NaN; split over the key axis (the wrapper's choice and 2,
+    3 blocks) equal to kv_splits=1 bit for bit."""
+    g = torch.Generator(device=card).manual_seed(Tq + S)
+    B = 2
+    q = torch.randn(B, Tq, H, D, generator=g, device=card).to(dtype)
+    k, v = (torch.randn(B, S, KV, D, generator=g, device=card).to(dtype)
+            for _ in range(2))
+    k[:, valid:] = float("nan")
+    v[:, valid:] = float("nan")
+    kw = dict(causal=False, k_valid_len=valid)
+    one = flash_attention_fwd(q, k, v, kv_splits=1, **kw)
+    torch.cuda.synchronize()
+    _assert_close(one, ref.grouped_sdpa_ref(q, k, v, causal=False,
+                                            k_valid_len=valid))
+    for splits in (None, 2, 3):
+        got = flash_attention_fwd(q, k, v, kv_splits=splits, **kw)
+        assert torch.equal(_bits(got), _bits(one)), splits
+    torch.cuda.synchronize()
+
+
+def test_cross_attention_layer_on_the_card(card):
+    """A decoder layer with cross-attention (reduced seamless-m4t's
+    widths) on the card against the same layer on the CPU, in f32, with
+    more queries than source rows: two flash launches (self, then
+    cross), within the plain version's tolerance."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.blocks import Layer
+    cfg = get_config("seamless-m4t-large-v2").reduced()
+    g = torch.Generator().manual_seed(6)
+    layer = Layer(cfg, cfg.pattern[0], dtype=torch.float32, device="cpu")
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.copy_(0.05 * torch.randn(p.shape, generator=g))
+    x = torch.randn(2, 20, cfg.d_model, generator=g)
+    enc = torch.randn(2, 9, cfg.d_model, generator=g)
+    with torch.inference_mode():
+        want, _ = layer(x, enc_out=enc)
+        layer = layer.to(card)
+        before = flash_attention_fwd.launches
+        got, _ = layer(x.to(card), enc_out=enc.to(card))
+        torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 2
+    _assert_close(got.cpu(), want)

@@ -198,12 +198,20 @@ def test_unported_decode_paths_raise():
     with pytest.raises(ValueError, match="vector"):
         TM.decode_step(cfg, params, caches, tok, torch.tensor([[3]]))
     # QKV biases (tests/test_torch_zoo.py), MoE and MLA layers
-    # (tests/test_torch_moe.py, tests/test_torch_mla.py) and Mamba layers
-    # (tests/test_torch_mamba2.py) are ported; cross-attention layers are
-    # not
-    cross = dataclasses.replace(cfg.pattern[0], cross_attn=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.Model(dataclasses.replace(cfg, pattern=(cross,)), device="cpu")
+    # (tests/test_torch_moe.py, tests/test_torch_mla.py), Mamba layers
+    # (tests/test_torch_mamba2.py) and cross-attention layers
+    # (tests/test_torch_encdec.py) are ported; the paged decode does not
+    # take cross-attention, as the reference's (attention.py:201-203)
+    cross = dataclasses.replace(cfg, pattern=(dataclasses.replace(
+        cfg.pattern[0], cross_attn=True),))
+    model = TM.Model(cross, device="cpu")
+    with pytest.raises(NotImplementedError, match="cross-attention K/V"):
+        TM.init_paged_cache(cross, TM.PagedCacheLayout(), torch.float32,
+                            "cpu")
+    x = torch.zeros(1, 1, cfg.d_model)
+    with pytest.raises(NotImplementedError, match="cross-attention K/V"):
+        model.stack.blocks[0][0].cross(x, decode_mode="paged",
+                                       kv_override=x)
 
 
 @pytest.mark.parametrize("softcap", [None, 30.0])

@@ -292,6 +292,8 @@ def test_each_library_hashes_its_own_source(tmp_path):
 
 
 def test_unported_architectures_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("llava-next-34b")
+    """Every reference arch is ported; an unknown name raises and lists
+    the known ones."""
+    with pytest.raises(KeyError, match="llava-next-34b"):
+        get_config("llava-next-35b")
     assert get_config("gemma3_1b").name == "gemma3-1b"

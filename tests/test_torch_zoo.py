@@ -36,6 +36,7 @@ import pytest
 import torch
 
 import torch_dist_ranks
+from repro.configs import ARCH_NAMES as JARCH_NAMES
 from repro.configs import get_config as jget_config
 from repro.data import synthetic as jsynthetic
 from repro.kernels.ops import KernelConfig
@@ -120,11 +121,16 @@ def test_config_matches_reference(arch, reduced):
 
 
 def test_registry_lists_the_dense_zoo():
+    """The full registry: the reference's every arch, and the paper MLP's
+    config under ``"paper-mlp"``, as the reference's registry."""
     assert ARCH_NAMES == ("gemma3-1b",) + ZOO + (
         "grok-1-314b", "deepseek-v3-671b", "mamba2-2.7b",
-        "jamba-1.5-large-398b")
-    with pytest.raises(NotImplementedError, match="gemma2-2b, granite-8b"):
-        get_config("llava-next-34b")
+        "jamba-1.5-large-398b", "llava-next-34b", "seamless-m4t-large-v2")
+    assert set(ARCH_NAMES) == set(JARCH_NAMES)
+    assert dataclasses.asdict(get_config("paper-mlp")) == \
+        dataclasses.asdict(jget_config("paper-mlp"))
+    with pytest.raises(KeyError, match="gemma2-2b, granite-8b"):
+        get_config("llava-next-35b")
 
 
 @pytest.mark.parametrize("case", ["qwen1.5-4b", "qwen1.5-4b/mha"])

@@ -1,12 +1,16 @@
 """Reduced models against the JAX reference on the CPU, shared by
 ``tests/test_torch_moe.py`` (grok-1-314b), ``tests/test_torch_mla.py``
-(deepseek-v3-671b) and ``tests/test_torch_mamba2.py`` (mamba2-2.7b,
-jamba-1.5-large-398b): each arch's ``reduced()`` config with the
+(deepseek-v3-671b), ``tests/test_torch_mamba2.py`` (mamba2-2.7b,
+jamba-1.5-large-398b), ``tests/test_torch_vlm.py`` (llava-next-34b) and
+``tests/test_torch_encdec.py`` (seamless-m4t-large-v2): each arch's
+``reduced()`` config with the
 reference's weights carried across by ``convert.params_from_jax``, the
 leaves that start at a constant made random (norm scales, and a Mamba
 layer's ``A_log``, ``D``, ``dt_bias`` and ``conv_b``).  The reference
 runs through ``M.*`` with its plain attention; its gradient is compiled
-once per arch.
+once per arch.  A frontend model's stub embeddings (``frames`` or
+``prefix_embeds``) are drawn with numpy (:func:`stubs`) and given to both
+sides.
 """
 import functools
 
@@ -38,7 +42,20 @@ CONSTANT_LEAVES = ("scale", "A_log", "D", "dt_bias", "conv_b")
 #: ``jax.eval_shape(JM.init)``, at the reference's scales (N(0, 0.02),
 #: ``conv_w`` N(0, 0.1)): compiling ``JM.init`` costs ~7 s for reduced
 #: jamba on the CPU
-NUMPY_INIT = ("mamba2-2.7b", "jamba-1.5-large-398b")
+NUMPY_INIT = ("mamba2-2.7b", "jamba-1.5-large-398b", "llava-next-34b",
+              "seamless-m4t-large-v2")
+
+
+def stubs(cfg, batch, length, seed):
+    """A frontend model's stub inputs as numpy, N(0, 1) x 0.02 in f32 as
+    the reference's stubs: ``{"frames": (batch, length, d)}`` (audio),
+    ``{"prefix_embeds": ...}`` (vision), or ``{}``."""
+    key = {"audio": "frames", "vision": "prefix_embeds"}.get(cfg.frontend)
+    if key is None or not length:
+        return {}
+    rng = np.random.default_rng(seed)
+    return {key: 0.02 * rng.standard_normal((batch, length, cfg.d_model),
+                                            dtype=np.float32)}
 
 
 def err(got, want):
@@ -114,6 +131,62 @@ def prefill_decode(arch):
 
 
 @functools.lru_cache(maxsize=None)
+def _jprefill(arch, max_seq):
+    jcfg = pair(arch)[0]
+    return jax.jit(lambda p, b: JM.prefill(jcfg, p, b, max_seq, jnp.float32,
+                                           kernel_config=REF))
+
+
+def prefill_decode_stub(arch, stub_len, decode_mode, P=7, steps=2):
+    """A frontend model served against the reference: prefill of ``P``
+    tokens after ``stub_len`` prefix embeddings (vision) or over
+    ``stub_len`` encoder frames (audio), then ``steps`` one-token
+    ``decode_step``s in ``decode_mode`` at ``prefix + P + i``.  The
+    prefill logits, every K/V cache row and the encoder output (which the
+    port keeps in its caches, the reference returns beside them) are held
+    at 1e-4, 1e-5 for the encoder output, and each step's logits at
+    1e-4."""
+    jcfg, cfg, jparams, tparams = pair(arch)
+    B = 2
+    extra = stubs(cfg, B, stub_len, 6)
+    npfx = stub_len if cfg.frontend == "vision" else 0
+    S = npfx + P + steps + 1
+    tokens = np.random.default_rng(5).integers(0, cfg.vocab_size,
+                                               (B, P + steps))
+    jl, jc, jenc = _jprefill(arch, S)(jparams, {
+        "tokens": jnp.asarray(tokens[:, :P]),
+        **{k: jnp.asarray(v) for k, v in extra.items()}})
+    with torch.inference_mode():
+        tl, tc = TM.prefill(cfg, tparams, {
+            "tokens": torch.from_numpy(tokens[:, :P]),
+            **{k: torch.from_numpy(v) for k, v in extra.items()}}, S,
+            torch.float32)
+    assert tl.shape == (B, 1, cfg.vocab_size)
+    assert err(tl, jl) <= MODEL_TOL
+    assert (jenc is None) == ("enc_out" not in tc)
+    if jenc is not None:
+        assert tc["enc_out"].shape == (B, stub_len, cfg.d_model)
+        assert err(tc["enc_out"], jenc) <= LAYER_TOL
+    for pos in range(len(cfg.pattern)):
+        for b, block in enumerate(tc["blocks"]):
+            for n in ("k", "v"):
+                assert err(block[pos]["attn"][n],
+                           jc["blocks"][pos]["attn"][n][b]) <= MODEL_TOL
+    jdecode = jax.jit(lambda p, c, t, i, e: JM.decode_step(
+        jcfg, p, c, t, i, e, decode_mode=decode_mode, kernel_config=REF))
+    for i in range(P, P + steps):
+        tok = tokens[:, i:i + 1]
+        jl, jc = jdecode(jparams, jc, jnp.asarray(tok), jnp.int32(npfx + i),
+                         jenc)
+        with torch.inference_mode():
+            tl, tc = TM.decode_step(cfg, tparams, tc, torch.from_numpy(tok),
+                                    npfx + i, decode_mode=decode_mode)
+        assert tl.shape == (B, 1, cfg.vocab_size)
+        assert err(tl, jl) <= MODEL_TOL, i
+    return tc
+
+
+@functools.lru_cache(maxsize=None)
 def _jvalue_and_grad(arch):
     """The reference's ``loss_fn`` and its gradient, jitted once per arch
     (the loss test and the simulation step share the compile)."""
@@ -123,13 +196,15 @@ def _jvalue_and_grad(arch):
         has_aux=True))
 
 
-def loss_and_grads(arch, seq=12):
+def loss_and_grads(arch, seq=12, stub_len=0):
     """``loss_fn`` (with the aux loss, and deepseek's MTP term through its
     untied head) and every gradient against ``jax.value_and_grad``, on 2
-    sequences of ``seq`` tokens."""
+    sequences of ``seq`` tokens, with ``stub_len`` frames or prefix
+    embeddings each for a frontend model."""
     _, cfg, jparams, tparams = pair(arch)
     batch = jsynthetic.token_batches(0, batch=2, seq=seq,
                                      vocab=cfg.vocab_size)
+    batch.update(stubs(cfg, 2, stub_len, 9))
     (jloss, jaux), jgrads = _jvalue_and_grad(arch)(
         jparams, jax.tree.map(jnp.asarray, batch))
     params = {k: v.detach().clone().requires_grad_()
@@ -148,20 +223,24 @@ def loss_and_grads(arch, seq=12):
     return grads
 
 
-def sim_step(arch, T=12):
+def sim_step(arch, T=12, stub_len=0):
     """One DSGD-momentum step of n = 3 nodes on Base-2 through the port's
     ``simulate_decentralized`` against the reference engine's step
     (``sim/engine.py:121-129``: each node's loss and gradients, their
     mean loss, then ``method.step``), node by node through the compiled
-    gradient of the loss test, on 2 sequences of ``T`` tokens per node:
-    the loss and every parameter."""
+    gradient of the loss test, on 2 sequences of ``T`` tokens per node
+    (and ``stub_len`` frames or prefix embeddings each, (n, 2, stub_len,
+    d) in the batch dict): the loss and every parameter."""
     _, cfg, jparams, _ = pair(arch)
     n, eta, B = 3, 0.05, 2
 
     def batches(step):
         b = jsynthetic.token_batches(step, batch=n * B, seq=T,
                                      vocab=cfg.vocab_size)
-        return {k: v.reshape(n, B, T) for k, v in b.items()}
+        b = {k: v.reshape(n, B, T) for k, v in b.items()}
+        for k, v in stubs(cfg, n * B, stub_len, 100 + step).items():
+            b[k] = v.reshape((n, B) + v.shape[1:])
+        return b
 
     got = simulate_decentralized(
         loss_fn=lambda p, b: TM.loss_fn(cfg, p, b)[0],
