@@ -260,7 +260,33 @@ Phases (any failure exits non-zero and prints no result line):
    (sha256 of each leaf's q and scales), the EF residuals within 2^-5
    |sim| + 2^-1 max|sim| of their tensor, and each rank's peak memory
    under the leaf-by-leaf mixer's 22.49 GiB plus (3.25 + S / 4)
-   buckets.
+   buckets.  Each rank also leaves sha256 digests of its parameters and
+   method state.
+   ``[dist-overlap]``: the ``[dist]`` cell with ``overlap=True``
+   (``dist.steps``: update and gossip group by group, 7 groups of
+   gemma3-1b): losses, the digests of parameters and momentum and the
+   bytes and messages sent equal ``[dist]``'s bit for bit; ms/step beside
+   ``[dist]``'s, and the fused-update and combine launches per rank per
+   step asserted (one grouped fused launch per group, one grouped
+   combine per bucket of a group); then one more step, whose loss
+   ``[ckpt]``'s fourth step must equal.
+   ``[ckpt]``: the ``[dist]`` cell through ``train_rank`` for 6 steps
+   with ``ckpt_dir`` and ``ckpt_every=2``: ``latest`` saved
+   asynchronously after steps 2 and 4 (one shard file per rank, the
+   reference's keys and shapes in 3 per-rank manifests), step 5 running
+   while the last save is written, the node-mean ``ckpt`` after the run;
+   its losses of steps 0-2 equal ``[dist]``'s and of step 3
+   ``[dist-overlap]``'s fourth.  A second spawn of 3 ranks loads
+   ``latest`` (step 4) into fresh (1, ...) templates and takes step 5:
+   parameters, momentum and loss equal the saving run's bit for bit.
+   The same on ``reduced()`` gemma3-1b with int8 + EF over 4 steps (a
+   save after step 2; ``ct`` and the f32 residuals restored): the
+   resumed step's parameters, state and payloads (sha256 of each leaf's
+   q and scales) equal an uninterrupted run's.  Bytes written, the step
+   thread's ms in ``save()`` (and whether the save allocated its pinned
+   buffer), the writer's seconds and the load's seconds per rank; files
+   under ``build/chip_smoke_ckpt/``, removed at the end; a disk without
+   room for them fails the phase.
    ``[failure]``: the ``[train]`` cell through the failure engine, 3
    steps per run: ``FailureModel()`` equals ``failure=None`` bit for bit
    (losses, every parameter, clocks 3); then drop 0.25, delay 2, churn
@@ -436,6 +462,14 @@ CONT_MAXP = -(-(PROMPT + CONT_NEW + CONT_K) // CONT_PAGE)      # 69 pages
 # one node each, sharing the card through gloo
 DIST_STEPS, DIST_TIMEOUT, DIST_LOSS_TOL = 3, 600.0, 1e-2
 DIST_CHECK_SLICE = 1 << 24     # elements per slice of [dist]'s check
+# [ckpt]: where its files go, the room they take (3 ranks x 4.0 GB of
+# params + momentum twice while a save swaps in, the 2.0 GB mean); the
+# saving run's steps and save period (saves after steps 2 and 4, the last
+# step resumed) and the reduced compressed run's steps (a save after step
+# 2, step 3 resumed)
+CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
+CKPT_DISK = 28 << 30
+CKPT_STEPS, CKPT_EVERY, CKPT_C_STEPS = 6, 2, 4
 DIST_PEAK_GIB = 18.73     # peak per rank of the per-tensor mixer, measured
 # peak per rank of the leaf-by-leaf compressed mixer (int8 + EF: the 4 GB
 # of f32 residuals besides), measured on the H100 before the buckets
@@ -4236,11 +4270,32 @@ def _step_spans(marks, start="step"):
     return out
 
 
-def _dist_rank(rank, device, opts, ref_paths, disp, n_leaves):
+def _tree_digest(tree) -> str:
+    """sha256 of a flat dict's (or a method state's) keys and bytes, in
+    key order; an int (``ct``) by its value."""
+    import hashlib
+
+    import torch
+    h = hashlib.sha256()
+    for k in sorted(tree):
+        v = tree[k]
+        h.update(k.encode())
+        if isinstance(v, dict):
+            h.update(_tree_digest(v).encode())
+        elif isinstance(v, torch.Tensor):
+            h.update(v.detach().reshape(-1).view(torch.uint8).cpu().numpy())
+        else:
+            h.update(repr(v).encode())
+    return h.hexdigest()
+
+
+def _dist_rank(rank, device, opts, ref_paths, disp, n_leaves, extra=0):
     """One rank of ``[dist]``: the launcher's per-rank entry
     (``train_rank``) with every kernel counter set to 0 just before and
-    read just after; then this node's parameters (and EF residuals)
-    against the simulation's, element by element, on the card."""
+    read just after, and digests of its parameters and state; then
+    (``ref_paths``) this node's parameters (and EF residuals) against the
+    simulation's, element by element, on the card; or (``extra``) that
+    many more steps through the bundle, and their losses."""
     import torch
     from repro_torch import trace
     from repro_torch.kernels import ops
@@ -4269,8 +4324,8 @@ def _dist_rank(rank, device, opts, ref_paths, disp, n_leaves):
                "quantize_ef_many-segments": quantize_ef_many,
                "quantized_gossip_mix_many-segments":
                    quantized_gossip_mix_many}
-    digests = []
-    real = _record_payloads(ops, digests, n_leaves if opts.compress else 0,
+    payloads = []
+    real = _record_payloads(ops, payloads, n_leaves if opts.compress else 0,
                             1)
     for c in counters.values():
         c.launches = 0
@@ -4296,6 +4351,24 @@ def _dist_rank(rank, device, opts, ref_paths, disp, n_leaves):
         on_card &= all(v.device == device for v in res.state["ef"].values())
     params, ef, ct = res.params, res.state.get("ef"), res.state.get("ct")
     losses, sent = res.losses, dict(res.bundle.mixer.stats)
+    digests = {"params": _tree_digest(params),
+               "state": _tree_digest(res.state)}
+    if extra:
+        from repro_torch.configs import get_config
+        from repro_torch.launch.train import rank_batch
+        cfg = get_config(opts.arch)
+        if opts.reduced:
+            cfg = cfg.reduced()
+        p, o, more = res.params, res.state, []
+        del params, res.params, res.state
+        for step in range(opts.steps, opts.steps + extra):
+            p, o, loss = res.bundle.step_fn(
+                p, o, rank_batch(cfg, opts, step, TRAIN_N, rank, device),
+                step)
+            more.append(float(loss))
+        digests["extra"] = {"losses": more}
+        params = p
+        del p, o
     # the momentum and the mixer's buffers go before the check: the three
     # ranks share the card, and one still training needs its room
     del res
@@ -4328,21 +4401,23 @@ def _dist_rank(rank, device, opts, ref_paths, disp, n_leaves):
                 del s, diff, tol, pos
         return worst
 
-    ref = torch.load(ref_paths[rank], mmap=True)
-    checks = {"params": compare(params, ref["params"],
-                                {k: 2.0 ** -1 * v for k, v in disp.items()})}
-    if "ef" in ref:
-        checks["ef"] = compare(
-            ef, ref["ef"],
-            {k: 2.0 ** -1 * float(v.float().abs().max())
-             for k, v in ref["ef"].items()})
-    del ref
+    checks = {}
+    if ref_paths is not None:
+        ref = torch.load(ref_paths[rank], mmap=True)
+        checks["params"] = compare(
+            params, ref["params"], {k: 2.0 ** -1 * v for k, v in disp.items()})
+        if "ef" in ref:
+            checks["ef"] = compare(
+                ef, ref["ef"],
+                {k: 2.0 ** -1 * float(v.float().abs().max())
+                 for k, v in ref["ef"].items()})
+        del ref
     check_peak = torch.cuda.max_memory_allocated(device)
     return {"rank": rank, "device": str(device), "on_card": on_card,
             "losses": losses, "launches": launches, "peak": peak,
             "check_peak": check_peak, "reserved": reserved, "wall": wall,
             "spans": spans, "sent": sent, "ct": ct, "digests": digests,
-            "checks": checks}
+            "payloads": payloads, "checks": checks}
 
 
 def phase_dist(torch, dev, card, compression=None):
@@ -4352,7 +4427,8 @@ def phase_dist(torch, dev, card, compression=None):
     launcher's per-rank entry; with ``compression``, ``[dist-compress]``.
     The simulation engine on the same parameters and batches, run here
     first, is the oracle.  Returns the gossip kernels' launch counts
-    over all ranks by phase."""
+    over all ranks by phase, and what the later phases hold against this
+    run: its options, the tensors' sizes and each rank's results."""
     from repro_torch.compress import reference_leaves
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import token_batches
@@ -4385,6 +4461,7 @@ def phase_dist(torch, dev, card, compression=None):
         [rows_bytes([init[k][None] for k in g], CHUNK) for g in leaves],
         BUCKET_BYTES))
     numel = {k: v.numel() for k, v in init.items() if v.is_floating_point()}
+    shapes = {k: list(v.shape) for k, v in init.items()}
     per_node, sim_digests = [], []
 
     def loss_fn(p, b):
@@ -4533,12 +4610,12 @@ def phase_dist(torch, dev, card, compression=None):
                 fails.append(f"rank {r} {what}: {c['violations']} elements "
                              f"over tolerance")
         if compression:
-            same = [d[0] for d in res["digests"]] \
+            same = [d[0] for d in res["payloads"]] \
                 == [d[r] for d in sim_digests]
             print(f"{tag} rank {r} step 0 payloads (q, scale) of "
-                  f"{len(res['digests'])} reference leaves equal the "
+                  f"{len(res['payloads'])} reference leaves equal the "
                   f"simulation's rows of node {r} bit for bit: {same}")
-            if not same or len(res["digests"]) != len(leaves):
+            if not same or len(res["payloads"]) != len(leaves):
                 fails.append(f"rank {r} step 0 payloads differ from the "
                              f"simulation's")
             if res["ct"] != DIST_STEPS:
@@ -4593,7 +4670,7 @@ def phase_dist(torch, dev, card, compression=None):
                     total["quantized_gossip_mix_many-segments"],
                 pre + "quantize_ef_many": total["quantize_ef_many"],
                 pre + "quantize_ef_many-segments":
-                    total["quantize_ef_many-segments"]}
+                    total["quantize_ef_many-segments"]}, None
     print(f"{tag} combine launches {total['gossip_mix_many']} = {buckets} "
           f"buckets of at most {BUCKET_BYTES >> 20} MiB x {DIST_STEPS} steps "
           f"x {TRAIN_N} ranks, over {len(numel)} tensors per round; peak "
@@ -4602,9 +4679,359 @@ def phase_dist(torch, dev, card, compression=None):
           f"bound "
           f"{peak_bound / 2**30:.2f} GiB = {DIST_PEAK_GIB} GiB (the "
           f"per-tensor mixer's) + (S + 1 = {slots + 1}) x the cap")
-    return {pre + "gossip_mix": total["gossip_mix_many"]
-            + total["gossip_mix"],
-            pre + "gossip_mix_stacked": total["gossip_mix_stacked"]}
+    return ({pre + "gossip_mix": total["gossip_mix_many"]
+             + total["gossip_mix"],
+             pre + "gossip_mix_stacked": total["gossip_mix_stacked"]},
+            {"opts": opts, "numel": numel, "shapes": shapes,
+             "results": results})
+
+
+def phase_dist_overlap(torch, dev, card, seq):
+    """``[dist-overlap]``: the ``[dist]`` cell with ``overlap=True``
+    through the launcher's per-rank entry, held bit for bit against
+    ``[dist]``'s run (``seq``, from :func:`phase_dist`); then one more
+    overlapped step per rank.  Returns each rank's results."""
+    from repro_torch.dist.gossip import BUCKET_BYTES, plan_buckets
+    from repro_torch.dist.steps import overlap_groups
+    from repro_torch.launch.distributed import spawn_local
+
+    tag = "[dist-overlap]"
+    opts = dataclasses.replace(seq["opts"], overlap=True)
+    numel = seq["numel"]
+    groups = overlap_groups(list(numel))
+    buckets = sum(len(plan_buckets([4 * numel[k] for k in g], BUCKET_BYTES))
+                  for g in groups)
+    t0 = time.perf_counter()
+    results = spawn_local(_dist_rank, TRAIN_N, backend="gloo", device=dev,
+                          timeout=DIST_TIMEOUT,
+                          args=(opts, None, None, 0, 1))
+    total_s = time.perf_counter() - t0
+    per_step = {"fused_dsgd_many": len(groups),
+                "fused_dsgd_many-tensors": len(numel),
+                "gossip_mix_many": buckets,
+                "gossip_mix_many-tensors": len(numel)}
+    names = [".".join(g[0].split(".")[:3]) if ".blocks." in g[0]
+             else g[0].split(".")[0] for g in groups]
+    print(f"{tag} gemma3-1b full width, {TRAIN_N} gloo ranks on {dev}, "
+          f"overlap=True: {len(groups)} groups (output end first: "
+          f"{', '.join(names)}), {buckets} buckets; {DIST_STEPS} + 1 steps; "
+          f"spawn to join {total_s:.1f}s")
+    fails = []
+    for res, base in zip(results, seq["results"]):
+        r = res["rank"]
+        want = {k: v * DIST_STEPS for k, v in per_step.items()}
+        got = {k: res["launches"][k] for k in want}
+        same = {"losses": res["losses"] == base["losses"],
+                "params": res["digests"]["params"]
+                == base["digests"]["params"],
+                "state": res["digests"]["state"] == base["digests"]["state"],
+                "sent": res["sent"] == base["sent"],
+                "flash": res["launches"]["flash"] == base["launches"]["flash"]}
+        if not all(same.values()):
+            fails.append(f"rank {r} differs from [dist]: {same}")
+        if got != want:
+            fails.append(f"rank {r} launches {got}, expected {want}")
+        ms = statistics.median(sum(s.values()) for s in res["spans"][1:])
+        base_ms = statistics.median(sum(s.values())
+                                    for s in base["spans"][1:])
+        print(f"{tag} rank {r} {card}: {ms:.1f} ms/step overlapped, "
+              f"[dist] {base_ms:.1f} in this run (medians of steps "
+              f"1-{DIST_STEPS - 1}, CUDA events), x{ms / base_ms:.3f}; "
+              f"equal to [dist] bit for bit: {same}; per step: row 3 "
+              f"{got['fused_dsgd_many'] // DIST_STEPS} grouped fused "
+              f"launches, row 5 {got['gossip_mix_many'] // DIST_STEPS} "
+              f"grouped combines ([dist]: "
+              f"{base['launches']['fused_dsgd_many'] // DIST_STEPS} and "
+              f"{base['launches']['gossip_mix_many'] // DIST_STEPS}); peak "
+              f"{res['peak'] / 2**30:.2f} GiB ([dist] "
+              f"{base['peak'] / 2**30:.2f}); step {DIST_STEPS} loss "
+              f"{res['digests']['extra']['losses'][0]:.4f}")
+    if fails:
+        raise SystemExit(f"{tag} failed:\n" + "\n".join(fails))
+    return results
+
+
+def _record_all_payloads(ops, digests):
+    """Wrap ``ops.quantize_payload_many`` so that every payload it makes
+    leaves its digest in ``digests``; returns the function to restore."""
+    real = ops.quantize_payload_many
+
+    def recording(xs, errs=None, *, fmt, key, row_offsets):
+        out = real(list(xs), errs, fmt=fmt, key=key, row_offsets=row_offsets)
+        digests.extend(_payload_digest(q, sc) for q, sc in zip(*out[:2]))
+        return out
+
+    ops.quantize_payload_many = recording
+    return real
+
+
+def _kernel_launches() -> dict:
+    """The launch counters of the kernels on ``[ckpt]``'s paths."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.fused_dsgd import fused_dsgd_many
+    from repro_torch.kernels.gossip_mix import gossip_mix_slots_many
+    from repro_torch.kernels.quantized_gossip import (
+        quantize_ef_many, quantized_gossip_mix_many)
+    return {"flash": flash_attention_fwd.launches,
+            "fused_dsgd_many": fused_dsgd_many.launches,
+            "gossip_mix_many": gossip_mix_slots_many.launches,
+            "quantize_ef_many": quantize_ef_many.launches,
+            "quantized_gossip_mix_many": quantized_gossip_mix_many.launches}
+
+
+def _launched(before: dict) -> dict:
+    return {k: v - before[k] for k, v in _kernel_launches().items()}
+
+
+def _ckpt_rank(rank, device, full, comp, resume):
+    """One rank of ``[ckpt]``.  First spawn (``resume=False``): the
+    ``[dist]`` cell through ``train_rank`` saving "latest" (``full``),
+    its losses, digests, save records and step spans; then reduced
+    gemma3-1b with int8 + EF, recording every payload, without saves and
+    as ``comp`` saving "latest".  Second spawn: each "latest" loaded into
+    fresh templates at this rank's rows, and the steps after it through
+    a new bundle."""
+    import torch
+    from repro_torch import trace
+    from repro_torch.checkpoint import load_pytree
+    from repro_torch.configs import get_config
+    from repro_torch.dist.steps import make_train_step
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import rank_batch, train_rank
+    from repro_torch.models import model as M
+    from repro_torch.sim.engine import node_stack
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": rank}
+    if not resume:
+        t0 = time.perf_counter()
+        before = _kernel_launches()
+        with trace.cuda_marks() as marks:
+            res = train_rank(full, device)
+            torch.cuda.synchronize()
+        out["full"] = {"losses": res.losses, "saves": res.checkpoints,
+                       "launches": _launched(before),
+                       "wall": time.perf_counter() - t0,
+                       "spans": _step_spans(marks),
+                       "params": _tree_digest(res.params),
+                       "state": _tree_digest(res.state)}
+        del res, marks
+        gc.collect()
+        torch.cuda.empty_cache()
+        for name, opts in (("uninterrupted", dataclasses.replace(
+                comp, ckpt_dir=None, ckpt_every=0)), ("saved", comp)):
+            payloads = []
+            real = _record_all_payloads(ops, payloads)
+            before = _kernel_launches()
+            try:
+                res = train_rank(opts, device)
+                torch.cuda.synchronize()
+            finally:
+                ops.quantize_payload_many = real
+            out[name] = {"losses": res.losses, "payloads": payloads,
+                         "launches": _launched(before),
+                         "params": _tree_digest(res.params),
+                         "state": _tree_digest(res.state),
+                         "ct": res.state["ct"]}
+            del res
+        return out
+    n = TRAIN_N
+    for name, opts in (("full", full), ("comp", comp)):
+        cfg = get_config(opts.arch)
+        dtype = torch.bfloat16
+        if opts.reduced:
+            cfg, dtype = cfg.reduced(), torch.float32
+        bundle = make_train_step(cfg, None, topology=opts.topology, k=opts.k,
+                                 method_name=opts.method, eta=opts.eta,
+                                 param_dtype=dtype, remat=opts.remat,
+                                 compression=opts.compress)
+        fresh = node_stack(M.init(cfg, seed=1, dtype=dtype,
+                                  device=device).state_dict(), 1, device)
+        template = {"params": fresh, "opt": bundle.method.init(fresh),
+                    "step": 0}
+        del fresh
+        t0 = time.perf_counter()
+        got = load_pytree(template, opts.ckpt_dir, "latest", rank=rank)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        del template
+        params, opt = got["params"], got["opt"]
+        ct = opt.get("ct")
+        payloads, losses = [], []
+        real = _record_all_payloads(ops, payloads)
+        before = _kernel_launches()
+        try:
+            for step in range(got["step"] + 1, opts.steps):
+                params, opt, loss = bundle.step_fn(
+                    params, opt, rank_batch(cfg, opts, step, n, rank,
+                                            device), step)
+                losses.append(float(loss))
+            torch.cuda.synchronize()
+        finally:
+            ops.quantize_payload_many = real
+        out[name] = {"step": got["step"], "loaded_ct": ct, "load_s": load_s,
+                     "launches": _launched(before),
+                     "losses": losses, "payloads": payloads,
+                     "params": _tree_digest(params),
+                     "state": _tree_digest(opt), "ct": opt.get("ct")}
+        del got, params, opt, bundle
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.iterdir() if f.is_file())
+
+
+def phase_ckpt(torch, dev, card, seq, overlapped):
+    """``[ckpt]``: async checkpoints of the ``[dist]`` cell and a resume
+    by a second spawn of ranks, bit for bit (see the module's docstring);
+    ``seq`` is ``[dist]``'s run, ``overlapped`` ``[dist-overlap]``'s
+    ranks, whose extra step the saving run's fourth must equal."""
+    import shutil
+
+    from repro_torch.compress import CompressionConfig
+    from repro_torch.compress import reference_leaves
+    from repro_torch.launch.distributed import spawn_local
+
+    tag = "[ckpt]"
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(CKPT_DIR).free
+    if free < CKPT_DISK:
+        raise SystemExit(f"{tag} failed: the disk under {CKPT_DIR} has "
+                         f"{free / 2**30:.1f} GiB free; the phase writes up "
+                         f"to {CKPT_DISK / 2**30:.0f} GiB")
+    full = dataclasses.replace(seq["opts"], steps=CKPT_STEPS,
+                               ckpt_dir=str(CKPT_DIR / "full"),
+                               ckpt_every=CKPT_EVERY)
+    comp = dataclasses.replace(
+        seq["opts"], reduced=True, remat=False, steps=CKPT_C_STEPS,
+        seq=64, compress=CompressionConfig(
+            codec=COMPRESS_CODEC, chunk=CHUNK, error_feedback=True,
+            seed=0).to_json(),
+        ckpt_dir=str(CKPT_DIR / "comp"), ckpt_every=CKPT_EVERY)
+    # the reference's schedule: a save after step s when s % every == 0
+    saved_at = [s for s in range(1, CKPT_STEPS) if s % CKPT_EVERY == 0]
+    assert saved_at[-1] < CKPT_STEPS - 1 and (CKPT_C_STEPS - 2) \
+        % CKPT_EVERY == 0, "a step must run beside the last save"
+    fails = []
+    try:
+        t0 = time.perf_counter()
+        first = spawn_local(_ckpt_rank, TRAIN_N, backend="gloo", device=dev,
+                            timeout=DIST_TIMEOUT, args=(full, comp, False))
+        first_s = time.perf_counter() - t0
+        latest = CKPT_DIR / "full" / "latest"
+        mean_dir = CKPT_DIR / "full" / "ckpt"
+        manifests = sorted(p.name for p in latest.glob("manifest-p*.json"))
+        with open(latest / "manifest.json") as f:
+            leaves = json.load(f)["leaves"]
+        shapes = seq["shapes"]
+        want_leaves = 2 * len(reference_leaves(list(shapes))) + 1
+        blocks = len({k.split(".")[2] for k in shapes
+                      if k.startswith("stack.blocks.")})
+        wq = leaves["params/stack/blocks/0/attn/wq/w"]
+        shapes_ok = (
+            leaves["params/embed/table"]["shape"]
+            == [TRAIN_N, *shapes["embed.table"]]
+            and wq["shape"] == [TRAIN_N, blocks,
+                                *shapes["stack.blocks.0.0.attn.wq.w"]]
+            and leaves["opt/u/final_norm/scale"]["shape"]
+            == [TRAIN_N, *shapes["final_norm.scale"]]
+            and leaves["step"]["shape"] == []
+            and wq["shards"][0]["stored_dtype"] == (
+                None if full.reduced else "bfloat16"))
+        print(f"{tag} latest: {manifests}, {len(leaves)} leaves "
+              f"(the reference's keys: params/..., opt/u/..., step; "
+              f"{want_leaves} expected), shapes as the reference's: "
+              f"{shapes_ok}; the node-mean ckpt {_dir_bytes(mean_dir)} bytes")
+        if manifests != [f"manifest-p{r}.json" for r in range(TRAIN_N)] \
+                or len(leaves) != want_leaves or not shapes_ok:
+            fails.append("latest's manifests, keys or shapes are not the "
+                         "reference's")
+        t0 = time.perf_counter()
+        second = spawn_local(_ckpt_rank, TRAIN_N, backend="gloo", device=dev,
+                             timeout=DIST_TIMEOUT, args=(full, comp, True))
+        second_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    print(f"{tag} gemma3-1b full width, {TRAIN_N} gloo ranks on {dev}, "
+          f"ckpt_every={CKPT_EVERY} over {CKPT_STEPS} steps: spawn to join "
+          f"{first_s:.1f}s; the resume (a second spawn, one step) "
+          f"{second_s:.1f}s")
+    for a, b, base, ovl in zip(first, second, seq["results"], overlapped):
+        r = a["rank"]
+        fa, fb = a["full"], b["full"]
+        extra = ovl["digests"]["extra"]
+        same_run = {
+            "losses 0-2 as [dist]'s":
+                fa["losses"][:DIST_STEPS] == base["losses"],
+            "loss 3 as [dist-overlap]'s":
+                fa["losses"][DIST_STEPS:DIST_STEPS + 1] == extra["losses"]}
+        same_resume = {"step": fb["step"] == saved_at[-1],
+                       "loss": fb["losses"] == fa["losses"][-1:],
+                       "params": fb["params"] == fa["params"],
+                       "state": fb["state"] == fa["state"]}
+        if not all(same_run.values()):
+            fails.append(f"rank {r}: the saving run differs from [dist]: "
+                         f"{same_run}")
+        if not all(same_resume.values()):
+            fails.append(f"rank {r}: the resumed step differs from the "
+                         f"saving run's: {same_resume}")
+        saves = fa["saves"]
+        if [s["name"] for s in saves] != ["latest"] * len(saved_at):
+            fails.append(f"rank {r} saves {saves}")
+        per_step = {k: base["launches"][k] // DIST_STEPS
+                    for k in ("flash", "fused_dsgd_many", "gossip_mix_many")}
+        if {k: fa["launches"][k] for k in per_step} \
+                != {k: v * CKPT_STEPS for k, v in per_step.items()} \
+                or {k: fb["launches"][k] for k in per_step} != per_step:
+            fails.append(f"rank {r} launches {fa['launches']} and, resumed, "
+                         f"{fb['launches']}; [dist]'s per step {per_step}")
+        ms = [sum(s.values()) for s in fa["spans"]]
+        print(f"{tag} rank {r} {card}: saves after steps "
+              f"{' and '.join(map(str, saved_at))}: "
+              + "; ".join(f"{s['bytes'] / 1e9:.3f} GB, {s['save_ms']:.1f} ms "
+                          f"in save() on the step's thread ("
+                          f"{'new' if s['new_buffer'] else 'reused'} host "
+                          f"buffer), writer {s['write_s']:.2f} s"
+                          for s in saves)
+              + f"; ms/step {[round(x, 1) for x in ms]} (steps "
+              f"0-{CKPT_STEPS - 1}, CUDA events; [dist] "
+              f"{[round(sum(s.values()), 1) for s in base['spans']]}); "
+              f"load {fb['load_s']:.2f} s; launches in the saving run "
+              f"{fa['launches']}, in the resumed step {fb['launches']}; "
+              f"equal bit for bit: {same_run}; the resumed step "
+              f"{CKPT_STEPS - 1} equals the saving run's: {same_resume}")
+        u, s_, cb = a["uninterrupted"], a["saved"], b["comp"]
+        k = len(cb["payloads"])
+        same_c = {"saving run": s_["losses"] == u["losses"]
+                  and s_["params"] == u["params"]
+                  and s_["state"] == u["state"],
+                  "loaded ct": cb["loaded_ct"] == CKPT_C_STEPS - 1,
+                  "ct": cb["ct"] == u["ct"] == CKPT_C_STEPS,
+                  "loss": cb["losses"] == u["losses"][-1:],
+                  "params": cb["params"] == u["params"],
+                  "state (u, ef, ct)": cb["state"] == u["state"],
+                  "payloads": k > 0 and cb["payloads"] == u["payloads"][-k:]}
+        print(f"{tag} rank {r} reduced int8 + EF: resumed at step "
+              f"{cb['step'] + 1} of {CKPT_C_STEPS}, {k} payloads of the "
+              f"step, launches {cb['launches']} (uninterrupted, "
+              f"{CKPT_C_STEPS} steps: {u['launches']}); equal to the "
+              f"uninterrupted run bit for bit: {same_c}")
+        if not (cb["launches"]["quantize_ef_many"]
+                and cb["launches"]["quantized_gossip_mix_many"]):
+            fails.append(f"rank {r}: the compressed resume launched "
+                         f"{cb['launches']}")
+        if not all(same_c.values()):
+            fails.append(f"rank {r}: the compressed resume differs: "
+                         f"{same_c}")
+    total = sum(s["bytes"] for a in first for s in a["full"]["saves"])
+    print(f"{tag} {total / 1e9:.3f} GB written by {TRAIN_N} ranks in "
+          f"{len(saved_at)} saves of latest")
+    if fails:
+        raise SystemExit(f"{tag} failed:\n" + "\n".join(fails))
 
 
 def phase_consensus(torch, dev):
@@ -4831,12 +5258,17 @@ def main() -> None:
     lap("[encdec-train] [vlm-train]")
     launches.update(phase_remat(torch, dev, card))
     lap("[remat]")
-    launches.update(phase_dist(torch, dev, card))
+    dist_launches, seq = phase_dist(torch, dev, card)
+    launches.update(dist_launches)
     launches.update(phase_dist(
         torch, dev, card,
         compression=CompressionConfig(codec=COMPRESS_CODEC, chunk=CHUNK,
-                                      error_feedback=True, seed=0)))
+                                      error_feedback=True, seed=0))[0])
     lap("[dist] [dist-compress]")
+    overlapped = phase_dist_overlap(torch, dev, card, seq)
+    lap("[dist-overlap]")
+    phase_ckpt(torch, dev, card, seq, overlapped)
+    lap("[ckpt]")
     launches.update(phase_failure(torch, dev, card))
     sweep_launches, sweep_kernels = phase_sweep(torch, dev, card)
     launches.update(sweep_launches)

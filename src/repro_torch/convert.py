@@ -15,7 +15,10 @@ any other.  An encoder-decoder's encoder stack
 is split the same way as the decoder's.  Weight
 orientation is the same on both sides, so each leaf is a copy.  Paged
 KV caches (page pools) cross the same way, in both directions
-(:func:`paged_cache_from_jax`, :func:`paged_cache_to_numpy`).  The
+(:func:`paged_cache_from_jax`, :func:`paged_cache_to_numpy`).  The way
+back, :func:`tree_to_jax`, stacks the blocks again (:func:`jax_leaves`
+names each of the reference's leaves and the port keys it stacks); the
+checkpoint engine writes the reference's keys and shapes through it.  The
 distributed runtime holds one node per rank: :func:`rank_slice` cuts
 rank r's ``(1, ...)`` slice out of a node-stacked tree or method state,
 and :func:`stack_ranks` puts the ranks' slices back together.
@@ -71,6 +74,76 @@ def tree_from_jax(tree, *, node_axis: bool = False) -> dict:
         for b in range(arr.shape[axis]):
             out[f"{head}.{b}.{pos}.{rest}"] = _to_torch(
                 np.take(arr, b, axis=axis))
+    return out
+
+
+def jax_leaves(keys) -> list[tuple[str, list[str], bool]]:
+    """The reference's leaves of a flat dict's keys, in the order first
+    met: each leaf's tree path joined by dots, the port keys it holds
+    (a pattern block's tensors in block order) and whether they are
+    stacked along a ``num_blocks`` axis.  ``stack.blocks.<b>.<pos>.…``
+    becomes the path ``stack.blocks.<pos>.…``; any other key is a leaf of
+    its own."""
+    leaves: dict[str, dict] = {}
+    for k in keys:
+        m = _BLOCKS.match(k)
+        path = k if m is None else f"{m[1]}.{m[3]}"
+        leaves.setdefault(path, {})[0 if m is None else int(m[2])] = k
+    out = []
+    for path, blocks in leaves.items():
+        stacked = _BLOCKS.match(blocks[min(blocks)]) is not None
+        if stacked and sorted(blocks) != list(range(len(blocks))):
+            raise ValueError(f"{path}: blocks {sorted(blocks)} are not "
+                             f"0..{len(blocks) - 1}")
+        out.append((path, [blocks[b] for b in sorted(blocks)], stacked))
+    return out
+
+
+#: the float dtypes numpy has no name for, and the int type of their width
+BIT_VIEWS = {torch.bfloat16: torch.int16, torch.float8_e4m3fn: torch.uint8,
+             torch.float8_e5m2: torch.uint8}
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A CPU copy of ``t``; bf16 and fp8 as their bits, a same-width
+    unsigned int (numpy has no such dtype without ``ml_dtypes``)."""
+    t = t.detach().cpu()
+    if t.dtype in BIT_VIEWS:
+        return t.view(BIT_VIEWS[t.dtype]).numpy().view(
+            np.dtype(f"u{t.element_size()}"))
+    return t.numpy()
+
+
+def tree_to_jax(flat: dict, *, node_axis: bool = False) -> dict:
+    """The inverse of :func:`tree_from_jax`: the reference's pytree of
+    numpy arrays from a flat dict of tensors (dicts, and lists where a
+    path's part is an index).  The pattern blocks are stacked back along
+    their ``num_blocks`` axis (axis 1 with ``node_axis=True``, after the
+    node axis; else 0).  bf16 and fp8 leaves come back as their bits
+    (uint16, uint8): view them as ``ml_dtypes``' types where it is at
+    hand."""
+    axis = 1 if node_axis else 0
+    tree: dict = {}
+    for path, keys, stacked in jax_leaves(flat):
+        arr = (np.stack([_to_numpy(flat[k]) for k in keys], axis=axis)
+               if stacked else _to_numpy(flat[keys[0]]))
+        node = tree
+        parts = path.split(".")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = arr
+    return _lists(tree)
+
+
+def _lists(tree):
+    """Dicts whose keys are all indices 0..k-1 as lists, as the
+    reference's layer lists are."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _lists(v) for k, v in tree.items()}
+    if out and all(k.isdigit() for k in out) \
+            and sorted(map(int, out)) == list(range(len(out))):
+        return [out[str(i)] for i in range(len(out))]
     return out
 
 

@@ -54,9 +54,16 @@ tensors in place, as ``compress.compressed_dense_mix`` does.
 
 Messages travel as bytes.  Under the ``gloo`` backend, whose send and
 receive read host memory, a message on the card is staged through a
-pinned host buffer (a copy out before the send, a copy in after the
-receive); ``nccl`` moves card memory directly.  The combine runs where
-the tensors are.
+pinned host buffer (a copy out on a side stream before the send, a copy
+in after the receive); ``nccl`` moves card memory directly.  The combine
+runs where the tensors are.
+
+The uncompressed mixer also comes in two halves, for the overlapped
+train step (``dist.steps``): ``mixer.issue(tree, r)`` posts every
+exchange of the round and returns at once, and ``mixer.complete(handle)``
+waits for them and combines, bucket by bucket, into what ``mixer(tree,
+r)`` returns, bit for bit, with the same messages.  Until it completes,
+a handle holds all its buckets' buffers.
 """
 from __future__ import annotations
 
@@ -110,34 +117,70 @@ def _as_bytes(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(-1).view(torch.uint8)
 
 
+class _Pending:
+    """One slot's messages in flight: the received buffers, and until
+    :meth:`_Wire.complete` the works, the host copies to come in and the
+    buffers the sends read."""
+
+    def __init__(self, recvs, works, copy_in, keep):
+        self.recvs, self.works = recvs, works
+        self.copy_in, self.keep = copy_in, keep
+
+
 class _Wire:
     """This rank's point-to-point transport: one slot's messages per
-    call, counted in ``stats``."""
+    call, counted in ``stats``, in two halves.  :meth:`issue` posts the
+    sends and receives and returns at once; :meth:`complete` waits for
+    them.  Under gloo a message on the card is staged through pinned host
+    memory: the copies out run on a side stream, one event each, and the
+    host waits for a message's copy just before it posts the send (gloo
+    reads host memory as soon as it is given it); the copies in follow
+    the receives, on the current stream.  Every rank issues its slots in
+    the same order, and gloo matches a pair's messages in that order."""
 
     def __init__(self, group):
         self.group = group
         self.stage = dist.get_backend(group) == "gloo"
         self.stats = {"messages": 0, "bytes": 0}
+        self._side = None
 
-    def exchange(self, tensors: list, slot: _Slot) -> list:
-        """Send ``tensors`` to the slot's peer and receive their like from
-        its source, zeros where this rank receives nothing."""
+    def _staged(self, t: torch.Tensor):
+        """``t``'s bytes on pinned host memory, copied on the side stream;
+        returns the host buffer and the copy's event."""
+        if self._side is None:
+            self._side = torch.cuda.Stream(t.device)
+        cur = torch.cuda.current_stream(t.device)
+        self._side.wait_stream(cur)
+        host = torch.empty(t.shape, dtype=torch.uint8, pin_memory=True)
+        with torch.cuda.stream(self._side):
+            host.copy_(t, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self._side)
+        t.record_stream(self._side)
+        return host, done
+
+    def issue(self, tensors: list, slot: _Slot) -> _Pending:
+        """Post the sends of ``tensors`` to the slot's peer and the
+        receives of their like from its source (zeros where this rank
+        receives nothing)."""
         if slot.recv_from is None:
             recvs = [torch.zeros_like(t) for t in tensors]
         else:
             recvs = [torch.empty_like(t) for t in tensors]
-        p2p, copy_in = [], []
+        p2p, copy_in, keep = [], [], []
         if slot.send_to is not None:
-            for t in tensors:
-                b = _as_bytes(t.contiguous())
-                if self.stage and b.is_cuda:
-                    host = torch.empty(b.shape, dtype=torch.uint8,
-                                       pin_memory=True)
-                    b = host.copy_(b)       # waits for the card
+            out = [_as_bytes(t.contiguous()) for t in tensors]
+            if self.stage and out and out[0].is_cuda:
+                out = [self._staged(b) for b in out]
+                for host, done in out:
+                    done.synchronize()
+                out = [host for host, _ in out]
+            for b in out:
                 p2p.append(dist.P2POp(dist.isend, b, slot.send_to,
                                       self.group))
                 self.stats["messages"] += 1
                 self.stats["bytes"] += b.numel()
+            keep = out
         if slot.recv_from is not None:
             for r in recvs:
                 b = _as_bytes(r)
@@ -148,12 +191,22 @@ class _Wire:
                     b = host
                 p2p.append(dist.P2POp(dist.irecv, b, slot.recv_from,
                                       self.group))
-        if p2p:
-            for work in dist.batch_isend_irecv(p2p):
-                work.wait()
-        for b, host in copy_in:
-            b.copy_(host)
-        return recvs
+        works = dist.batch_isend_irecv(p2p) if p2p else []
+        return _Pending(recvs, works, copy_in, keep)
+
+    def complete(self, pending: _Pending) -> list:
+        """Wait for an issued slot; returns its received tensors."""
+        for work in pending.works:
+            work.wait()
+        for b, host in pending.copy_in:
+            b.copy_(host, non_blocking=True)
+        pending.works = pending.copy_in = pending.keep = None
+        return pending.recvs
+
+    def exchange(self, tensors: list, slot: _Slot) -> list:
+        """Send ``tensors`` to the slot's peer and receive their like from
+        its source, zeros where this rank receives nothing."""
+        return self.complete(self.issue(tensors, slot))
 
 
 def make_gossip_mixer(group, plan: SchedulePlan, *, flatten: bool = False,
@@ -194,41 +247,73 @@ def make_gossip_mixer(group, plan: SchedulePlan, *, flatten: bool = False,
     wire = _Wire(group)
     cap = BUCKET_BYTES
 
-    def slots(work: torch.Tensor, rnd: _Round) -> list:
-        """The work buffer and what each slot of the round brings."""
-        trace.mark("exchange")
-        return [work, *(wire.exchange([work], slot)[0]
-                        for slot in rnd.slots)]
-
-    def mixer(tree: dict, r: int) -> dict:
-        rnd = rounds[r % len(rounds)]
+    def parts(tree: dict) -> list:
+        """The float keys, cut into the combine's buckets (one part of
+        every key with ``flatten``)."""
         keys = [k for k, x in tree.items() if x.is_floating_point()]
-        out = dict(tree)
-        if flatten and keys:
-            flat = torch.cat([tree[k].reshape(-1).to(torch.float32)
-                              for k in keys])
-            bufs = slots(flat, rnd)
-            del flat
-            trace.mark("combine")
-            mixed = ops.gossip_mix_many([bufs], rnd.weights)[0]
+        if flatten:
+            return [keys] if keys else []
+        return [[keys[i] for i in b] for b in
+                plan_buckets([4 * tree[k].numel() for k in keys], cap)]
+
+    def issue_part(tree: dict, names: list, rnd: _Round) -> list:
+        """Each work buffer of a part, with its slots' exchanges issued."""
+        trace.mark("exchange")
+        if flatten:
+            works = [torch.cat([tree[k].reshape(-1).to(torch.float32)
+                                for k in names])]
+        else:
+            works = [tree[k].to(torch.float32) for k in names]
+        return [(w, [wire.issue([w], slot) for slot in rnd.slots])
+                for w in works]
+
+    def complete_part(tree: dict, names: list, posted: list, rnd: _Round,
+                      out: dict) -> None:
+        """Wait for a part's exchanges and combine it into ``out``."""
+        bufs = [[w, *(wire.complete(p)[0] for p in ps)] for w, ps in posted]
+        del posted
+        trace.mark("combine")
+        if flatten:
+            mixed = ops.gossip_mix_many(bufs, rnd.weights)[0]
             del bufs
             start = 0
-            for k in keys:
+            for k in names:
                 x = tree[k]
                 out[k] = mixed[start:start + x.numel()].reshape(
                     x.shape).to(x.dtype)
                 start += x.numel()
-            return out
-        for bucket in plan_buckets([4 * tree[k].numel() for k in keys],
-                                   cap):
-            names = [keys[i] for i in bucket]
-            work = [slots(tree[k].to(torch.float32), rnd) for k in names]
-            trace.mark("combine")
-            mixed = ops.gossip_mix_many(work, rnd.weights,
-                                        [tree[k].dtype for k in names])
-            del work
-            out.update(zip(names, mixed))
+            return
+        mixed = ops.gossip_mix_many(bufs, rnd.weights,
+                                    [tree[k].dtype for k in names])
+        del bufs
+        out.update(zip(names, mixed))
+
+    def mixer(tree: dict, r: int) -> dict:
+        rnd = rounds[r % len(rounds)]
+        out = dict(tree)
+        for names in parts(tree):      # one bucket's buffers at a time
+            complete_part(tree, names, issue_part(tree, names, rnd), rnd,
+                          out)
         return out
+
+    def issue(tree: dict, r: int):
+        """Issue round ``r``'s exchanges of ``tree`` and return at once;
+        :func:`complete` of the handle waits, combines and returns what
+        ``mixer(tree, r)`` returns, bit for bit, having sent the same
+        messages.  Until then the handle holds every bucket's buffers."""
+        rnd = rounds[r % len(rounds)]
+        return tree, rnd, [(names, issue_part(tree, names, rnd))
+                           for names in parts(tree)]
+
+    def complete(handle) -> dict:
+        tree, rnd, posted = handle
+        out = dict(tree)
+        while posted:
+            names, p = posted.pop(0)
+            complete_part(tree, names, p, rnd, out)
+        return out
+
+    mixer.issue, mixer.complete = issue, complete
 
     if ccfg is None:
         mixer.stats = wire.stats

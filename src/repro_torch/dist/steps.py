@@ -17,15 +17,23 @@ As the reference's, the step checkpoints each pattern block by default
 forward in place of keeping its activations, which the wider models need
 to train.
 
+``overlap=True`` runs the update and the gossip group by group
+(:func:`overlap_groups`), each group's exchange issued as soon as its
+inputs to the mix are final and waited on only at its combine, so the
+wire carries one group while the card and the host work on the next;
+the result is the sequential step's bit for bit (see
+:func:`make_train_step`).
+
 Not ported yet (they raise ``NotImplementedError``): tensor-parallel
-meshes (``dist/sharding.py``: one rank is one whole node here), the
-gossip/backward ``overlap`` and the serving steps ``make_prefill`` /
-``make_decode_step``.  The reference's ``embed_lookup_replicated`` and
-``batch_shapes`` lay its embedding table and batch out over the mesh's
-weight axes; a rank that holds one whole node has nothing to lay out.
+meshes (``dist/sharding.py``: one rank is one whole node here) and the
+serving steps ``make_prefill`` / ``make_decode_step``.  The reference's
+``embed_lookup_replicated`` and ``batch_shapes`` lay its embedding table
+and batch out over the mesh's weight axes; a rank that holds one whole
+node has nothing to lay out.
 """
 from __future__ import annotations
 
+from collections import deque
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -35,6 +43,7 @@ import torch.distributed as dist
 from repro_torch import trace
 from repro_torch.compress import CompressionConfig
 from repro_torch.compress import resolve as resolve_compression
+from repro_torch.convert import _BLOCKS
 from repro_torch.core.ppermute_plan import SchedulePlan
 from repro_torch.models import model as M
 from repro_torch.optim.decentralized import Method, make_method
@@ -43,6 +52,10 @@ from repro_torch.topology import (Schedule, TopologySpec, as_schedule,
                                   spec_from_cli)
 
 from .gossip import make_gossip_mixer
+
+#: groups of the overlapped step whose exchanges are in flight at once at
+#: most: a group's exchange is waited on once the next group's is issued
+OVERLAP_WINDOW = 2
 
 
 @dataclass(frozen=True)
@@ -59,6 +72,62 @@ class TrainStepBundle:
     # the gossip mixer; ``mixer.stats`` counts the messages and bytes
     # this rank sent
     mixer: Any
+    # the update and gossip run group by group (``overlap_groups``)
+    overlap: bool = False
+
+
+def overlap_groups(keys) -> list[list[str]]:
+    """The overlapped step's groups of a flat dict's keys: each pattern
+    block (``stack.blocks.<b>``, an encoder's too) is a group, and every
+    other key goes with its first part (``embed``, ``stack`` (the
+    prologue), ``final_norm``, ``lm_head``, ``mtp``, ``encoder``).  The
+    groups come output end first, the reverse of the model's order, which
+    is the order the backward finishes them in."""
+    groups: dict[str, list] = {}
+    for k in keys:
+        m = _BLOCKS.match(k)
+        groups.setdefault(f"{m[1]}.{m[2]}" if m else k.split(".", 1)[0],
+                          []).append(k)
+    return list(groups.values())[::-1]
+
+
+def _overlapped_update(method: Method, params: dict, grads: dict,
+                       opt: dict, mixer, step: int, eta: float,
+                       groups: list) -> tuple[dict, dict]:
+    """``method.step`` with ``mixer``, run group by group: each group's
+    ``mix_steps`` generator computes its tree to mix, whose exchange is
+    issued at once (``mixer.issue``); once :data:`OVERLAP_WINDOW` groups
+    are in flight the oldest is completed (``mixer.complete``), which
+    bounds the buffers held to that many groups'.  A second mix of a
+    group (gradient tracking) is issued when its first completes, so a
+    group's mixes keep their order, and every rank issues the same
+    exchanges in the same order."""
+    running: deque = deque()
+    new_p, new_s = {}, {sk: {} for sk in opt}
+
+    def finish(steps, handle):
+        try:
+            tree = steps.send(mixer.complete(handle))
+        except StopIteration as stop:
+            p_g, s_g = stop.value
+            new_p.update(p_g)
+            for sk, sv in s_g.items():
+                new_s[sk].update(sv)
+            return
+        running.append((steps, mixer.issue(tree, step)))
+
+    for keys in groups:
+        steps = method.mix_steps({k: params[k] for k in keys},
+                                 {k: grads[k] for k in keys},
+                                 {sk: {k: sv[k] for k in keys}
+                                  for sk, sv in opt.items()}, eta)
+        running.append((steps, mixer.issue(next(steps), step)))
+        while len(running) >= OVERLAP_WINDOW:
+            finish(*running.popleft())
+    while running:
+        finish(*running.popleft())
+    return ({k: new_p[k] for k in params},
+            {sk: {k: sv[k] for k in params} for sk, sv in new_s.items()})
 
 
 def make_train_step(cfg, group=None, *,
@@ -84,13 +153,34 @@ def make_train_step(cfg, group=None, *,
     flat dict of ``param_dtype`` float tensors (node axis of size 1),
     the method state, this node's batch (``{"tokens", "labels"}``,
     leading axis of size 1) and the step index, and returns the new
-    parameters, the new state and this node's loss (a 0-d tensor)."""
-    if overlap:
-        raise NotImplementedError(
-            "gossip/backward overlap is not ported to repro_torch yet; see "
-            "ROADMAP.md")
+    parameters, the new state and this node's loss (a 0-d tensor).
+
+    ``overlap=True`` (the reference's ``steps.py:110-124``): the
+    parameters and the method state split along :func:`overlap_groups`,
+    each pattern block a group (the reference's stack is one scan op and
+    one group; here each block is a module of its own), and each group
+    runs its own update and gossip chain (``_overlapped_update``): its
+    exchange is issued as soon as its update is, and waited on only once
+    the next group's is in flight.  The update and the mixing are per
+    tensor, so parameters, state and losses equal the sequential step's
+    bit for bit, and the mixer sends the same messages and bytes (with
+    ``flatten_gossip`` each group sends one flat buffer per slot, as the
+    reference's per-group mixers do: the same bytes in more messages).
+    The gradients are taken whole first: every point-to-point call stays
+    on this thread, which the backward's dispatch holds until its last
+    gradient, so the first exchange starts when the backward has been
+    issued, and the wire carries a group while the update, staging and
+    combine of the others run.  With ``compression`` it raises
+    ``ValueError``, as the reference's does (``steps.py:138-142``); a
+    one-node group has nothing to overlap and steps sequentially."""
     ccfg = resolve_compression(compression)
+    if ccfg is not None and overlap:
+        raise ValueError(
+            "overlap + compression is unsupported: the compressed "
+            "method's scalar step counter cannot be split along the "
+            "per-group overlap chains")
     n = dist.get_world_size(group)
+    overlap = overlap and n > 1
     if isinstance(topology, Schedule):
         if topology.n != n:
             raise ValueError(f"schedule built for n={topology.n} but the "
@@ -118,7 +208,11 @@ def make_train_step(cfg, group=None, *,
         losses, grads = node_grads(loss_one, params_1, batch)
         trace.mark("update")
         with torch.no_grad():
-            if ccfg is not None:
+            if overlap:
+                params_1, opt = _overlapped_update(
+                    method, params_1, grads, opt, mixer, step, eta,
+                    overlap_groups(params_1))
+            elif ccfg is not None:
                 params_1, opt = method.step(
                     params_1, grads, opt,
                     lambda tr, e, c: mixer(tr, step, e, c), eta)
@@ -130,7 +224,7 @@ def make_train_step(cfg, group=None, *,
 
     return TrainStepBundle(
         step_fn=step_fn, n_rounds=len(sched), plan=plan, spec=sched.spec,
-        compression=ccfg, method=method, mixer=mixer)
+        compression=ccfg, method=method, mixer=mixer, overlap=overlap)
 
 
 def make_prefill(*args, **kwargs):

@@ -138,15 +138,16 @@ template <typename F>
 __device__ __forceinline__ void for_each_row_chunk(const Table& t,
                                                    F&& body) {
   const int stride = t.nptr + kRowMeta;
-  const uint64_t* rec = t.w;
-  int64_t seg_first = 0;
+  // The cursor is a 32-bit segment index, and the segment's first chunk
+  // is read again from the table: carried across the chunk's body as a
+  // 64-bit value, ptxas kept it on the stack in the quantize kernel
+  // without err (8 bytes, 24 B of spill stores and loads).
+  int seg = 0;
   for (int64_t c = blockIdx.x; c < t.chunks; c += gridDim.x) {
-    int64_t end = (int64_t)rec[t.nptr + kChunkEnd];
-    while (c >= end) {
-      seg_first = end;
-      rec += stride;
-      end = (int64_t)rec[t.nptr + kChunkEnd];
-    }
+    while (c >= (int64_t)t.w[seg * stride + t.nptr + kChunkEnd]) ++seg;
+    const uint64_t* rec = t.w + seg * stride;
+    const int64_t seg_first =
+        seg ? (int64_t)rec[t.nptr + kChunkEnd - stride] : 0;
     const int64_t cols = (int64_t)rec[t.nptr + kCols];
     const int64_t rows = (int64_t)rec[t.nptr + kNumel] / cols;
     const int64_t per = rows_per_chunk(cols);

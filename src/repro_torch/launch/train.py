@@ -4,7 +4,8 @@ counterpart of ``repro/launch/train.py``).
     python -m repro_torch.launch.train --arch gemma3-1b --nproc 3 \
         --backend gloo --topology base --k 1 --method dsgdm --eta 0.01 \
         --steps 4 --batch 6 --seq 1024 [--compress int8] \
-        [--flatten-gossip] [--reduced] [--device cpu]
+        [--flatten-gossip] [--overlap] [--ckpt-dir DIR --ckpt-every N] \
+        [--reduced] [--device cpu]
 
 ``--nproc N`` starts N local ranks (``launch.distributed.spawn_local``),
 the counterpart of the reference's ``--devices N``.  Without it, the
@@ -23,13 +24,25 @@ and not with ``--reduced`` (``remat=not reduced``). Runs on the card
 unless ``--device cpu`` is given; without a card it
 exits with an error.
 
+``--overlap`` runs each step's update and gossip group by group
+(``dist.steps.make_train_step(overlap=True)``), bit for bit the
+sequential step.  With ``--ckpt-dir`` and ``--ckpt-every N`` each rank
+saves ``{"params", "opt", "step"}`` under the name ``latest`` after step
+``s`` whenever ``s and s % N == 0``, asynchronously
+(``checkpoint.AsyncCheckpointer``, one shard file per rank) while
+training goes on; after the last step it waits for the writes, and rank
+0 saves the node-mean of the parameters under the name ``ckpt``, as the
+reference's launcher does (``launch/train.py:129-151``).  There is no
+resume flag, as there is none in the reference: a run resumes from
+``checkpoint.load_pytree`` of ``latest`` and the step bundle.
+
 Not ported yet (they raise): ``--mesh-model > 1`` (tensor-parallel
-meshes), ``--production-mesh``, ``--overlap`` and ``--ckpt-dir``.
+meshes) and ``--production-mesh``.
 """
 from __future__ import annotations
 
 import argparse
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -61,6 +74,9 @@ class TrainOptions:
     flatten_gossip: bool = False
     log_every: int = 10
     remat: bool = True          # checkpoint each pattern block
+    overlap: bool = False       # update and gossip group by group
+    ckpt_dir: str | None = None
+    ckpt_every: int = 0         # save "latest" every N steps (async)
 
 
 @dataclass
@@ -69,16 +85,68 @@ class TrainResult:
     params: dict                # this node's final (1, ...) parameters
     state: dict                 # this node's final method state
     bundle: object              # the dist.steps.TrainStepBundle
+    # one record per save of this rank (``AsyncCheckpointer.stats``:
+    # name, save_ms on the step's thread, write_s, bytes)
+    checkpoints: list = field(default_factory=list)
+
+
+def rank_batch(cfg, opts: TrainOptions, step: int, n: int, me: int,
+               device) -> dict:
+    """Rank ``me``'s ``(1, b, ...)`` rows of step ``step``'s global batch
+    (``data.synthetic.token_batches``; stub patches or frames for the
+    archs with a frontend, drawn by every rank for the global batch)."""
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.models.frontends import stub_inputs
+
+    b = opts.batch // n
+    dtype = torch.float32 if opts.reduced else torch.bfloat16
+    raw = token_batches(step, batch=n * b, seq=opts.seq,
+                        vocab=cfg.vocab_size)
+    batch = {k: v.reshape(n, b, -1)[me:me + 1] for k, v in raw.items()}
+    gen = torch.Generator(device=device).manual_seed(STUB_SEED + step)
+    for k, v in stub_inputs(cfg, gen, n * b, STUB_LEN, dtype,
+                            device).items():
+        batch[k] = v.reshape((n, b) + v.shape[1:])[me:me + 1]
+    return batch
+
+
+def node_mean(params: dict, group=None) -> dict | None:
+    """The mean over the group's nodes of their ``(1, ...)`` parameters,
+    on rank 0 (None elsewhere): each tensor gathered to rank 0 in rank
+    order, summed in f32 in that order, divided by n and cast back, as
+    ``jnp.mean`` over the node axis computes it for bf16.  Run once,
+    after training; under gloo the tensors travel through host memory."""
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    host = dist.get_backend(group) == "gloo"
+    out = {} if me == 0 else None
+    for k, x in params.items():
+        x = x[0].detach()
+        if not x.is_floating_point():
+            if me == 0:
+                out[k] = x.clone()
+            continue
+        buf = x.cpu() if host else x.contiguous()
+        if me == 0:
+            acc = x.float()
+            for r in range(1, n):
+                got = torch.empty_like(buf)
+                dist.recv(got, dist.get_global_rank(group, r)
+                          if group is not None else r, group=group)
+                acc = acc + got.to(x.device).float()
+            out[k] = (acc / n).to(x.dtype)
+        else:
+            dist.send(buf, dist.get_global_rank(group, 0)
+                      if group is not None else 0, group=group)
+    return out
 
 
 def train_rank(opts: TrainOptions, device, group=None) -> TrainResult:
     """This rank's training loop, in a process that has joined the group
     (``launch.distributed.initialize``)."""
+    from repro_torch.checkpoint import AsyncCheckpointer, save_pytree
     from repro_torch.configs import get_config
-    from repro_torch.data.synthetic import token_batches
     from repro_torch.dist.steps import make_train_step
     from repro_torch.models import model as M
-    from repro_torch.models.frontends import stub_inputs
     from repro_torch.sim.engine import node_stack
 
     cfg = get_config(opts.arch)
@@ -88,13 +156,12 @@ def train_rank(opts: TrainOptions, device, group=None) -> TrainResult:
     if opts.batch % n:
         raise ValueError(f"--batch {opts.batch} does not split over {n} "
                          f"nodes")
-    b = opts.batch // n
     dtype = torch.float32 if opts.reduced else torch.bfloat16
     bundle = make_train_step(cfg, group, topology=opts.topology, k=opts.k,
                              method_name=opts.method, eta=opts.eta,
                              param_dtype=dtype, remat=opts.remat,
                              flatten_gossip=opts.flatten_gossip,
-                             compression=opts.compress)
+                             compression=opts.compress, overlap=opts.overlap)
     if me == 0:
         print(f"topology spec: {bundle.spec.to_json()} ({bundle.n_rounds} "
               f"rounds, {bundle.plan.max_slots} slot(s) per round at most)",
@@ -105,23 +172,35 @@ def train_rank(opts: TrainOptions, device, group=None) -> TrainResult:
     params = node_stack(M.init(cfg, seed=0, dtype=dtype,
                                device=device).state_dict(), 1, device)
     opt = bundle.method.init(params)
+    ckpt = (AsyncCheckpointer(opts.ckpt_dir, group=group)
+            if opts.ckpt_dir else None)
     losses = []
-    for step in range(opts.steps):
-        raw = token_batches(step, batch=n * b, seq=opts.seq,
-                            vocab=cfg.vocab_size)
-        batch = {k: v.reshape(n, b, -1)[me:me + 1] for k, v in raw.items()}
-        # every rank draws the global batch's stubs, then takes its rows
-        gen = torch.Generator(device=device).manual_seed(STUB_SEED + step)
-        for k, v in stub_inputs(cfg, gen, n * b, STUB_LEN, dtype,
-                                device).items():
-            batch[k] = v.reshape((n, b) + v.shape[1:])[me:me + 1]
-        params, opt, loss = bundle.step_fn(params, opt, batch, step)
-        losses.append(loss.detach())
-        if step % opts.log_every == 0 or step == opts.steps - 1:
-            print(f"rank {me} step {step:5d}  loss {float(loss):.4f}  "
-                  f"(round {step % bundle.n_rounds}/{bundle.n_rounds})",
-                  flush=True)
-    return TrainResult([float(x) for x in losses], params, opt, bundle)
+    try:
+        for step in range(opts.steps):
+            params, opt, loss = bundle.step_fn(
+                params, opt, rank_batch(cfg, opts, step, n, me, device),
+                step)
+            losses.append(loss.detach())
+            if step % opts.log_every == 0 or step == opts.steps - 1:
+                print(f"rank {me} step {step:5d}  loss {float(loss):.4f}  "
+                      f"(round {step % bundle.n_rounds}/{bundle.n_rounds})",
+                      flush=True)
+            if ckpt is not None and opts.ckpt_every \
+                    and step and step % opts.ckpt_every == 0:
+                # Background write; the loop keeps stepping while this
+                # snapshot streams to disk.
+                ckpt.save({"params": params, "opt": opt, "step": step},
+                          name="latest")
+    finally:
+        if ckpt is not None:
+            ckpt.close()
+    if opts.ckpt_dir:
+        avg = node_mean(params, group)
+        if me == 0:
+            print("saved:", save_pytree(avg, opts.ckpt_dir), flush=True)
+        del avg
+    return TrainResult([float(x) for x in losses], params, opt, bundle,
+                       ckpt.stats if ckpt is not None else [])
 
 
 def _spawned_rank(rank, device, opts):
@@ -169,8 +248,12 @@ def main(argv=None) -> None:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="also checkpoint (async) every N steps")
     ap.add_argument("--flatten-gossip", action="store_true")
-    ap.add_argument("--overlap", action="store_true")
+    ap.add_argument("--overlap", action="store_true",
+                    help="overlap gossip with the method update, group by "
+                         "group (bit-exact vs sequential)")
     ap.add_argument("--compress", default=None,
                     help="gossip payload codec: identity|int8|fp8|int4|"
                          "topk, or an inline CompressionConfig JSON")
@@ -178,9 +261,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     for flag, unported in (("--mesh-model > 1", args.mesh_model > 1),
-                           ("--production-mesh", args.production_mesh),
-                           ("--overlap", args.overlap),
-                           ("--ckpt-dir", args.ckpt_dir)):
+                           ("--production-mesh", args.production_mesh)):
         if unported:
             raise NotImplementedError(
                 f"{flag} is not ported to repro_torch yet; see ROADMAP.md")
@@ -189,7 +270,8 @@ def main(argv=None) -> None:
         k=args.k, method=args.method, eta=args.eta, steps=args.steps,
         batch=args.batch, seq=args.seq, compress=args.compress,
         flatten_gossip=args.flatten_gossip, log_every=args.log_every,
-        remat=not args.reduced)
+        remat=not args.reduced, overlap=args.overlap,
+        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
     rank_cfg = config_from_args(args)
     if args.nproc is None and rank_cfg.num_processes > 1:
         dev = initialize(rank_cfg, args.backend, args.device)

@@ -91,6 +91,24 @@ class Method:
     # uncompressed method (the identity codec resolves to None).  A
     # compressed method carries "ct" (and "ef") in its state.
     compression: CompressionConfig | None = None
+    # The step as a generator, for a mixing callable that completes later
+    # (``dist.steps``' overlapped step): ``mix_steps(params_n, grads_n,
+    # state, eta)`` yields each tree to mix, is sent it mixed, and returns
+    # ``(params_n, state)``; ``step`` with a callable runs the same
+    # generator (:func:`drive`).  None for the compressed methods, whose
+    # mixer takes the EF residuals and the counter too.
+    mix_steps: Callable | None = None
+
+
+def drive(steps, mixer: Callable):
+    """Run a :attr:`Method.mix_steps` generator, mixing each tree it
+    yields with ``mixer`` at once; returns what the generator returns."""
+    try:
+        tree = next(steps)
+        while True:
+            tree = steps.send(mixer(tree))
+    except StopIteration as stop:
+        return stop.value
 
 
 def _as_mixer(w_or_fn) -> Callable:
@@ -144,21 +162,28 @@ def DSGD(momentum: float = 0.0,
             [grads_n[k] for k in keys], momentum, eta, pre)
         return dict(zip(keys, half)), dict(zip(keys, u))
 
-    def step_plain(params_n, grads_n, state, W, eta):
+    def steps_plain(params_n, grads_n, state, eta):
         half = {k: x - eta * grads_n[k] for k, x in params_n.items()}
-        return _as_mixer(W)(half), state
+        return (yield half), state
+
+    def step_plain(params_n, grads_n, state, W, eta):
+        return drive(steps_plain(params_n, grads_n, state, eta),
+                     _as_mixer(W))
+
+    def steps_fused(params_n, grads_n, state, eta):
+        half, u = half_fused(params_n, grads_n, state["u"], eta, 1.0)
+        return (yield half), {"u": u}
 
     def step_fused(params_n, grads_n, state, W, eta):
         if callable(W):
-            pre, mixer = 1.0, W
-        else:       # (n, n), or (G, n, n) with a pre-scale per copy's row
-            d = torch.diagonal(W.float(), dim1=-2, dim2=-1)
-            safe = d != 0.0
-            pre = torch.where(safe, d, 1.0)
-            mixer = _as_mixer(
-                W * torch.where(safe, 1.0 / pre, 1.0).unsqueeze(-2))
-            pre = pre.reshape(-1)
-        half, u = half_fused(params_n, grads_n, state["u"], eta, pre)
+            return drive(steps_fused(params_n, grads_n, state, eta), W)
+        # (n, n), or (G, n, n) with a pre-scale per copy's row
+        d = torch.diagonal(W.float(), dim1=-2, dim2=-1)
+        safe = d != 0.0
+        pre = torch.where(safe, d, 1.0)
+        mixer = _as_mixer(W * torch.where(safe, 1.0 / pre, 1.0).unsqueeze(-2))
+        half, u = half_fused(params_n, grads_n, state["u"], eta,
+                             pre.reshape(-1))
         return mixer(half), {"u": u}
 
     def step_compressed(params_n, grads_n, state, W, eta):
@@ -179,11 +204,13 @@ def DSGD(momentum: float = 0.0,
         return mixed, new_state
 
     if ccfg is not None:
-        step = step_compressed
+        step, steps = step_compressed, None
+    elif momentum:
+        step, steps = step_fused, steps_fused
     else:
-        step = step_fused if momentum else step_plain
+        step, steps = step_plain, steps_plain
     return Method("dsgd" + (f"m{momentum}" if momentum else ""), init, step,
-                  compression=ccfg)
+                  compression=ccfg, mix_steps=steps)
 
 
 # ---------------------------------------------------------------------------
@@ -196,17 +223,20 @@ def QGDSGDm(momentum: float = 0.9, beta: float = 0.9) -> Method:
     def init(params_n):
         return {"m": _zeros_like(params_n)}
 
-    def step(params_n, grads_n, state, W, eta):
+    def steps(params_n, grads_n, state, eta):
         m = state["m"]
         half = {k: x - eta * (grads_n[k] + momentum * m[k])
                 for k, x in params_n.items()}
-        new = _as_mixer(W)(half)
+        new = yield half
         # quasi-global momentum: EMA of the realised displacement
         m = {k: beta * m[k] + (1 - beta) * (params_n[k] - new[k]) / eta
              for k in params_n}
         return new, {"m": m}
 
-    return Method("qg-dsgdm", init, step)
+    def step(params_n, grads_n, state, W, eta):
+        return drive(steps(params_n, grads_n, state, eta), _as_mixer(W))
+
+    return Method("qg-dsgdm", init, step, mix_steps=steps)
 
 
 # ---------------------------------------------------------------------------
@@ -224,19 +254,19 @@ def D2(lazy_mixing: bool = True) -> Method:
         return {"x_prev": {k: x.clone() for k, x in params_n.items()},
                 "g_prev": _zeros_like(params_n)}
 
-    def step(params_n, grads_n, state, W, eta):
-        base = _as_mixer(W)
-        mixer = base
-        if lazy_mixing:
-            def mixer(t):
-                b = base(t)
-                return {k: 0.5 * (a + b[k]) for k, a in t.items()}
+    def steps(params_n, grads_n, state, eta):
         xp, gp = state["x_prev"], state["g_prev"]
         corr = {k: 2.0 * x - xp[k] - eta * (grads_n[k] - gp[k])
                 for k, x in params_n.items()}
-        return mixer(corr), {"x_prev": params_n, "g_prev": grads_n}
+        new = yield corr
+        if lazy_mixing:
+            new = {k: 0.5 * (a + new[k]) for k, a in corr.items()}
+        return new, {"x_prev": params_n, "g_prev": grads_n}
 
-    return Method("d2", init, step)
+    def step(params_n, grads_n, state, W, eta):
+        return drive(steps(params_n, grads_n, state, eta), _as_mixer(W))
+
+    return Method("d2", init, step, mix_steps=steps)
 
 
 # ---------------------------------------------------------------------------
@@ -249,14 +279,16 @@ def GradientTracking() -> Method:
         # y, g_prev = 0 makes the first tracked direction y^1 = W g^0
         return {"y": _zeros_like(params_n), "g_prev": _zeros_like(params_n)}
 
-    def step(params_n, grads_n, state, W, eta):
-        mixer = _as_mixer(W)
+    def steps(params_n, grads_n, state, eta):
         y, gp = state["y"], state["g_prev"]
-        y = mixer({k: y[k] + g - gp[k] for k, g in grads_n.items()})
-        new = mixer({k: x - eta * y[k] for k, x in params_n.items()})
+        y = yield {k: y[k] + g - gp[k] for k, g in grads_n.items()}
+        new = yield {k: x - eta * y[k] for k, x in params_n.items()}
         return new, {"y": y, "g_prev": grads_n}
 
-    return Method("gt", init, step, mixes_per_step=2)
+    def step(params_n, grads_n, state, W, eta):
+        return drive(steps(params_n, grads_n, state, eta), _as_mixer(W))
+
+    return Method("gt", init, step, mixes_per_step=2, mix_steps=steps)
 
 
 METHOD_NAMES = ("dsgd", "dsgdm", "qg-dsgdm", "d2", "gt")

@@ -54,6 +54,11 @@ calls), at the default query start ``S - Tq`` (negative when the queries
 outnumber the keys) and at llava-next's 7 query heads per kv head, holds
 the same tolerance, its split decode equal to unsplit bit for bit; a
 decoder layer with cross-attention on the card agrees with the CPU.
+Checkpoints of CUDA tensors (bf16 as its bits) come back onto the card
+bit for bit, whole or as a rank's slice; ``save()`` returns while the
+stream is still busy, and an in-place change queued after it does not
+reach the checkpoint.  The overlapped distributed step on the card (two
+gloo ranks) equals the sequential one bit for bit.
 """
 import pytest
 import torch
@@ -1480,3 +1485,92 @@ def test_cross_attention_layer_on_the_card(card):
         torch.cuda.synchronize()
     assert flash_attention_fwd.launches == before + 2
     _assert_close(got.cpu(), want)
+
+
+def test_checkpoint_roundtrip_on_the_card(card, tmp_path):
+    """CUDA tensors through the checkpoint engine (bf16 as its bits) and
+    back onto the card, bit for bit; a node-stacked tree restores into
+    each rank's slice."""
+    from repro_torch.checkpoint import load_pytree, save_pytree
+    from repro_torch.convert import rank_slice
+    g = torch.Generator(device=card).manual_seed(8)
+    tree = {"params": {
+        "embed.table": torch.randn(3, 64, 32, generator=g, device=card),
+        "stack.blocks.0.0.w": torch.randn(3, 32, 32, generator=g,
+                                          device=card).bfloat16(),
+        "stack.blocks.1.0.w": torch.randn(3, 32, 32, generator=g,
+                                          device=card).bfloat16(),
+        "count": torch.arange(3 * 5, device=card,
+                              dtype=torch.int32).reshape(3, 5)},
+        "step": 7}
+    save_pytree(tree, str(tmp_path), node_axis=True)
+
+    def zeros(t):
+        return ({k: zeros(v) for k, v in t.items()} if isinstance(t, dict)
+                else torch.zeros_like(t) if isinstance(t, torch.Tensor)
+                else 0)
+
+    got = load_pytree(zeros(tree), str(tmp_path), node_axis=True)
+    assert got["step"] == 7
+    for k, v in tree["params"].items():
+        assert got["params"][k].device == v.device
+        assert torch.equal(_bits(got["params"][k]), _bits(v)), k
+    for r in range(3):
+        part = load_pytree(zeros(rank_slice(tree, r)), str(tmp_path),
+                           rank=r)
+        for k, v in tree["params"].items():
+            assert torch.equal(_bits(part["params"][k]), _bits(v[r:r + 1]))
+
+
+def test_checkpoint_snapshot_does_not_block_the_stream(card, tmp_path):
+    """``save()`` returns while the card is still busy with earlier work
+    (its copies are queued behind it, not waited for), and an in-place
+    change queued right after it does not reach the checkpoint."""
+    from repro_torch.checkpoint import AsyncCheckpointer, load_pytree
+    g = torch.Generator(device=card).manual_seed(9)
+    x = {"a": torch.randn(1 << 22, generator=g, device=card).bfloat16(),
+         "b": torch.randn(1 << 20, generator=g, device=card)}
+    want = {k: v.clone() for k, v in x.items()}
+    ckpt = AsyncCheckpointer(str(tmp_path))
+    ckpt.save({"w": x}, name="warm")        # the pinned buffers, once
+    ckpt.wait()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1 << 30)              # ~0.5 s of work on the stream
+    ckpt.save({"w": x}, name="snap")
+    busy = not torch.cuda.current_stream().query()
+    for v in x.values():
+        v.add_(1.0)
+    ckpt.close()
+    assert busy, "save() waited for the card"
+    assert [r["new_buffer"] for r in ckpt.stats] == [True, False]
+    got = load_pytree({"w": {k: torch.zeros_like(v) for k, v in x.items()}},
+                      str(tmp_path), "snap")["w"]
+    for k in want:
+        assert torch.equal(_bits(got[k]), _bits(want[k])), k
+
+
+def test_overlapped_step_on_the_card(card):
+    """Two gloo ranks share the card (host staging on a side stream):
+    the overlapped step equals the sequential one bit for bit, gradient
+    tracking included, with the same messages and bytes."""
+    import numpy as np
+
+    import torch_ckpt_ranks
+    from repro_torch.configs import get_config
+    from repro_torch.launch.distributed import spawn_local
+    from repro_torch.models import model as M
+    cfg = get_config("gemma3-1b").reduced(num_blocks=2)
+    params = {k: v.numpy() for k, v in M.init(
+        cfg, seed=0, dtype=torch.float32, device="cpu").state_dict().items()}
+    cases = [(m, False, ov) for m in ("dsgdm", "gt") for ov in (False, True)]
+    results = spawn_local(torch_ckpt_ranks.overlap_cases, 2,
+                          args=(params, cases, 2, 0.05, 16, 2),
+                          backend="gloo", device="cuda", timeout=300)
+    for res in results:
+        for m in ("dsgdm", "gt"):
+            seq, ovl = res[(m, False, False)], res[(m, False, True)]
+            assert ovl["losses"] == seq["losses"]
+            assert ovl["sent"] == seq["sent"]
+            for k, v in seq["params"].items():
+                assert np.array_equal(ovl["params"][k].view(np.uint8),
+                                      v.view(np.uint8)), (m, k)

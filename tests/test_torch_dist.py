@@ -36,16 +36,21 @@ reference.
   within 1e-5 (f32 sums in another order); gradient tracking mixes
   twice in a round, as the reference's ``dist/steps.py`` does.
 - The launcher's three CPU ranks equal the port's simulation engine on
-  the same parameters and batches: per-node losses within 1e-5; two
+  the same parameters and batches: per-node losses within 1e-5; with
+  ``--overlap`` its losses and bytes equal the sequential run's bit for
+  bit; ``--ckpt-dir --ckpt-every 1`` leaves a ``latest`` and a node-mean
+  ``ckpt`` that the reference's ``load_pytree`` reads; two
   processes started apart, one rank each, meet through the REPRO_*
   variables and train as one group.
 - A rank that raises fails the spawn with its traceback; the entry
   points run on CUDA unless told otherwise, and ``nccl`` with more ranks
   than cards raises before anything starts.
 """
+import os
 import re
 import subprocess
 import sys
+from dataclasses import replace
 from pathlib import Path
 
 import jax
@@ -414,11 +419,19 @@ def test_int8_sends_fewer_bytes_than_f32(ranks):
 # the launcher and the spawn helper
 # ---------------------------------------------------------------------------
 
-def test_launcher_matches_port_simulation():
-    opts = T.TrainOptions(arch="gemma3-1b", reduced=True, steps=3, batch=6,
-                          seq=16, log_every=1)
-    results = T.launch(opts, nproc=3, backend="gloo", device="cpu",
-                       timeout=240)
+LAUNCH = T.TrainOptions(arch="gemma3-1b", reduced=True, steps=3, batch=6,
+                        seq=16, log_every=1)
+
+
+@pytest.fixture(scope="module")
+def launched():
+    """The launcher's three CPU ranks, sequential steps."""
+    return T.launch(LAUNCH, nproc=3, backend="gloo", device="cpu",
+                    timeout=240)
+
+
+def test_launcher_matches_port_simulation(launched):
+    results = launched
     got = np.asarray([r["losses"] for r in results])
     np.testing.assert_allclose(got, _per_node_sim_losses(3, 3, 6, 16),
                                rtol=0, atol=1e-5)
@@ -548,9 +561,48 @@ def test_nccl_with_more_ranks_than_cards_raises(monkeypatch):
     assert D.rank_device("nccl", "cuda", 0, 1) == torch.device("cuda", 0)
 
 
+def test_launcher_overlap_losses_equal_sequential(launched):
+    """``--overlap``: the launcher's losses and bytes equal the sequential
+    run's bit for bit."""
+    results = T.launch(replace(LAUNCH, overlap=True), nproc=3,
+                       backend="gloo", device="cpu", timeout=240)
+    assert [r["losses"] for r in results] == \
+        [r["losses"] for r in launched]
+    assert [r["sent"] for r in results] == [r["sent"] for r in launched]
+
+
+def test_launcher_ckpt_dir_leaves_latest_and_ckpt(tmp_path):
+    """``--ckpt-dir --ckpt-every 1``: "latest" (after step 1, one shard
+    file per rank) and the node-mean "ckpt" load in the reference's
+    ``load_pytree``."""
+    from repro.checkpoint import load_pytree as jload
+
+    T.main(["--arch", "gemma3-1b", "--reduced", "--device", "cpu",
+            "--nproc", "3", "--steps", "2", "--batch", "6", "--seq", "16",
+            "--overlap", "--ckpt-dir", str(tmp_path), "--ckpt-every", "1"])
+    jcfg = jget_config("gemma3-1b").reduced()
+    shapes = jax.eval_shape(lambda k: JM.init(jcfg, k, jnp.float32),
+                            jax.random.PRNGKey(0))
+    stacked = jax.tree.map(lambda s: jnp.zeros((3,) + s.shape, s.dtype),
+                           shapes)
+    latest = jload({"params": stacked, "opt": {"u": stacked},
+                    "step": jnp.int32(0)}, str(tmp_path), name="latest")
+    assert int(latest["step"]) == 1
+    assert sorted(f for f in os.listdir(tmp_path / "latest")
+                  if f.startswith("shards")) == \
+        [f"shards-p{r}.npz" for r in range(3)]
+    mean = jload(jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype),
+                              shapes), str(tmp_path))
+    for leaf in jax.tree.leaves(mean) + jax.tree.leaves(latest):
+        assert np.isfinite(np.asarray(leaf)).all()
+    # a node-mean differs from each node's parameters after a step
+    assert not np.array_equal(np.asarray(mean["embed"]["table"]),
+                              np.asarray(latest["params"]["embed"]["table"]
+                                         [0]))
+
+
 @pytest.mark.parametrize("flag", [["--mesh-model", "2"],
-                                  ["--production-mesh", "single"],
-                                  ["--overlap"], ["--ckpt-dir", "ck"]])
+                                  ["--production-mesh", "single"]])
 def test_unported_launcher_options_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.main(["--arch", "gemma3-1b", "--reduced", "--device", "cpu",
@@ -563,6 +615,3 @@ def test_unported_steps_raise():
         steps.make_prefill()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         steps.make_decode_step()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        steps.make_train_step(get_config("gemma3-1b").reduced(), None,
-                              overlap=True)
