@@ -314,6 +314,33 @@ Phases (any failure exits non-zero and prints no result line):
    and quantize kernels at the sweeps' shapes: one launch over every
    copy equal to the plain version and to per-copy launches bit for
    bit, timed against both.
+   ``[tp-serve]``: tensor-parallel serving on four gloo ranks sharing
+   the card as a (data 2, model 2) mesh (``launch.mesh.make_host_mesh``):
+   full-width gemma3-1b (26 layers, d 1152, vocab 262144; bf16 weights
+   drawn on the CPU from seed 0), B = 4 prompts of 1024 tokens (``[main]``'s),
+   32 greedy tokens.  Each rank draws the whole model on the CPU, keeps
+   its shard under the serve rules (``convert.shard_for_rank``: every
+   matrix's last dim on "model", so half of the weights) and moves only
+   that to the card; its rows of the batch (2 of 4, split over "data")
+   go through ``make_engine(mesh=)``, then prefill and each decode step
+   alone through ``dist.steps.make_prefill`` / ``make_decode_step``,
+   timed by CUDA events (medians of 3 prefills and of the 31 steps).
+   Held against a one-rank engine on the same weights and prompts in
+   this process: the prefill and first decode step's logits within
+   2^-5 max|one-rank| (bf16 products whose shapes differ from the
+   one-rank's, and the tied head's partial logits added in f32), and the
+   greedy tokens equal, except that a row may part from the one-rank
+   tokens at a step whose one-rank top-2 logit margin is within twice
+   that tolerance (a near-tie the tolerance allows; printed).  The flash
+   kernel's counter shows 26 launches per prefill and per decode step
+   on every rank, each rank's parameter bytes equal the table's share
+   (``dist.tp.shard_bytes``), and the ranks' gathers and bytes per
+   decode step, prefill ms, decode ms/step and peak memory are printed.
+   The same for reduced grok-1-314b in f32 (the 2-D rule: contraction
+   dims on "data" too, the batch whole on every rank, the experts
+   gathered whole), its logits within 1e-4 and its tokens equal.  Row
+   1's entries at a rank's shapes (B = 2) report ``[tp-serve]``'s
+   gemma3-1b launches over the four ranks.
 5. The port on the card against the port on the CPU: reduced gemma3-1b
    serving in f32 (greedy tokens equal, prefill logits within 1e-4);
    ``[moe-cpu-vs-card]``: reduced grok-1-314b and deepseek-v3-671b in
@@ -4881,6 +4908,264 @@ def _ckpt_rank(rank, device, full, comp, resume):
     return out
 
 
+# [tp-serve]: four gloo ranks as a (data 2, model 2) mesh; gemma3-1b at
+# full width with [main]'s prompts and TP_NEW greedy tokens, then grok
+# reduced() in f32 (the 2-D rule); (arch, reduced, prompt, new, tolerance
+# on the logits relative to max |one-rank logit|)
+TP_RANKS, TP_MODEL, TP_NEW, TP_PREFILLS, TP_TIMEOUT = 4, 2, 32, 3, 600.0
+TP_CASES = (("gemma3-1b", False, PROMPT, TP_NEW, 2.0 ** -5),
+            ("grok-1-314b", True, 64, 8, 1e-4))
+
+
+@dataclasses.dataclass(frozen=True)
+class TPServeCase:
+    arch: str
+    reduced: bool
+    tokens: list            # the whole batch's prompts, B lists of ints
+    new: int
+
+
+def _tp_rank(rank, device, case):
+    """One rank of ``[tp-serve]``: the whole model drawn on the CPU, this
+    rank's shard moved to the card, its rows served through the engine,
+    then prefill and each decode step alone, counted and timed."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import shard_for_rank
+    from repro_torch.dist.sharding import (batch_partition_specs,
+                                           make_rules,
+                                           param_partition_specs)
+    from repro_torch.dist.tp import bind, shard_bytes
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.serve import make_engine
+
+    mesh = make_host_mesh(model=TP_MODEL)
+    cfg = get_config(case.arch)
+    cfg = cfg.reduced() if case.reduced else cfg
+    dtype = torch.float32 if case.reduced else torch.bfloat16
+    rules = make_rules(mesh, arch_name=cfg.name, context="serve")
+    t0 = time.perf_counter()
+    full = M.init(cfg, seed=0, dtype=dtype, device="cpu").state_dict()
+    shards = shard_for_rank(full, param_partition_specs(full, rules), mesh,
+                            mesh.coords)
+    model = bind(cfg, {k: v.to(device) for k, v in shards.items()}, mesh)
+    del full, shards
+    init_s = time.perf_counter() - t0
+    resident = sum(p.numel() * p.element_size() for p in model.parameters())
+    tokens = torch.tensor(case.tokens, device=device)
+    B, P = tokens.shape
+    engine = make_engine(cfg, batch=B, prompt_len=P, max_new=case.new,
+                         param_dtype=dtype, cache_dtype=dtype, device=device,
+                         mesh=mesh)
+    mine = shard_for_rank({"tokens": tokens}, batch_partition_specs(
+        {"tokens": tokens}, rules, node_stacked=False), mesh, mesh.coords)
+    # no warm-up: the ranks load [build]'s libraries, and the timed
+    # prefills below run after this generation
+    torch.cuda.reset_peak_memory_stats(device)
+    res = engine.generate_with_state(model, mine)
+    torch.cuda.synchronize(device)
+
+    def timed(fn):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        flash_attention_fwd.launches = 0
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize(device)
+        return out, a.elapsed_time(b), flash_attention_fwd.launches
+
+    pre_ms, pre_launches, dec_ms, dec_launches = [], [], [], []
+    with torch.inference_mode():
+        for _ in range(TP_PREFILLS):
+            (logits, caches, _), ms, n = timed(
+                lambda: engine.prefill.fn(model, mine))
+            pre_ms.append(ms)
+            pre_launches.append(n)
+        tok = logits[:, -1].argmax(-1)
+        steps, step1, gathers = [tok], None, None
+        for i in range(1, case.new):
+            before = dict(model.tp.stats)
+            (lg, caches), ms, n = timed(lambda: engine.decode.fn(
+                model, caches, tok[:, None], P + i - 1))
+            dec_ms.append(ms)
+            dec_launches.append(n)
+            if step1 is None:
+                step1 = lg[:, -1].float().cpu().numpy()
+                gathers = {k: model.tp.stats[k] - before[k] for k in before}
+            tok = lg[:, -1].argmax(-1)
+            steps.append(tok)
+    return {"coords": mesh.coords, "row0": engine.row0,
+            "rows": engine.rows, "init_s": init_s,
+            "tokens": res.tokens.cpu().tolist(),
+            "loop_equal": bool(torch.equal(torch.stack(steps, 1),
+                                           res.tokens)),
+            "prefill": logits[:, -1].float().cpu().numpy(), "step1": step1,
+            "prefill_ms": pre_ms, "prefill_launches": pre_launches,
+            "decode_ms": dec_ms, "decode_launches": dec_launches,
+            "gathers": gathers, "resident": resident,
+            "share": shard_bytes(cfg, dtype, mesh),
+            "peak": torch.cuda.max_memory_allocated(device)}
+
+
+def _one_rank_reference(torch, dev, cfg, dtype, tokens, new):
+    """The one-rank engine on the ranks' weights (drawn on the CPU from
+    seed 0): its tokens, the prefill and first decode step's logits (f32
+    copies of them), and each step's top-2 logit margin (B, new)."""
+    from repro_torch.models import model as M
+    from repro_torch.serve import make_engine
+
+    params = M.init(cfg, seed=0, dtype=dtype, device="cpu").to(dev)
+    B, P = tokens.shape
+    engine = make_engine(cfg, batch=B, prompt_len=P, max_new=new,
+                         param_dtype=dtype, cache_dtype=dtype, device=dev)
+    want = engine.generate_with_state(params, {"tokens": tokens}).tokens
+    margins = []
+
+    def pick(lg):
+        top = lg[:, -1].float().topk(2, dim=-1).values
+        margins.append(top[:, 0] - top[:, 1])
+        return lg[:, -1].argmax(-1)
+
+    with torch.inference_mode():
+        lg, caches = M.prefill(cfg, params, {"tokens": tokens}, engine.seq,
+                               dtype)
+        prefill = lg[:, -1].float()
+        steps = [pick(lg)]
+        for i in range(1, new):
+            lg, caches = M.decode_step(cfg, params, caches,
+                                       steps[-1][:, None], P + i - 1)
+            if i == 1:
+                step1 = lg[:, -1].float()
+            steps.append(pick(lg))
+    if not torch.equal(torch.stack(steps, 1), want):
+        raise SystemExit("[tp-serve] the one-rank steps alone differ from "
+                         "its engine's tokens")
+    out = (want.cpu(), prefill.cpu(), step1.cpu(),
+           torch.stack(margins, 1).cpu())
+    del params, caches, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp_serve(torch, dev, card):
+    """``[tp-serve]`` (module docstring): returns the gemma3-1b launches
+    over the four ranks by phase, and row 1's entries at a rank's
+    shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.launch.distributed import spawn_local
+
+    launches = {}
+    for arch, reduced, prompt, new, tol in TP_CASES:
+        tag = f"[tp-serve] {arch}{' reduced' if reduced else ''}"
+        cfg = get_config(arch)
+        cfg = cfg.reduced() if reduced else cfg
+        dtype = torch.float32 if reduced else torch.bfloat16
+        gen = torch.Generator(device=dev).manual_seed(1)   # [main]'s
+        tokens = torch.randint(0, cfg.vocab_size, (BATCH, prompt),
+                               generator=gen, device=dev)
+        t0 = time.perf_counter()
+        want, pre, step1, margins = _one_rank_reference(
+            torch, dev, cfg, dtype, tokens, new)
+        one_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = spawn_local(_tp_rank, TP_RANKS, args=(TPServeCase(
+            arch, reduced, tokens.cpu().tolist(), new),), backend="gloo",
+            device="cuda", timeout=TP_TIMEOUT)
+        spawn_s = time.perf_counter() - t0
+        L = attention_layers(cfg)
+        scale = float(pre.abs().max())
+        atol = tol * scale
+        print(f"{tag} {card}: one-rank reference {one_s:.1f} s; 4 ranks "
+              f"{spawn_s:.1f} s (spawn, CPU draw and shard, the runs)")
+        for r in ranks:
+            rows = slice(r["row0"], r["row0"] + r["rows"])
+            errs = [float((torch.from_numpy(r[k]) - ref[rows]).abs().max())
+                    for k, ref in (("prefill", pre), ("step1", step1))]
+            want_launch = [L] * TP_PREFILLS, [L] * (new - 1)
+            if (r["prefill_launches"], r["decode_launches"]) != want_launch:
+                raise SystemExit(
+                    f"{tag} rank {r['coords']}: flash launches per prefill "
+                    f"{r['prefill_launches']}, per decode step "
+                    f"{r['decode_launches']}; expected {L} each")
+            if r["resident"] != r["share"]:
+                raise SystemExit(f"{tag} rank {r['coords']}: {r['resident']} "
+                                 f"parameter bytes, the table's share is "
+                                 f"{r['share']}")
+            if max(errs) > atol or not r["loop_equal"]:
+                raise SystemExit(
+                    f"{tag} rank {r['coords']}: logits off the one-rank's by "
+                    f"{errs} (tolerance {atol:.4g}), or the steps alone "
+                    f"gave other tokens than its engine "
+                    f"({r['loop_equal']})")
+            got = torch.tensor(r["tokens"])
+            for b in range(r["rows"]):
+                diff = (got[b] != want[rows][b]).nonzero()
+                if not len(diff):
+                    continue
+                t = int(diff[0])
+                margin = float(margins[rows][b, t])
+                if margin > 2 * atol:
+                    raise SystemExit(
+                        f"{tag} rank {r['coords']} row {r['row0'] + b}: "
+                        f"tokens part from the one-rank's at step {t}, "
+                        f"where its top-2 margin {margin:.4g} exceeds "
+                        f"2 x {atol:.4g}")
+                print(f"{tag} rank {r['coords']} row {r['row0'] + b} parts "
+                      f"from the one-rank tokens at step {t}: a near-tie "
+                      f"(one-rank top-2 margin {margin:.4g} <= "
+                      f"{2 * atol:.4g})")
+            g = r["gathers"]
+            print(f"{tag} rank {r['coords']} rows {r['row0']}..."
+                  f"{r['row0'] + r['rows'] - 1}: prefill "
+                  f"{statistics.median(r['prefill_ms']):.2f} ms, decode "
+                  f"{statistics.median(r['decode_ms']):.3f} ms/step "
+                  f"(CUDA-event medians); {g['collectives']} gathers and "
+                  f"{g['bytes']} bytes received per decode step; peak "
+                  f"{r['peak'] / 2**30:.2f} GiB; parameters "
+                  f"{r['resident'] / 2**30:.3f} GiB (the table's share); "
+                  f"CPU draw + shard {r['init_s']:.1f} s; logits err "
+                  f"prefill {errs[0]:.3g}, step 1 {errs[1]:.3g} (tol "
+                  f"{atol:.3g}); flash {L} per prefill and per step")
+        same = sum(torch.equal(torch.tensor(r["tokens"]),
+                               want[r["row0"]:r["row0"] + r["rows"]])
+                   for r in ranks)
+        print(f"{tag}: tokens equal the one-rank engine's on {same} of "
+              f"{len(ranks)} ranks")
+        if reduced:
+            if same != len(ranks):
+                raise SystemExit(f"{tag}: f32 tokens differ from the "
+                                 f"one-rank engine's")
+        else:
+            launches["tp-serve-prefill"] = sum(r["prefill_launches"][0]
+                                               for r in ranks)
+            launches["tp-serve-decode"] = sum(sum(r["decode_launches"])
+                                              for r in ranks)
+    # row 1 at a rank's shapes: its 2 rows, prefill and decode
+    gen = torch.Generator(device=dev).manual_seed(26)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    rows, seq = BATCH // 2, PROMPT + TP_NEW
+    entries = []
+    for layer, window in (("local", LOCAL_WINDOW), ("global", None)):
+        for name, phase, Tq, q0, k_valid in (
+                (f"tp-serve prefill,{layer}", "tp-serve-prefill", PROMPT, 0,
+                 PROMPT),
+                (f"tp-serve decode@{PROMPT},{layer}", "tp-serve-decode", 1,
+                 PROMPT, PROMPT + 1)):
+            entries.append(flash_case(
+                torch, dev, gen, flush, name=name, phase=phase, B=rows,
+                Tq=Tq, S=seq, H=HEADS, KV=KV_HEADS, D=HEAD_DIM, q0=q0,
+                k_valid=k_valid, window=window, softcap=None))
+    del flush
+    flash_attention_fwd.launches = 0
+    return launches, entries
+
+
 def _dir_bytes(path: Path) -> int:
     return sum(f.stat().st_size for f in path.iterdir() if f.is_file())
 
@@ -5269,6 +5554,10 @@ def main() -> None:
     lap("[dist-overlap]")
     phase_ckpt(torch, dev, card, seq, overlapped)
     lap("[ckpt]")
+    tp_launches, tp_entries = phase_tp_serve(torch, dev, card)
+    launches.update(tp_launches)
+    entries += tp_entries
+    lap("[tp-serve]")
     launches.update(phase_failure(torch, dev, card))
     sweep_launches, sweep_kernels = phase_sweep(torch, dev, card)
     launches.update(sweep_launches)

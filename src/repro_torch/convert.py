@@ -21,7 +21,11 @@ names each of the reference's leaves and the port keys it stacks); the
 checkpoint engine writes the reference's keys and shapes through it.  The
 distributed runtime holds one node per rank: :func:`rank_slice` cuts
 rank r's ``(1, ...)`` slice out of a node-stacked tree or method state,
-and :func:`stack_ranks` puts the ranks' slices back together.
+and :func:`stack_ranks` puts the ranks' slices back together.  A
+tensor-parallel rank holds its shard of each tensor under a table of
+specs (``dist.sharding``): :func:`shard_for_rank` cuts it out of a full
+flat dict, and :func:`unshard_ranks` puts the ranks' shards back
+together.
 """
 from __future__ import annotations
 
@@ -32,6 +36,8 @@ import torch
 
 from repro_torch.configs.common import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import entry_axes
+from repro_torch.launch.mesh import rank_coords
 from repro_torch.models.model import Model
 
 _BLOCKS = re.compile(r"^(.*?\bstack\.blocks)\.(\d+)\.(.*)$")
@@ -226,3 +232,59 @@ def stack_ranks(slices):
     if any(s != first for s in slices[1:]):
         raise ValueError(f"ranks disagree: {slices}")
     return first
+
+
+def _shard_index(shape, spec, mesh, coords) -> tuple:
+    """The slices of a ``shape`` tensor that the rank at ``coords`` holds
+    under ``spec``: on each sharded dim, ``1/size`` of it at the offset
+    of the rank's row-major coordinate over the entry's axes."""
+    index = []
+    for dim, entry in zip(shape, spec):
+        pos, size = 0, 1
+        for a in entry_axes(entry):
+            pos, size = pos * mesh.shape[a] + coords[a], size * mesh.shape[a]
+        width = dim // size
+        index.append(slice(pos * width, (pos + 1) * width))
+    return tuple(index)
+
+
+def shard_for_rank(flat: dict, specs: dict, mesh, coords: dict) -> dict:
+    """The rank at ``coords`` on ``mesh``: its shard of each tensor of the
+    full flat dict ``flat`` under ``specs`` (same keys), a copy where the
+    spec shards it and the tensor itself where it is replicated.  Empties
+    ``flat`` as it goes: each full tensor is dropped once its shard is
+    cut, so the peak is the full dict and one shard (pass ``dict(flat)``
+    to keep the caller's)."""
+    out = {}
+    for key in list(flat):
+        t, spec = flat.pop(key), specs[key]
+        if any(e is not None for e in spec):
+            t = t[_shard_index(t.shape, spec, mesh, coords)].clone()
+        out[key] = t
+    return out
+
+
+def unshard_ranks(shards: list, specs: dict, mesh) -> dict:
+    """The inverse of :func:`shard_for_rank`: the full flat dict (on the
+    CPU) from every rank's shards, rank r at ``launch.mesh.rank_coords``.
+    Ranks that hold the same slice must hold the same bits."""
+    out = {}
+    for key, spec in specs.items():
+        pieces = [s[key].detach().cpu() for s in shards]
+        shape = list(pieces[0].shape)
+        for i, entry in enumerate(spec):
+            for a in entry_axes(entry):
+                shape[i] *= mesh.shape[a]
+        full = torch.empty(shape, dtype=pieces[0].dtype)
+        seen = {}
+        for r, piece in enumerate(pieces):
+            idx = _shard_index(shape, spec, mesh, rank_coords(mesh, r))
+            at = tuple((i.start, i.stop) for i in idx)
+            if at in seen:
+                if not torch.equal(seen[at], piece):
+                    raise ValueError(f"{key}: ranks holding {at} differ")
+                continue
+            seen[at] = piece
+            full[idx] = piece
+        out[key] = full
+    return out

@@ -127,26 +127,21 @@ class _Pending:
         self.copy_in, self.keep = copy_in, keep
 
 
-class _Wire:
-    """This rank's point-to-point transport: one slot's messages per
-    call, counted in ``stats``, in two halves.  :meth:`issue` posts the
-    sends and receives and returns at once; :meth:`complete` waits for
-    them.  Under gloo a message on the card is staged through pinned host
-    memory: the copies out run on a side stream, one event each, and the
-    host waits for a message's copy just before it posts the send (gloo
-    reads host memory as soon as it is given it); the copies in follow
-    the receives, on the current stream.  Every rank issues its slots in
-    the same order, and gloo matches a pair's messages in that order."""
+class HostStaging:
+    """Copies of card tensors on pinned host memory, for gloo, whose
+    collectives and point-to-point messages read and write host memory.
+    Each copy out runs on a side stream and records an event; the host
+    waits for it before it hands the buffer to gloo.  A copy in (a
+    received host buffer to the card) is a non-blocking copy on the
+    current stream."""
 
-    def __init__(self, group):
-        self.group = group
-        self.stage = dist.get_backend(group) == "gloo"
-        self.stats = {"messages": 0, "bytes": 0}
+    def __init__(self):
         self._side = None
 
-    def _staged(self, t: torch.Tensor):
-        """``t``'s bytes on pinned host memory, copied on the side stream;
-        returns the host buffer and the copy's event."""
+    def out(self, t: torch.Tensor):
+        """``t``'s bytes (a uint8 tensor on the card) on pinned host
+        memory, copied on the side stream; returns the host buffer and
+        the copy's event."""
         if self._side is None:
             self._side = torch.cuda.Stream(t.device)
         cur = torch.cuda.current_stream(t.device)
@@ -158,6 +153,24 @@ class _Wire:
             done.record(self._side)
         t.record_stream(self._side)
         return host, done
+
+
+class _Wire:
+    """This rank's point-to-point transport: one slot's messages per
+    call, counted in ``stats``, in two halves.  :meth:`issue` posts the
+    sends and receives and returns at once; :meth:`complete` waits for
+    them.  Under gloo a message on the card is staged through pinned host
+    memory (:class:`HostStaging`): the host waits for a message's copy
+    out just before it posts the send (gloo reads host memory as soon as
+    it is given it); the copies in follow the receives.  Every rank
+    issues its slots in the same order, and gloo matches a pair's
+    messages in that order."""
+
+    def __init__(self, group):
+        self.group = group
+        self.stage = dist.get_backend(group) == "gloo"
+        self.stats = {"messages": 0, "bytes": 0}
+        self.staging = HostStaging()
 
     def issue(self, tensors: list, slot: _Slot) -> _Pending:
         """Post the sends of ``tensors`` to the slot's peer and the
@@ -171,7 +184,7 @@ class _Wire:
         if slot.send_to is not None:
             out = [_as_bytes(t.contiguous()) for t in tensors]
             if self.stage and out and out[0].is_cuda:
-                out = [self._staged(b) for b in out]
+                out = [self.staging.out(b) for b in out]
                 for host, done in out:
                     done.synchronize()
                 out = [host for host, _ in out]

@@ -24,12 +24,18 @@ wire carries one group while the card and the host work on the next;
 the result is the sequential step's bit for bit (see
 :func:`make_train_step`).
 
-Not ported yet (they raise ``NotImplementedError``): tensor-parallel
-meshes (``dist/sharding.py``: one rank is one whole node here) and the
-serving steps ``make_prefill`` / ``make_decode_step``.  The reference's
-``embed_lookup_replicated`` and ``batch_shapes`` lay its embedding table
-and batch out over the mesh's weight axes; a rank that holds one whole
-node has nothing to lay out.
+The train step's rank holds one whole node: the tensor-parallel trainer
+over a data x model mesh is not ported yet (ROADMAP.md), and the
+reference's ``embed_lookup_replicated`` and ``batch_shapes``, which lay
+its embedding table and batch out over the mesh's weight axes, have
+nothing to lay out here.
+
+Serving runs over a live ``(data, model)`` mesh
+(:func:`make_prefill`, :func:`make_decode_step`, the reference's
+``steps.py:268-353``): each rank holds its shard of every tensor under
+the serve rules (``dist.sharding``, cut by ``convert.shard_for_rank``)
+and its rows of the batch, and the model bound to the shards
+(``dist.tp.bind``) runs the collectives in its layers.
 """
 from __future__ import annotations
 
@@ -52,6 +58,8 @@ from repro_torch.topology import (Schedule, TopologySpec, as_schedule,
                                   spec_from_cli)
 
 from .gossip import make_gossip_mixer
+from .sharding import ShardingRules, dp_entry, entry_axes, make_rules
+from .tp import bind
 
 #: groups of the overlapped step whose exchanges are in flight at once at
 #: most: a group's exchange is waited on once the next group's is issued
@@ -227,13 +235,109 @@ def make_train_step(cfg, group=None, *,
         compression=ccfg, method=method, mixer=mixer, overlap=overlap)
 
 
-def make_prefill(*args, **kwargs):
-    raise NotImplementedError(
-        "distributed serving (make_prefill) is not ported to repro_torch "
-        "yet; see ROADMAP.md")
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class PrefillBundle:
+    # (params, batch) -> (last-position logits, caches, enc_out | None)
+    fn: Callable
+    rules: ShardingRules
+    seq: int
 
 
-def make_decode_step(*args, **kwargs):
-    raise NotImplementedError(
-        "distributed serving (make_decode_step) is not ported to "
-        "repro_torch yet; see ROADMAP.md")
+@dataclass(frozen=True)
+class DecodeBundle:
+    # (params, caches, tokens, index[, enc_out]) -> (logits, caches)
+    fn: Callable
+    rules: ShardingRules
+    seq: int
+    decode_mode: str = "dus"
+
+
+def local_rows(rules: ShardingRules, batch: int) -> tuple[int, int]:
+    """``(first, count)``: the rows of a ``batch``-row serve batch this
+    rank holds (all of them when the batch stays whole)."""
+    axes = entry_axes(dp_entry(rules, batch))
+    pos = 0
+    for a in axes:
+        pos = pos * rules.mesh.shape[a] + rules.mesh.coords[a]
+    rows = batch // rules.axis_size(axes)
+    return pos * rows, rows
+
+
+def bound_model(cfg, mesh, params) -> M.Model:
+    """``params`` as a model bound to this rank's shards: a flat dict of
+    shards is bound (``dist.tp.bind``); a model that ``bind`` returned
+    for ``mesh`` passes through."""
+    if isinstance(params, M.Model):
+        if getattr(params, "tp", None) is None \
+                or params.tp.mesh is not mesh:
+            raise ValueError("a sharded step takes this rank's shard dict, "
+                             "or the model dist.tp.bind made of it on the "
+                             "same mesh")
+        return params
+    return bind(cfg, params, mesh)
+
+
+def _serve_checks(rows, param_dtype, model, tokens):
+    if tokens.shape[0] != rows:
+        raise ValueError(f"this rank holds {rows} rows of the batch, got "
+                         f"{tokens.shape[0]}")
+    if model.embed.table.dtype != param_dtype:
+        raise TypeError(f"built for {param_dtype} parameters, got "
+                        f"{model.embed.table.dtype}")
+
+
+def make_prefill(cfg, mesh, *, batch: int, seq: int,
+                 param_dtype=torch.bfloat16,
+                 cache_dtype=torch.bfloat16) -> PrefillBundle:
+    """Prompt -> (last-position logits, a fresh cache of ``seq``
+    positions, the encoder output or None), on this rank of the live
+    ``mesh``.  ``bundle.fn(params, batch)`` takes this rank's shard dict
+    (or the model ``dist.tp.bind`` made of it) and its rows of the
+    ``batch``-row serve batch (:func:`local_rows`)."""
+    rules = make_rules(mesh, arch_name=cfg.name, context="serve")
+    rows = local_rows(rules, batch)[1]
+
+    def fn(params, b):
+        model = bound_model(cfg, mesh, params)
+        _serve_checks(rows, param_dtype, model, b["tokens"])
+        logits, caches = M.prefill(cfg, model, b, seq, cache_dtype)
+        return logits, caches, caches.pop("enc_out", None)
+
+    return PrefillBundle(fn=fn, rules=rules, seq=seq)
+
+
+def make_decode_step(cfg, mesh, *, batch: int, seq: int,
+                     param_dtype=torch.bfloat16,
+                     append_free: bool = False) -> DecodeBundle:
+    """One decode step against this rank's cache (the batch rows of
+    :func:`local_rows`, every position), in the explicit
+    ``decode_mode`` the bundle records (``"append_free"`` writes
+    nothing).  ``bundle.fn(params, caches, tokens, index)`` returns
+    ``(logits, caches)``, the caches updated in place; an encoder
+    model's takes the encoder output from prefill as a fifth argument,
+    as the reference's (``steps.py:344-347``)."""
+    rules = make_rules(mesh, arch_name=cfg.name, context="serve")
+    rows = local_rows(rules, batch)[1]
+    mode = "append_free" if append_free else "dus"
+
+    def run(params, caches, tokens, index, enc_out=None):
+        model = bound_model(cfg, mesh, params)
+        _serve_checks(rows, param_dtype, model, tokens)
+        if enc_out is not None:
+            caches = dict(caches, enc_out=enc_out)
+        logits, caches = M.decode_step(cfg, model, caches, tokens, index,
+                                       decode_mode=mode)
+        caches.pop("enc_out", None)
+        return logits, caches
+
+    if cfg.encoder is not None:
+        def fn(params, caches, tokens, index, enc_out):
+            return run(params, caches, tokens, index, enc_out)
+    else:
+        def fn(params, caches, tokens, index):
+            return run(params, caches, tokens, index)
+    return DecodeBundle(fn=fn, rules=rules, seq=seq, decode_mode=mode)

@@ -39,6 +39,22 @@ separate draft model (random weights from ``--seed`` + 1, reduced with
         --prompt-len 1024 --gen 64 --speculate-k 4 \
         [--draft-layers 2 | --draft-config gemma3-1b]
 
+``--nproc N`` serves the fixed-batch engine tensor-parallel over N local
+ranks (``launch.distributed.spawn_local``, ``--backend gloo`` or
+``nccl``) laid out as a ``(N // mesh_model, mesh_model)`` mesh, as the
+reference's launcher builds its mesh (``launch/serve.py:142-144``):
+
+    python -m repro_torch.launch.serve --arch gemma3-1b --batch 4 \
+        --prompt-len 1024 --gen 32 --nproc 4 --mesh-model 2 \
+        [--backend gloo] [--speculate-k 4 --draft-layers 2]
+
+Each rank draws the whole model on the CPU from ``--seed`` (so on the CPU
+the weights, and the greedy tokens, are ``--nproc 1``'s), keeps its shard
+under the serve rules (``convert.shard_for_rank``), moves it to its
+device and serves its rows of the batch through ``make_engine(mesh=)``;
+the launcher prints the tokens of every row, rank 0's timings and its
+gathers.  ``--continuous`` and ``--draft-config`` take no mesh.
+
 Every shape (prompt padding, the bucket list, the trace's prompt range)
 comes from :func:`plan_shapes`.  Runs on the card unless ``--device cpu``
 is given; without a card it exits with an error.
@@ -88,6 +104,15 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain PyTorch versions)")
+    # tensor-parallel serving over local ranks
+    ap.add_argument("--nproc", type=int, default=1,
+                    help="serve over this many local ranks (a mesh)")
+    ap.add_argument("--mesh-model", type=int, default=1,
+                    help="[--nproc] ranks on the mesh's model axis; the "
+                         "data axis takes nproc // mesh_model")
+    ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"),
+                    help="[--nproc] gloo (CPU, or ranks sharing a card) or "
+                         "nccl (a card per rank)")
     # speculative decoding (DESIGN.md Sec. 15)
     ap.add_argument("--speculate-k", type=int, default=0,
                     help="draft k tokens per round and verify them in one "
@@ -122,6 +147,15 @@ def main(argv=None) -> None:
         raise SystemExit("--draft-config is fixed-batch only; the "
                          "continuous engine speculates self-speculatively "
                          "(--draft-layers)")
+    if args.nproc > 1 or args.mesh_model > 1:
+        if args.continuous or args.draft_config:
+            raise SystemExit("--nproc serves the fixed-batch engine; "
+                             "--continuous and --draft-config take no mesh")
+        if args.mesh_model < 1 or args.nproc % args.mesh_model:
+            raise SystemExit(f"--mesh-model {args.mesh_model} does not "
+                             f"divide --nproc {args.nproc}")
+        _run_mesh(args)
+        return
 
     import torch
 
@@ -129,7 +163,7 @@ def main(argv=None) -> None:
     from repro_torch.device import resolve_device
     from repro_torch.models import model as M
     from repro_torch.models.frontends import stub_inputs
-    from repro_torch.serve import SamplingParams, make_engine
+    from repro_torch.serve import make_engine
 
     try:
         device = resolve_device(args.device)
@@ -140,11 +174,7 @@ def main(argv=None) -> None:
         cfg = cfg.reduced()
     dtype = torch.float32 if args.reduced else torch.bfloat16
     params = M.init(cfg, seed=args.seed, dtype=dtype, device=device)
-    sampling = SamplingParams(
-        mode="sample" if args.sample else "greedy",
-        temperature=args.temperature,
-        top_k=args.top_k if args.top_k > 0 else None,
-        top_p=args.top_p if 0.0 < args.top_p < 1.0 else None)
+    sampling = _sampling(args)
     eos_id = args.eos_id if args.eos_id >= 0 else None
     if args.continuous:
         _run_continuous(args, cfg, params, sampling, eos_id, dtype, device)
@@ -208,6 +238,103 @@ def main(argv=None) -> None:
               f"acceptance {accepted}/{drafted} "
               f"({accepted / max(drafted, 1):.2f}); "
               f"{n_tok / max(rounds, 1):.2f} tokens per sequential pass")
+
+
+def _sampling(args):
+    from repro_torch.serve import SamplingParams
+    return SamplingParams(
+        mode="sample" if args.sample else "greedy",
+        temperature=args.temperature,
+        top_k=args.top_k if args.top_k > 0 else None,
+        top_p=args.top_p if 0.0 < args.top_p < 1.0 else None)
+
+
+def _serve_rank(rank, device, args):
+    """One rank of ``--nproc``: the whole model drawn on the CPU, this
+    rank's shard kept and moved to ``device``, its rows of the batch
+    served twice (a warm-up, then timed)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import shard_for_rank
+    from repro_torch.dist.sharding import (batch_partition_specs,
+                                           make_rules,
+                                           param_partition_specs)
+    from repro_torch.dist.tp import bind
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.frontends import stub_inputs
+    from repro_torch.serve import make_engine
+
+    mesh = make_host_mesh(model=args.mesh_model)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    rules = make_rules(mesh, arch_name=cfg.name, context="serve")
+    dtype = torch.float32 if args.reduced else torch.bfloat16
+    full = M.init(cfg, seed=args.seed, dtype=dtype,
+                  device="cpu").state_dict()
+    specs = param_partition_specs(full, rules)
+    model = bind(cfg, {k: v.to(device) for k, v in shard_for_rank(
+        full, specs, mesh, mesh.coords).items()}, mesh)
+    _, padded_len = plan_shapes(args.prompt_len)
+    B = args.batch
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed + 1)       # prompts: as the one-rank path
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, padded_len),
+                                     generator=gen, device=device)}
+    gen.manual_seed(args.seed + 2)
+    batch.update(stub_inputs(cfg, gen, B, STUB_LEN, dtype, device))
+    engine = make_engine(
+        cfg, batch=B, prompt_len=padded_len, max_new=args.gen,
+        sampling=_sampling(args),
+        eos_id=args.eos_id if args.eos_id >= 0 else None,
+        prefix_len=STUB_LEN if "prefix_embeds" in batch else 0,
+        param_dtype=dtype, cache_dtype=dtype, speculate_k=args.speculate_k,
+        draft_layers=args.draft_layers or None, device=device, mesh=mesh)
+    mine = shard_for_rank(batch, batch_partition_specs(
+        batch, rules, node_stacked=False), mesh, mesh.coords)
+
+    def timed():
+        t0 = time.perf_counter()
+        res = engine.generate_with_state(model, mine, seed=args.seed)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return res, time.perf_counter() - t0
+
+    _, t_first = timed()     # warm-up: builds the kernels on first use
+    before = dict(model.tp.stats)
+    res, dt = timed()
+    return {"row0": engine.row0, "tokens": res.tokens.tolist(),
+            "n_tok": int(res.lengths.sum()), "t_first": t_first, "dt": dt,
+            "gathers": {k: model.tp.stats[k] - before[k] for k in before},
+            "where": (torch.cuda.get_device_name(device)
+                      if device.type == "cuda" else "cpu")}
+
+
+def _run_mesh(args) -> None:
+    from repro_torch.launch.distributed import spawn_local
+
+    results = spawn_local(_serve_rank, args.nproc, args=(args,),
+                          backend=args.backend, device=args.device)
+    rows = {}
+    for r in results:
+        for i, row in enumerate(r["tokens"]):
+            rows.setdefault(r["row0"] + i, row)
+    print("generated token ids:")
+    for i in sorted(rows):
+        print("  ", rows[i])
+    r0 = results[0]
+    print(f"mesh (data {args.nproc // args.mesh_model}, model "
+          f"{args.mesh_model}) over {args.nproc} {args.backend} ranks on "
+          f"{r0['where']}")
+    print(f"first call (incl. kernel build): {r0['t_first']:.2f}s")
+    print(f"steady state, rank 0: {r0['dt']:.3f}s for its {r0['n_tok']} "
+          f"tokens ({r0['n_tok'] / r0['dt']:.1f} tok/s, "
+          f"{r0['dt'] / args.gen * 1e3:.1f} ms/step)")
+    g = r0["gathers"]
+    print(f"rank 0 gathers per generation: {g['collectives']} "
+          f"({g['bytes']} bytes received)")
 
 
 def _run_continuous(args, cfg, params, sampling, eos_id, dtype,

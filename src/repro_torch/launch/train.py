@@ -36,8 +36,10 @@ reference's launcher does (``launch/train.py:129-151``).  There is no
 resume flag, as there is none in the reference: a run resumes from
 ``checkpoint.load_pytree`` of ``latest`` and the step bundle.
 
-Not ported yet (they raise): ``--mesh-model > 1`` (tensor-parallel
-meshes) and ``--production-mesh``.
+Not ported yet (they raise): ``--mesh-model > 1`` and
+``--production-mesh``, the tensor-parallel trainer over a data x model
+mesh (slice 17 in ROADMAP.md; serving over such a mesh is
+``launch.serve --nproc N --mesh-model M``).
 """
 from __future__ import annotations
 
@@ -264,7 +266,8 @@ def main(argv=None) -> None:
                            ("--production-mesh", args.production_mesh)):
         if unported:
             raise NotImplementedError(
-                f"{flag} is not ported to repro_torch yet; see ROADMAP.md")
+                f"{flag} needs the tensor-parallel trainer, which is not "
+                f"ported to repro_torch yet (slice 17 in ROADMAP.md)")
     opts = TrainOptions(
         arch=args.arch, reduced=args.reduced, topology=args.topology,
         k=args.k, method=args.method, eta=args.eta, steps=args.steps,

@@ -52,7 +52,10 @@ class RMSNorm(nn.Module):
 class Dense(nn.Module):
     """``x @ w`` (+ ``b``): with ``bias`` a zero-initialised ``b`` of shape
     ``(d_out,)``, added after the product (``dense_init(..., bias=True)``,
-    ``layers.py:33-43``)."""
+    ``layers.py:33-43``).  ``tp`` is set on a tensor-parallel rank whose
+    ``w`` is a shard (``repro_torch.dist.tp``), and None otherwise."""
+
+    tp = None
 
     def __init__(self, d_in: int, d_out: int, *, dtype, device,
                  bias: bool = False):
@@ -66,6 +69,8 @@ class Dense(nn.Module):
         normal_(self.w, generator)
 
     def forward(self, x):
+        if self.tp is not None:
+            return self.tp.dense(self, x)
         y = x @ self.w
         if self.b is not None:     # a second rounding, as the reference's
             y = y + self.b
@@ -73,6 +78,10 @@ class Dense(nn.Module):
 
 
 class Embed(nn.Module):
+    """The token table (vocab, d); ``tp`` as :class:`Dense`'s."""
+
+    tp = None
+
     def __init__(self, vocab: int, d: int, *, dtype, device):
         super().__init__()
         self.table = nn.Parameter(torch.empty(vocab, d, dtype=dtype,
@@ -83,6 +92,8 @@ class Embed(nn.Module):
         normal_(self.table, generator)
 
     def forward(self, tokens):
+        if self.tp is not None:
+            return self.tp.embed(self, tokens)
         return self.table[tokens]
 
 

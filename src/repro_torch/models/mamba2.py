@@ -109,7 +109,11 @@ class Mamba(nn.Module):
     """``mamba_init`` / ``mamba_apply``: the input projection split into z,
     xBC and dt; the causal conv and SiLU on xBC; the SSD scan (or, with a
     cache and one token, its step); the ``D`` skip; the gated RMSNorm
-    ``norm(y * silu(z))`` in f32; the output projection."""
+    ``norm(y * silu(z))`` in f32; the output projection.  On a
+    tensor-parallel rank (``tp`` set, ``repro_torch.dist.tp``) ``conv_w``
+    is gathered whole where it is used."""
+
+    tp = None
 
     def __init__(self, d_model: int, cfg: SSMConfig, *, dtype, device):
         super().__init__()
@@ -150,13 +154,14 @@ class Mamba(nn.Module):
         z = proj[..., :d_in]
         xbc = proj[..., d_in:2 * d_in + 2 * n]
         dt = proj[..., 2 * d_in + 2 * n:]
+        conv_w = self.conv_w if self.tp is None else self.tp.whole(
+            self, "conv_w")
         if cache is None:
-            xbc = causal_depthwise_conv(xbc, self.conv_w, self.conv_b)
+            xbc = causal_depthwise_conv(xbc, conv_w, self.conv_b)
         else:
             # the rolling conv history, kept in the cache's dtype
             hist = torch.cat([cache["conv"].to(xbc.dtype), xbc], dim=1)
-            xbc = causal_depthwise_conv(hist, self.conv_w,
-                                        self.conv_b)[:, -T:]
+            xbc = causal_depthwise_conv(hist, conv_w, self.conv_b)[:, -T:]
             conv_new = hist[:, -(cfg.d_conv - 1):]
         xbc = F.silu(xbc)
         xs = xbc[..., :d_in].reshape(B_, T, h, cfg.headdim)

@@ -140,6 +140,13 @@ def init(cfg: ArchConfig, seed: int = 0, dtype=torch.float32,
     return model.eval()
 
 
+def param_specs(cfg: ArchConfig, dtype=torch.bfloat16) -> dict:
+    """Each parameter's shape and dtype without allocating
+    (``model.py:67``): the ``state_dict`` of a :class:`Model` on the meta
+    device."""
+    return Model(cfg, dtype=dtype, device="meta").state_dict()
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device=None) -> dict:
     return stack_cache_init(cfg, batch, max_seq, dtype,
@@ -275,8 +282,13 @@ def loss_fn(cfg: ArchConfig, params, batch, *, remat=False):
 def logits_of(cfg: ArchConfig, params: Model, h):
     """The output logits of final hidden states ``h`` (..., d_model),
     through the tied embedding table or the untied ``lm_head``."""
-    logits = h @ (params.embed.table.T if params.lm_head is None
-                  else params.lm_head.w)
+    table = params.embed.table
+    if params.lm_head is not None:
+        logits = params.lm_head(h)
+    elif params.embed.tp is not None:
+        logits = params.embed.tp.head(table, h)
+    else:
+        logits = h @ table.T
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits

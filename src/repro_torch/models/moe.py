@@ -122,7 +122,11 @@ def _act(h: torch.Tensor, act: str) -> torch.Tensor:
 class MoE(nn.Module):
     """``moe_init`` / ``moe_apply``.  Parameter names are the reference's
     leaves: ``router`` (D, E), ``w_gate`` and ``w_up`` (E, D, F),
-    ``w_down`` (E, F, D), and ``shared_<s>`` gated MLPs of width F."""
+    ``w_down`` (E, F, D), and ``shared_<s>`` gated MLPs of width F.  On a
+    tensor-parallel rank (``tp`` set, ``repro_torch.dist.tp``) the four
+    are gathered whole where they are used."""
+
+    tp = None
 
     def __init__(self, d_model: int, cfg: MoEConfig, *, act: str, dtype,
                  device):
@@ -158,11 +162,13 @@ class MoE(nn.Module):
         B, T, D = x.shape
         N, E, K = B * T, cfg.num_experts, cfg.top_k
         xf = x.reshape(N, D)
-        r = route(xf, self.router, cfg)
+        router, w_gate, w_up, w_down = (
+            getattr(self, n) if self.tp is None else self.tp.whole(self, n)
+            for n in ("router", "w_gate", "w_up", "w_down"))
+        r = route(xf, router, cfg)
         xe = xf[r.top_tok]                                     # (E, C, D)
-        h = _act(torch.bmm(xe, self.w_gate), self.act) * torch.bmm(
-            xe, self.w_up)
-        ye = torch.bmm(h, self.w_down)
+        h = _act(torch.bmm(xe, w_gate), self.act) * torch.bmm(xe, w_up)
+        ye = torch.bmm(h, w_down)
         ye = ye * (r.top_scores * r.keep)[..., None].to(ye.dtype)
         y = combine(ye, combine_table(r))
         for s in range(cfg.num_shared):

@@ -39,6 +39,20 @@ round's phases are bracketed by :func:`repro_torch.trace.mark`:
 ``"round"`` (the snapshot), ``"draft"``, ``"verify"``, ``"accept"`` (the
 accept rule, the restore and the counters), then ``"end"``.
 
+``mesh=`` serves on one rank of a live ``(data, model)`` mesh
+(``launch.mesh``): prefill and the plain decode steps go through
+``dist.steps.make_prefill`` / ``make_decode_step``, ``generate`` takes
+this rank's shard dict (``convert.shard_for_rank``; or the model
+``dist.tp.bind`` made of it) and its rows of the batch
+(``dist.steps.local_rows``), and returns the tokens of those rows.  Each
+row keeps its own seeded sampling streams, the global row's, so a row
+draws what it draws on one rank.  After each token (a speculative round's
+emitted tokens) the ranks that hold the same rows compare what they
+picked, over each mesh axis that does not split the batch, and the engine
+raises if they differ.  Self-speculation runs unchanged through the
+sharded layers; a ``draft_cfg`` model over a mesh raises
+``NotImplementedError``.
+
 ``prefix_len`` counts the positions a vision model's ``prefix_embeds``
 take in front of the prompt (``engine.py:194-244``): generation starts at
 ``index0 = prompt_len + prefix_len``, and the cache covers ``index0 +
@@ -119,6 +133,15 @@ class GenerationBundle:
     draft_cfg: Any = None
     prefix_len: int = 0
     dispatch_counter: list = field(default_factory=lambda: [0])
+    # with a mesh: the sharding rules, this rank's steps, its first row
+    # and row count, and the axes whose ranks hold the same rows
+    mesh: Any = None
+    rules: Any = None
+    prefill: Any = None
+    decode: Any = None
+    row0: int = 0
+    rows: int | None = None
+    replica_axes: tuple = ()
 
     @property
     def index0(self) -> int:
@@ -147,7 +170,7 @@ class GenerationBundle:
         model takes them.  ``draft_params`` are required iff the engine
         has a ``draft_cfg``; the draft's caches are dropped."""
         tokens = batch["tokens"]
-        want = (self.batch, self.prompt_len)
+        want = (self.rows, self.prompt_len)
         if tuple(tokens.shape) != want or tokens.device != self.device:
             raise ValueError(f"tokens must be {want} on {self.device}, got "
                              f"{tuple(tokens.shape)} on {tokens.device}")
@@ -158,6 +181,9 @@ class GenerationBundle:
                              f"positions, got prefix_embeds of shape {got}")
         inputs = {k: batch[k] for k in ("tokens", "prefix_embeds", "frames")
                   if batch.get(k) is not None}
+        if self.mesh is not None:
+            from repro_torch.dist.steps import bound_model
+            params = bound_model(self.cfg, self.mesh, params)
         for p in (params, draft_params):
             if p is not None and p.embed.table.dtype != self.param_dtype:
                 raise TypeError(f"engine built for {self.param_dtype} "
@@ -167,9 +193,13 @@ class GenerationBundle:
             raise ValueError("this engine speculates through a draft_cfg; "
                              "pass draft_params")
         self.dispatch_counter[0] += 1
+        enc = None
         with torch.inference_mode():
-            logits, caches = M.prefill(self.cfg, params, inputs, self.seq,
-                                       self.cache_dtype)
+            if self.mesh is None:
+                logits, caches = M.prefill(self.cfg, params, inputs,
+                                           self.seq, self.cache_dtype)
+            else:
+                logits, caches, enc = self.prefill.fn(params, inputs)
             spec = None
             if self.speculate_k:
                 dcaches = None
@@ -181,8 +211,8 @@ class GenerationBundle:
                                                   seed, draft_params,
                                                   dcaches)
             else:
-                out, done = self._decode(params, logits, caches, seed)
-            eos, B = self.eos_id, self.batch
+                out, done = self._decode(params, logits, caches, seed, enc)
+            eos, B = self.eos_id, self.rows
             if eos is None:
                 lengths = torch.full((B,), self.max_new, dtype=torch.int64,
                                      device=self.device)
@@ -197,7 +227,7 @@ class GenerationBundle:
     def _first(self, logits, gens):
         """The first token from the prompt's last logits, the done-mask
         and the (B, max_new) output holding it (eos-padded)."""
-        eos, B = self.eos_id, self.batch
+        eos, B = self.eos_id, self.rows
         tok = sample_token(logits[:, -1].float(), self.sampling, gens)
         done = (tok == eos) if eos is not None else torch.zeros(
             B, dtype=torch.bool, device=self.device)
@@ -206,18 +236,39 @@ class GenerationBundle:
         out[:, 0] = tok
         return tok, done, out
 
-    def _decode(self, params, logits, caches, seed):
-        """The plain loop: one ``decode_step`` per token."""
+    def _agree(self, params, tok):
+        """With a mesh: raise unless every rank that holds this rank's
+        rows picked the same ``tok``."""
+        for axis in self.replica_axes:
+            picks = params.tp.gather(tok, axis)
+            if not all(torch.equal(p, tok) for p in picks):
+                raise RuntimeError(
+                    f"the ranks along {axis!r} picked different tokens for "
+                    f"the same rows: {[p.tolist() for p in picks]}")
+
+    def _decode(self, params, logits, caches, seed, enc=None):
+        """The plain loop: one decode step per token (with a mesh, this
+        rank's ``make_decode_step``; ``enc`` is the encoder output its
+        prefill returned)."""
         cfg, eos = self.cfg, self.eos_id
         gens = (request_generators(seed, self.batch, self.device)
+                [self.row0:self.row0 + self.rows]
                 if self.sampling.needs_rng else None)
         tok, done, out = self._first(logits, gens)
+        self._agree(params, tok)
         for i in range(1, self.max_new):
             if eos is not None and bool(done.all()):
                 break           # the remaining columns already hold eos
-            logits, caches = M.decode_step(cfg, params, caches, tok[:, None],
-                                           self.index0 + i - 1)
+            if self.decode is None:
+                logits, caches = M.decode_step(cfg, params, caches,
+                                               tok[:, None],
+                                               self.index0 + i - 1)
+            else:
+                logits, caches = self.decode.fn(
+                    params, caches, tok[:, None], self.index0 + i - 1,
+                    *(() if enc is None else (enc,)))
             nxt = sample_token(logits[:, -1].float(), self.sampling, gens)
+            self._agree(params, nxt)
             if eos is not None:
                 nxt = torch.where(done, eos, nxt)
                 done = done | (nxt == eos)
@@ -230,7 +281,7 @@ class GenerationBundle:
         greedy."""
         if not self.sampling.needs_rng:
             return None
-        return [stream_generator(seed, b, p, stream, self.device)
+        return [stream_generator(seed, self.row0 + b, p, stream, self.device)
                 for b, p in enumerate(positions)]
 
     def _speculate(self, params, logits, caches, seed, draft_params,
@@ -239,10 +290,11 @@ class GenerationBundle:
         returns ``(tokens, done, SpecStats)``; the caches are updated in
         place."""
         cfg, dcfg, eos = self.cfg, self.draft_cfg, self.eos_id
-        k, B, N, dev = self.speculate_k, self.batch, self.max_new, self.device
+        k, B, N, dev = self.speculate_k, self.rows, self.max_new, self.device
         ar = torch.arange(k + 1, device=dev)
         tok, done, out = self._first(
             logits, self._streams(seed, [self.index0] * B, TOKEN_STREAM))
+        self._agree(params, tok)
         # one spare column takes the writes of what a round does not keep
         buf = torch.cat([out, out[:, :1]], dim=1)
         rows = torch.arange(B, device=dev)[:, None]
@@ -291,7 +343,8 @@ class GenerationBundle:
             trace.mark("accept")
             acc, emit = speculative_accept(
                 vlg, torch.stack(dlg, dim=1), dtk, self.sampling,
-                [(seed, b) for b in range(B)], [p + 1 for p in hpos])
+                [(seed, self.row0 + b) for b in range(B)],
+                [p + 1 for p in hpos])
             m = acc + 1                                    # emitted count
             if eos is not None:
                 hit = emit == eos
@@ -306,6 +359,7 @@ class GenerationBundle:
                     now = lc[c][rows, win]
                     mask = keep.reshape(keep.shape + (1,) * (now.ndim - 2))
                     lc[c][rows, win] = torch.where(mask, now, s[c])
+            self._agree(params, emit)
             last = emit.gather(1, (m - 1).clamp_min(0)[:, None])[:, 0]
             tok = torch.where(live, last, tok)
             if eos is not None:
@@ -341,7 +395,7 @@ def make_engine(cfg, *, batch: int, prompt_len: int, max_new: int,
                 eos_id: int | None = None, prefix_len: int = 0,
                 param_dtype=torch.bfloat16, cache_dtype=torch.bfloat16,
                 speculate_k: int = 0, draft_layers: int | None = None,
-                draft_cfg=None, device=None) -> GenerationBundle:
+                draft_cfg=None, device=None, mesh=None) -> GenerationBundle:
     """The generation engine for one serving shape.  ``prefix_len``
     counts the non-token prefix positions (a vision model's
     ``prefix_embeds``).  The KV cache covers ``prompt_len + prefix_len +
@@ -353,7 +407,11 @@ def make_engine(cfg, *, batch: int, prompt_len: int, max_new: int,
     (default ``num_blocks // 2``, at least 1), or through a separate
     ``draft_cfg`` of the same vocabulary, whose params ``generate`` then
     takes as ``draft_params``.  Without ``speculate_k`` both are
-    ignored, as in the reference (``engine.py:218-241``)."""
+    ignored, as in the reference (``engine.py:218-241``).
+
+    ``mesh`` (a live mesh, ``launch.mesh``) serves on this rank of it
+    (see the module docstring); ``batch`` is then the whole batch, of
+    which the engine takes this rank's rows."""
     if batch < 1 or prompt_len < 1 or max_new < 1 or prefix_len < 0:
         raise ValueError(f"batch, prompt_len and max_new must be >= 1 and "
                          f"prefix_len >= 0, got {batch}, {prompt_len}, "
@@ -384,6 +442,26 @@ def make_engine(cfg, *, batch: int, prompt_len: int, max_new: int,
                     f"{draft_layers}")
     else:
         draft_layers = draft_cfg = None
+    sharded = {"rows": batch}
+    if mesh is not None:
+        if draft_cfg is not None:
+            raise NotImplementedError(
+                "speculation through a draft_cfg model over a mesh is not "
+                "ported to repro_torch yet; see ROADMAP.md")
+        from repro_torch.dist.steps import (local_rows, make_decode_step,
+                                            make_prefill)
+        seq = prompt_len + prefix_len + max_new + speculate_k
+        kw = dict(batch=batch, seq=seq, param_dtype=param_dtype)
+        pre = make_prefill(cfg, mesh, cache_dtype=cache_dtype, **kw)
+        rules = pre.rules
+        row0, rows = local_rows(rules, batch)
+        split = rows < batch
+        sharded = dict(
+            mesh=mesh, rules=rules, prefill=pre,
+            decode=make_decode_step(cfg, mesh, **kw), row0=row0, rows=rows,
+            replica_axes=tuple(a for a in mesh.axis_names
+                               if mesh.shape[a] > 1
+                               and not (split and a in rules.dp)))
     return GenerationBundle(cfg=cfg, batch=batch, prompt_len=prompt_len,
                             max_new=max_new, sampling=sampling,
                             eos_id=eos_id, param_dtype=param_dtype,
@@ -391,4 +469,4 @@ def make_engine(cfg, *, batch: int, prompt_len: int, max_new: int,
                             device=resolve_device(device),
                             speculate_k=speculate_k,
                             draft_layers=draft_layers, draft_cfg=draft_cfg,
-                            prefix_len=prefix_len)
+                            prefix_len=prefix_len, **sharded)

@@ -607,11 +607,3 @@ def test_unported_launcher_options_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.main(["--arch", "gemma3-1b", "--reduced", "--device", "cpu",
                 *flag])
-
-
-def test_unported_steps_raise():
-    from repro_torch.dist import steps
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        steps.make_prefill()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        steps.make_decode_step()
