@@ -341,6 +341,26 @@ Phases (any failure exits non-zero and prints no result line):
    gathered whole), its logits within 1e-4 and its tokens equal.  Row
    1's entries at a rank's shapes (B = 2) report ``[tp-serve]``'s
    gemma3-1b launches over the four ranks.
+   ``[tp-train]``: the tensor-parallel trainer in the same spawns, after
+   the serve checks, from the same shards (the train rules cut
+   gemma3-1b as the serve rules do): ``dist.steps.make_train_step(
+   mesh=)``, the two data coordinates as two nodes on Base-2 (k = 1),
+   DSGD-momentum 0.9, eta 0.01, remat on, 1 x 1024 tokens a node
+   (``token_batches``), 2 steps.  Per rank and step: ms (CUDA events,
+   split by the trace marks), the launches of rows 1, 3 and 5 (each
+   above 0 on every rank at every step), the gathers and bytes received
+   forward and in the backward, the gossip bytes sent, peak memory.  A
+   node's loss and replicated tensors (norm scales) are bit-equal on its
+   two model ranks at every step.  Then the node's shards meet on its
+   model-coordinate-0 rank (``convert.unshard_ranks``), which runs the
+   one-model-rank trainer over ``mesh.group("data")`` from the same draw
+   on the same batches: losses within 2^-7 relative, the parameters
+   after step 2 elementwise within 2^-5 |p| plus half the tensor's
+   largest move (``TP_*`` constants).  Reduced grok-1-314b in f32 beside
+   it, under the 2-D rule (one node, its 2 rows split over "data", the
+   experts routing the node's whole batch): step 0's loss and gradients
+   within 1e-4 of ``models.model.loss_fn`` on the whole model and batch,
+   and 2 steps within 1e-4 of the method's update with no mixing.
 5. The port on the card against the port on the CPU: reduced gemma3-1b
    serving in f32 (greedy tokens equal, prefill logits within 1e-4);
    ``[moe-cpu-vs-card]``: reduced grok-1-314b and deepseek-v3-671b in
@@ -4912,9 +4932,22 @@ def _ckpt_rank(rank, device, full, comp, resume):
 # full width with [main]'s prompts and TP_NEW greedy tokens, then grok
 # reduced() in f32 (the 2-D rule); (arch, reduced, prompt, new, tolerance
 # on the logits relative to max |one-rank logit|)
-TP_RANKS, TP_MODEL, TP_NEW, TP_PREFILLS, TP_TIMEOUT = 4, 2, 32, 3, 600.0
+TP_RANKS, TP_MODEL, TP_NEW, TP_PREFILLS, TP_TIMEOUT = 4, 2, 32, 3, 900.0
 TP_CASES = (("gemma3-1b", False, PROMPT, TP_NEW, 2.0 ** -5),
             ("grok-1-314b", True, 64, 8, 1e-4))
+# [tp-train], in the same spawns after the serve checks: DSGD-momentum
+# 0.9 on Base-2 (k = 1) over the mesh's nodes, TP_TRAIN_STEPS steps at
+# eta TP_TRAIN_ETA; per arch (rows per node, tokens per row, remat)
+TP_TRAIN_STEPS, TP_TRAIN_ETA = 2, 0.01
+TP_TRAIN = {"gemma3-1b": (1, PROMPT, True), "grok-1-314b": (2, 64, False)}
+# the tolerances against the one-model-rank trainer: bf16 losses within
+# 2^-7 |loss| (one bf16 ulp of it); parameters elementwise within 2^-5
+# |p| (four bf16 ulps: two updates and two mixes may each round to the
+# neighbour) plus half the tensor's largest move over the run (an
+# element near 0 moves by the update alone, whose products differ in
+# bf16: the rank's column blocks, finding BC); f32 (reduced) within 1e-4
+TP_LOSS_REL, TP_PARAM_REL, TP_PARAM_MOVE, TP_F32_TOL = \
+    2.0 ** -7, 2.0 ** -5, 2.0 ** -1, 1e-4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -4928,7 +4961,8 @@ class TPServeCase:
 def _tp_rank(rank, device, case):
     """One rank of ``[tp-serve]``: the whole model drawn on the CPU, this
     rank's shard moved to the card, its rows served through the engine,
-    then prefill and each decode step alone, counted and timed."""
+    then prefill and each decode step alone, counted and timed; then
+    ``[tp-train]`` from the same shards (:func:`_tp_train`)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -4949,10 +4983,16 @@ def _tp_rank(rank, device, case):
     rules = make_rules(mesh, arch_name=cfg.name, context="serve")
     t0 = time.perf_counter()
     full = M.init(cfg, seed=0, dtype=dtype, device="cpu").state_dict()
-    shards = shard_for_rank(full, param_partition_specs(full, rules), mesh,
+    # [tp-train]'s one-model-rank trainer runs on the model-coordinate-0
+    # ranks (the whole reduced model on every rank): they keep the draw
+    keep = case.reduced or mesh.coords["model"] == 0
+    shards = shard_for_rank(dict(full) if keep else full,
+                            param_partition_specs(full, rules), mesh,
                             mesh.coords)
     model = bind(cfg, {k: v.to(device) for k, v in shards.items()}, mesh)
-    del full, shards
+    if not keep:
+        full = None
+    del shards
     init_s = time.perf_counter() - t0
     resident = sum(p.numel() * p.element_size() for p in model.parameters())
     tokens = torch.tensor(case.tokens, device=device)
@@ -4998,17 +5038,184 @@ def _tp_rank(rank, device, case):
                 gathers = {k: model.tp.stats[k] - before[k] for k in before}
             tok = lg[:, -1].argmax(-1)
             steps.append(tok)
-    return {"coords": mesh.coords, "row0": engine.row0,
-            "rows": engine.rows, "init_s": init_s,
-            "tokens": res.tokens.cpu().tolist(),
+    out = {"coords": mesh.coords, "row0": engine.row0,
+           "rows": engine.rows, "init_s": init_s,
+           "tokens": res.tokens.cpu().tolist(),
             "loop_equal": bool(torch.equal(torch.stack(steps, 1),
                                            res.tokens)),
             "prefill": logits[:, -1].float().cpu().numpy(), "step1": step1,
             "prefill_ms": pre_ms, "prefill_launches": pre_launches,
             "decode_ms": dec_ms, "decode_launches": dec_launches,
-            "gathers": gathers, "resident": resident,
-            "share": shard_bytes(cfg, dtype, mesh),
-            "peak": torch.cuda.max_memory_allocated(device)}
+           "gathers": gathers, "resident": resident,
+           "share": shard_bytes(cfg, dtype, mesh),
+           "peak": torch.cuda.max_memory_allocated(device)}
+    # [tp-train] on the same shards: gemma3-1b's train and serve rules
+    # lay the weights out alike (the train rules cut every shard)
+    shards = {k: v.detach() for k, v in model.state_dict().items()}
+    del model, engine, res, caches, logits, lg, mine, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train"] = _tp_train(device, cfg, dtype, mesh, shards, full)
+    return out
+
+
+def _tp_train(device, cfg, dtype, mesh, shards, full):
+    """``[tp-train]`` on this rank of ``mesh``: the tensor-parallel
+    trainer (``dist.steps.make_train_step(mesh=)``) from this rank's
+    ``shards`` of the seed-0 draw, TP_TRAIN_STEPS steps of its node's
+    rows of ``token_batches``, each counted (the kernels' launch
+    counters, the gathers forward and backward, the gossip bytes, the
+    trace marks' spans) with the replicated tensors' digest after it.
+    Then the node's shards meet on its model-coordinate-0 rank
+    (``convert.unshard_ranks``, which raises if the replicated tensors
+    differ), and that rank runs the one-model-rank trainer
+    (``make_train_step(cfg, mesh.group("data"))``) from ``full`` on the
+    same batches; a one-node mesh (the 2-D rule) holds step 0's
+    gradients against ``models.model.loss_fn`` on ``full`` and the steps
+    against the method's update with no mixing, on every rank."""
+    import hashlib
+
+    import torch
+    from repro_torch import trace
+    from repro_torch.convert import shard_for_rank, unshard_ranks
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.dist.sharding import param_partition_specs
+    from repro_torch.dist.steps import make_train_step
+    from repro_torch.dist.tp import Collectives
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model as M
+    from repro_torch.sim.engine import node_stack
+
+    rows, seq, remat = TP_TRAIN[cfg.name]
+    kw = dict(topology="base", k=1, method_name="dsgdm", eta=TP_TRAIN_ETA,
+              param_dtype=dtype, remat=remat, momentum=0.9)
+    bundle = make_train_step(cfg, mesh=mesh, **kw)
+    n, node = bundle.n_nodes, bundle.node
+
+    def batch(step):
+        raw = token_batches(step, batch=n * rows, seq=seq,
+                            vocab=cfg.vocab_size)
+        return {k: torch.from_numpy(v.reshape(n, rows, seq)[node:node + 1])
+                .to(device) for k, v in raw.items()}
+
+    specs = param_partition_specs(shards, bundle.rules)
+    replicated = sorted(k for k, sp in specs.items()
+                        if all(a is None for a in sp))
+    params = node_stack(shards, 1, device)
+    del shards
+    param_bytes = sum(v.numel() * v.element_size() for v in params.values())
+    opt = bundle.method.init(params)
+    out = {"node": node, "n_nodes": n, "param_bytes": param_bytes,
+           "steps": []}
+    if n == 1:      # the step's gradients against the whole model's
+        loss, grads = bundle.grad_fn(params, batch(0))
+        p = {k: v.to(device).requires_grad_() for k, v in full.items()}
+        whole = {k: v.detach()[None] for k, v in full.items()}
+        b0 = {k: v[0] for k, v in batch(0).items()}
+        want = M.loss_fn(cfg, p, b0, remat=remat)[0]
+        wgrads = dict(zip(p, torch.autograd.grad(want, list(p.values()))))
+        want = want.detach()
+        mine = shard_for_rank(dict(wgrads), specs, mesh, mesh.coords)
+        out["grads_err"] = max(float((grads[k][0] - g).abs().max())
+                               for k, g in mine.items())
+        out["loss_err"] = abs(float(loss) - float(want))
+        del p, grads, mine
+    comm = bundle.model.tp
+    counters = _kernel_launches
+    for step in range(TP_TRAIN_STEPS):
+        before = counters()
+        stats, bwd = dict(comm.stats), dict(comm.backward_stats)
+        sent = dict(bundle.mixer.stats)
+        torch.cuda.reset_peak_memory_stats(device)
+        b = batch(step)
+        with trace.cuda_marks() as marks:
+            params, opt, loss = bundle.step_fn(params, opt, b, step)
+            torch.cuda.synchronize(device)
+        spans = _step_spans(marks)[0]
+        del marks
+        h = hashlib.sha256()
+        for k in replicated:
+            h.update(params[k].reshape(-1).view(torch.uint8).cpu().numpy())
+        out["steps"].append({
+            "loss": float(loss), "spans": spans,
+            "launches": _launched(before),
+            "gathers": comm.stats["collectives"] - stats["collectives"],
+            "gather_bytes": comm.stats["bytes"] - stats["bytes"],
+            "bwd_gathers": comm.backward_stats["collectives"]
+            - bwd["collectives"],
+            "bwd_bytes": comm.backward_stats["bytes"] - bwd["bytes"],
+            "sent": bundle.mixer.stats["bytes"] - sent["bytes"],
+            "peak": torch.cuda.max_memory_allocated(device),
+            "replicated": h.hexdigest()})
+    final = {k: v[0] for k, v in params.items()}
+    del opt, params, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    if n == 1:      # the method's update with no mixing, on full
+        from repro_torch.optim.decentralized import make_method
+        method = make_method("dsgdm", 0.9)
+        p1 = {k: v.to(device) for k, v in whole.items()}
+        o1 = method.init(p1)
+        for step in range(TP_TRAIN_STEPS):
+            g = {}
+            pp = {k: v[0].detach().requires_grad_() for k, v in p1.items()}
+            lo = M.loss_fn(cfg, pp, {k: v[0] for k, v in
+                                     batch(step).items()}, remat=remat)[0]
+            for k, gk in zip(pp, torch.autograd.grad(lo, list(pp.values()))):
+                g[k] = gk[None]
+            with torch.no_grad():
+                p1, o1 = method.step(p1, g, o1, lambda t: t, TP_TRAIN_ETA)
+        mine = shard_for_rank({k: v[0] for k, v in p1.items()}, specs, mesh,
+                              mesh.coords)
+        out["params_err"] = max(float((final[k] - v).abs().max())
+                                for k, v in mine.items())
+        return out
+    # the node's shards meet on its model-coordinate-0 rank
+    gather = Collectives(mesh)
+    pieces = {k: [t.cpu() for t in gather.gather(v, "model")]
+              for k, v in final.items()}
+    del final
+    if mesh.coords["model"]:
+        return out
+    node_mesh = Mesh({"data": 1, "model": mesh.shape["model"]})
+    try:
+        got = unshard_ranks([{k: v[i] for k, v in pieces.items()}
+                             for i in range(mesh.shape["model"])], specs,
+                            node_mesh)
+        out["unshard"] = "ok"
+    except ValueError as e:
+        out["unshard"] = str(e)
+        return out
+    del pieces
+    one = make_train_step(cfg, mesh.group("data"), **kw)
+    p1 = node_stack(full, 1, device)
+    move = {k: v.float() for k, v in p1.items()}
+    o1 = one.method.init(p1)
+    losses = []
+    t0 = time.perf_counter()
+    for step in range(TP_TRAIN_STEPS):
+        p1, o1, lo = one.step_fn(p1, o1, batch(step), step)
+        losses.append(float(lo))
+    torch.cuda.synchronize(device)
+    out["one_s"] = time.perf_counter() - t0
+    out["one_losses"] = losses
+    worst = {"violations": 0, "differing": 0, "elements": 0,
+             "max_abs": 0.0, "max_ratio": 0.0}
+    for k, want in p1.items():
+        w = want[0].float()
+        floor = TP_PARAM_MOVE * float((w - move[k][0]).abs().max())
+        diff = (got[k].to(device).float() - w).abs()
+        tol = TP_PARAM_REL * w.abs() + floor
+        worst["elements"] += diff.numel()
+        worst["differing"] += int((diff > 0).sum())
+        worst["violations"] += int((diff > tol).sum())
+        worst["max_abs"] = max(worst["max_abs"], float(diff.max()))
+        pos = tol > 0
+        if bool(pos.any()):
+            worst["max_ratio"] = max(worst["max_ratio"], float(
+                (diff[pos] / tol[pos]).max()))
+    out["params_check"] = worst
+    return out
 
 
 def _one_rank_reference(torch, dev, cfg, dtype, tokens, new):
@@ -5053,9 +5260,9 @@ def _one_rank_reference(torch, dev, cfg, dtype, tokens, new):
 
 
 def phase_tp_serve(torch, dev, card):
-    """``[tp-serve]`` (module docstring): returns the gemma3-1b launches
-    over the four ranks by phase, and row 1's entries at a rank's
-    shapes."""
+    """``[tp-serve]`` and, in the same spawns, ``[tp-train]`` (module
+    docstring): returns the gemma3-1b serving launches over the four
+    ranks by phase, and row 1's entries at a rank's shapes."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.launch.distributed import spawn_local
@@ -5137,6 +5344,9 @@ def phase_tp_serve(torch, dev, card):
                    for r in ranks)
         print(f"{tag}: tokens equal the one-rank engine's on {same} of "
               f"{len(ranks)} ranks")
+        _check_tp_train(f"[tp-train] {arch}{' reduced' if reduced else ''}",
+                        [r["train"] for r in ranks],
+                        [r["coords"] for r in ranks], card)
         if reduced:
             if same != len(ranks):
                 raise SystemExit(f"{tag}: f32 tokens differ from the "
@@ -5164,6 +5374,79 @@ def phase_tp_serve(torch, dev, card):
     del flush
     flash_attention_fwd.launches = 0
     return launches, entries
+
+
+def _check_tp_train(tag, results, coords, card):
+    """``[tp-train]``'s checks over the ranks' results (``_tp_train``):
+    the launch counters of rows 1 and 3 (and 5, where there is gossip)
+    above 0 on every rank at every step; a node's losses and replicated
+    tensors equal across its model ranks at every step; the node's
+    parameters put back together within the tolerances of the
+    one-model-rank trainer's (or, on one node, the gradients and the
+    parameters within TP_F32_TOL of the whole model's)."""
+    fails = []
+    kernels = ("flash", "fused_dsgd_many", "gossip_mix_many")
+    for r, c in zip(results, coords):
+        peers = [q for q, d in zip(results, coords)
+                 if d.get("data") == c.get("data")]
+        for i, st in enumerate(r["steps"]):
+            need = kernels if r["n_nodes"] > 1 else kernels[:2]
+            if not all(st["launches"][k] > 0 for k in need):
+                fails.append(f"rank {c} step {i}: launches "
+                             f"{st['launches']}")
+            if any(q["steps"][i]["loss"] != st["loss"]
+                   or q["steps"][i]["replicated"] != st["replicated"]
+                   for q in peers):
+                fails.append(f"rank {c} step {i}: its node's ranks differ "
+                             f"in the loss or the replicated tensors")
+            sp = st["spans"]
+            mix = sp.get("exchange", 0.0) + sp.get("combine", 0.0)
+            print(f"{tag} {card} rank {c} step {i}: loss {st['loss']:.6f}; "
+                  f"{sum(sp.values()):.1f} ms (fwd+bwd "
+                  f"{sp.get('step', 0.0):.1f}, update "
+                  f"{sp.get('update', 0.0):.1f}, mix {mix:.1f}; CUDA "
+                  f"events); launches flash {st['launches']['flash']}, "
+                  f"fused_dsgd_many {st['launches']['fused_dsgd_many']}, "
+                  f"gossip_mix_many {st['launches']['gossip_mix_many']}; "
+                  f"gathers {st['gathers']} receiving {st['gather_bytes']} "
+                  f"bytes, of them in the backward {st['bwd_gathers']} / "
+                  f"{st['bwd_bytes']}; gossip sent {st['sent']} bytes; "
+                  f"peak {st['peak'] / 2**30:.2f} GiB; parameters "
+                  f"{r['param_bytes'] / 2**30:.3f} GiB")
+        if r["n_nodes"] == 1:
+            print(f"{tag} rank {c}: step-0 loss off the whole model's by "
+                  f"{r['loss_err']:.3g}, gradients by {r['grads_err']:.3g}; "
+                  f"parameters after {TP_TRAIN_STEPS} steps off the "
+                  f"unmixed update's by {r['params_err']:.3g} (tolerance "
+                  f"{TP_F32_TOL})")
+            if max(r["loss_err"], r["grads_err"], r["params_err"]) \
+                    > TP_F32_TOL:
+                fails.append(f"rank {c}: off the whole model's")
+            continue
+        if "unshard" not in r:
+            continue
+        if r["unshard"] != "ok":
+            fails.append(f"rank {c}: the node's shards do not go back "
+                         f"together: {r['unshard']}")
+            continue
+        losses = [st["loss"] for st in r["steps"]]
+        off = [abs(a - b) for a, b in zip(losses, r["one_losses"])]
+        ok = all(d <= TP_LOSS_REL * abs(b)
+                 for d, b in zip(off, r["one_losses"]))
+        w = r["params_check"]
+        print(f"{tag} node {r['node']}: losses {losses} against the "
+              f"one-model-rank trainer's {r['one_losses']} ({r['one_s']:.1f}"
+              f" s for its {TP_TRAIN_STEPS} steps; off by {off}, tolerance "
+              f"{TP_LOSS_REL} relative); parameters after step "
+              f"{TP_TRAIN_STEPS}: {w['differing']} of {w['elements']} "
+              f"differ, max abs {w['max_abs']:.4g}, worst "
+              f"{w['max_ratio']:.3f} of the tolerance, "
+              f"{w['violations']} over it")
+        if not ok or w["violations"]:
+            fails.append(f"node {r['node']}: off the one-model-rank "
+                         f"trainer's")
+    if fails:
+        raise SystemExit(f"{tag} failed:\n" + "\n".join(fails))
 
 
 def _dir_bytes(path: Path) -> int:
@@ -5557,7 +5840,7 @@ def main() -> None:
     tp_launches, tp_entries = phase_tp_serve(torch, dev, card)
     launches.update(tp_launches)
     entries += tp_entries
-    lap("[tp-serve]")
+    lap("[tp-serve] [tp-train]")
     launches.update(phase_failure(torch, dev, card))
     sweep_launches, sweep_kernels = phase_sweep(torch, dev, card)
     launches.update(sweep_launches)

@@ -28,7 +28,10 @@ process K's ``(1, ...)`` slice of a leaf stacked over the processes
 along its first axis (the distributed trainer's rank slice,
 ``convert.rank_slice``): K writes it as one shard with index ``[[K,
 K+1], [0, d1], ...]``, exactly how the reference stores a tree sharded
-over its node axis.  A leaf of shape ``()`` is written whole by every
+over its node axis.  A rank of the tensor-parallel trainer holds its
+node's row and its slice of each weight dim instead
+(:func:`mesh_placement`): it writes that slice with the global index it
+covers, as the reference stores a device's shard of a mesh.  A leaf of shape ``()`` is written whole by every
 process; the loader keeps one copy.  :func:`load_pytree` restores either
 the whole ``(n, ...)`` leaves or one rank's ``(1, ...)`` slice, reading
 only the shards that cover the rows it returns.
@@ -269,6 +272,53 @@ class _Snap:
     axis: int | None      # where the blocks go in the stored array
 
 
+def mesh_placement(specs: dict, mesh, node_axis: str | None, *,
+                   nodes: bool = True):
+    """Where a rank of a live ``mesh`` writes each tensor of a tree of its
+    shards: ``place(key, local, blocks_axis) -> (shape, index)``, the
+    global shape of the reference's leaf and the slice this rank's tensor
+    covers, as the reference's format v2 stores a device's shard
+    (``repro/checkpoint/io.py:84-99``).  ``key`` is the tensor's flat key
+    (its spec in ``specs``, ``dist.sharding.param_partition_specs``);
+    ``local`` the leaf's shape on this rank, leading with the node axis
+    of size 1 when ``nodes`` (its row: this rank's coordinate on
+    ``node_axis``, none for None) and with the pattern blocks at
+    ``blocks_axis`` (whole); each other dim is the slice of its spec
+    entry's axes at this rank's coordinates.  Ranks that hold the same
+    slice (a replicated tensor) write the same index, which the loaders
+    read once."""
+    from repro_torch.dist.sharding import entry_axes
+
+    n = mesh.shape[node_axis] if node_axis else 1
+    node = mesh.coords[node_axis] if node_axis else 0
+
+    def place(key, local, blocks_axis):
+        shape, index = [], []
+        lead = 0
+        if nodes:
+            if not local or local[0] != 1:
+                raise ValueError(f"{key}: a rank's tensor must lead with a "
+                                 f"node axis of 1, got {tuple(local)}")
+            shape.append(n)
+            index.append([node, node + 1])
+            lead = 1
+        if blocks_axis is not None:
+            shape.append(local[blocks_axis])
+            index.append([0, local[blocks_axis]])
+            lead += 1
+        spec = tuple(specs[key])
+        for i, d in enumerate(local[lead:]):
+            pos, size = 0, 1
+            for a in entry_axes(spec[i] if i < len(spec) else None):
+                pos = pos * mesh.shape[a] + mesh.coords[a]
+                size *= mesh.shape[a]
+            shape.append(d * size)
+            index.append([pos * d, (pos + 1) * d])
+        return tuple(shape), index
+
+    return place
+
+
 class AsyncCheckpointer:
     """Background-thread checkpoint writer.
 
@@ -281,11 +331,13 @@ class AsyncCheckpointer:
     staging token over ``group`` (call it on every process at the same
     point).  ``stats`` holds one record per save: ``save_ms`` on the
     caller's thread, ``new_buffer`` (the snapshot allocated its host
-    buffer), ``write_s`` on the writer's, ``bytes`` written."""
+    buffer), ``write_s`` on the writer's, ``bytes`` written.
+    ``placement`` (:func:`mesh_placement`) gives each tensor's global
+    shape and index on a mesh."""
 
     def __init__(self, directory: str, *, group=None,
                  process_index: int | None = None,
-                 process_count: int | None = None):
+                 process_count: int | None = None, placement=None):
         if process_count is None:
             if dist.is_available() and dist.is_initialized():
                 process_index = dist.get_rank(group)
@@ -295,6 +347,9 @@ class AsyncCheckpointer:
         self.directory = directory
         self.process_index = process_index or 0
         self.process_count = process_count
+        # each tensor's global shape and index (:func:`mesh_placement`),
+        # or None: a process's tensor is its row of the node axis
+        self.placement = placement
         token = uuid.uuid4().hex[:8]
         if process_count > 1:
             box = [token]
@@ -402,7 +457,10 @@ class AsyncCheckpointer:
                     local.insert(axis, blocks)
                 else:
                     host = host[0]
-                if P > 1:
+                if self.placement is not None:
+                    shape, index = self.placement(leaf.paths[0][-1], local,
+                                                  axis)
+                elif P > 1:
                     if not local or local[0] != 1:
                         raise ValueError(f"{leaf.key}: a process's tensor "
                                          f"must lead with a node axis of 1, "

@@ -24,11 +24,18 @@ wire carries one group while the card and the host work on the next;
 the result is the sequential step's bit for bit (see
 :func:`make_train_step`).
 
-The train step's rank holds one whole node: the tensor-parallel trainer
-over a data x model mesh is not ported yet (ROADMAP.md), and the
-reference's ``embed_lookup_replicated`` and ``batch_shapes``, which lay
-its embedding table and batch out over the mesh's weight axes, have
-nothing to lay out here.
+Over a live mesh (``make_train_step(cfg, mesh=)``, the reference's
+``steps.py:84-265``) a node spans the ranks that share its coordinate
+on the train rules' node axis (``dist.sharding.make_rules(context=
+"train")``): each rank holds its shard of every tensor of its node (cut
+by ``convert.shard_for_rank``, node axis of size 1) and the method state
+of those shards, computes its gradients through a model bound to them
+(``dist.tp``: autograd through the collectives, the batch rows split
+over the rules' ``dp`` where they divide), applies the method's update,
+which is per tensor and unchanged, and gossips its shards with the
+ranks of the other nodes that hold the same slices
+(``mesh.group(rules.node_axis)``, the same slot plan).  Under the 2-D
+rule on one pod there is one node and no gossip.
 
 Serving runs over a live ``(data, model)`` mesh
 (:func:`make_prefill`, :func:`make_decode_step`, the reference's
@@ -59,7 +66,7 @@ from repro_torch.topology import (Schedule, TopologySpec, as_schedule,
 
 from .gossip import make_gossip_mixer
 from .sharding import ShardingRules, dp_entry, entry_axes, make_rules
-from .tp import bind
+from .tp import bind, rows_share_keys
 
 #: groups of the overlapped step whose exchanges are in flight at once at
 #: most: a group's exchange is waited on once the next group's is issued
@@ -82,6 +89,15 @@ class TrainStepBundle:
     mixer: Any
     # the update and gossip run group by group (``overlap_groups``)
     overlap: bool = False
+    # (params_1, batch_1) -> (this node's loss, this rank's gradients):
+    # the step's first half
+    grad_fn: Callable | None = None
+    # over a mesh: the train rules, and the marked skeleton the forward
+    # runs through (``model.tp.stats`` counts its gathers)
+    rules: ShardingRules | None = None
+    model: Any = None
+    n_nodes: int = 1
+    node: int = 0               # this rank's node
 
 
 def overlap_groups(keys) -> list[list[str]]:
@@ -138,19 +154,23 @@ def _overlapped_update(method: Method, params: dict, grads: dict,
             {sk: {k: sv[k] for k in params} for sk, sv in new_s.items()})
 
 
-def make_train_step(cfg, group=None, *,
+def make_train_step(cfg, group=None, *, mesh=None,
                     topology: str | TopologySpec | Schedule = "base",
                     k: int = 1, method_name: str = "dsgdm",
                     eta: float = 0.01, param_dtype=torch.bfloat16,
                     remat: bool = True, momentum: float = 0.9,
                     flatten_gossip: bool = False, compression=None,
-                    overlap: bool = False) -> TrainStepBundle:
+                    overlap: bool = False,
+                    embed_lookup_replicated: bool = False
+                    ) -> TrainStepBundle:
     """One DSGD-family step of this rank's node: its gradients -> the
     method update -> gossip round ``step % n_rounds`` over ``group``
-    (None: the default group; its size is the node count).
+    (None: the default group; its size is the node count), or over the
+    node axis of the live ``mesh`` (:func:`_sharded_grads`; give one of
+    the two).
 
     ``topology`` is a registered name (with ``k``), an inline JSON spec
-    string, a ``TopologySpec`` (its ``n`` must match the group's size) or
+    string, a ``TopologySpec`` (its ``n`` must match the node count) or
     a prebuilt ``Schedule``.  ``compression`` (a ``CompressionConfig``,
     a CLI string such as ``"int8"``, or None) turns the gossip into
     quantized, error-feedback payload exchange; the EF residuals and the
@@ -158,10 +178,11 @@ def make_train_step(cfg, group=None, *,
     pattern block of the forward (``models.model.loss_fn``).
 
     ``bundle.step_fn(params_1, opt, batch_1, step)`` takes this node's
-    flat dict of ``param_dtype`` float tensors (node axis of size 1),
-    the method state, this node's batch (``{"tokens", "labels"}``,
-    leading axis of size 1) and the step index, and returns the new
-    parameters, the new state and this node's loss (a 0-d tensor).
+    flat dict of ``param_dtype`` float tensors (node axis of size 1;
+    over a mesh, this rank's shards of them), the method state, this
+    node's batch (``{"tokens", "labels"}``, leading axis of size 1) and
+    the step index, and returns the new parameters, the new state and
+    this node's loss (a 0-d tensor).
 
     ``overlap=True`` (the reference's ``steps.py:110-124``): the
     parameters and the method state split along :func:`overlap_groups`,
@@ -180,29 +201,60 @@ def make_train_step(cfg, group=None, *,
     issued, and the wire carries a group while the update, staging and
     combine of the others run.  With ``compression`` it raises
     ``ValueError``, as the reference's does (``steps.py:138-142``); a
-    one-node group has nothing to overlap and steps sequentially."""
+    one-node group has nothing to overlap and steps sequentially.
+
+    ``embed_lookup_replicated`` (a mesh only, the reference's
+    ``steps.py:209-223``): the embedding table is gathered whole over its
+    sharded axes before the token lookup, one gather of the table in
+    place of the lookup's partial rows; the result is the same."""
     ccfg = resolve_compression(compression)
     if ccfg is not None and overlap:
         raise ValueError(
             "overlap + compression is unsupported: the compressed "
             "method's scalar step counter cannot be split along the "
             "per-group overlap chains")
-    n = dist.get_world_size(group)
+    rules = model = None
+    if mesh is None:
+        if embed_lookup_replicated:
+            raise ValueError("embed_lookup_replicated lays the table out "
+                             "over a mesh; this step holds whole nodes")
+        n, node = dist.get_world_size(group), dist.get_rank(group)
+
+        def loss_one(p, b):
+            return M.loss_fn(cfg, p, b, remat=remat)[0]
+
+        def grad_fn(params_1, batch):
+            losses, grads = node_grads(loss_one, params_1, batch)
+            return losses[0], grads
+    else:
+        if group is not None:
+            raise ValueError("a train step takes a group or a mesh, not "
+                             "both")
+        rules = make_rules(mesh, arch_name=cfg.name, context="train")
+        n = rules.n_nodes
+        # a node axis of one rank gossips nothing: its group is None,
+        # which must not become the default group
+        group = mesh.group(rules.node_axis) if n > 1 else None
+        node = mesh.coords[rules.node_axis] if n > 1 else 0
+        model = bind(cfg, None, mesh, context="train")
+        if embed_lookup_replicated and model.embed.tp is not None:
+            model.embed.tp.lookup_whole = True
+        grad_fn = _sharded_grads(cfg, rules, model, remat)
     overlap = overlap and n > 1
     if isinstance(topology, Schedule):
         if topology.n != n:
             raise ValueError(f"schedule built for n={topology.n} but the "
-                             f"group has {n} ranks")
+                             f"step has {n} nodes")
         sched = topology
     else:
         sched = as_schedule(spec_from_cli(topology, n=n, k=k))
     plan = sched.as_ppermute_plan()
     method = make_method(method_name, momentum, compression=ccfg)
-    mixer = make_gossip_mixer(group, plan, flatten=flatten_gossip,
-                              compression=ccfg)
-
-    def loss_one(p, b):
-        return M.loss_fn(cfg, p, b, remat=remat)[0]
+    if mesh is not None and n == 1:
+        mixer = _no_gossip(ccfg)
+    else:
+        mixer = make_gossip_mixer(group, plan, flatten=flatten_gossip,
+                                  compression=ccfg)
 
     def step_fn(params_1, opt, batch, step):
         bad = {k: x.dtype for k, x in params_1.items()
@@ -213,7 +265,7 @@ def make_train_step(cfg, group=None, *,
         dev = next(iter(params_1.values())).device
         batch = _map(lambda a: torch.as_tensor(a).to(dev), batch)
         trace.mark("step")
-        losses, grads = node_grads(loss_one, params_1, batch)
+        loss, grads = grad_fn(params_1, batch)
         trace.mark("update")
         with torch.no_grad():
             if overlap:
@@ -228,11 +280,64 @@ def make_train_step(cfg, group=None, *,
                 params_1, opt = method.step(
                     params_1, grads, opt, lambda t: mixer(t, step), eta)
         trace.mark("end")
-        return params_1, opt, losses[0]
+        return params_1, opt, loss
 
     return TrainStepBundle(
         step_fn=step_fn, n_rounds=len(sched), plan=plan, spec=sched.spec,
-        compression=ccfg, method=method, mixer=mixer, overlap=overlap)
+        compression=ccfg, method=method, mixer=mixer, overlap=overlap,
+        grad_fn=grad_fn, rules=rules, model=model, n_nodes=n, node=node)
+
+
+def _no_gossip(ccfg):
+    """The mixer of a one-node step over a mesh: the tree as it is (and
+    the EF residuals, compressed), as the reference's degenerate gossip
+    (``steps.py:176-183``); it sends nothing."""
+    if ccfg is None:
+        def mixer(tree, r):
+            return tree
+    else:
+        def mixer(tree, r, ef, t):
+            return tree, ef
+    mixer.stats = {"messages": 0, "bytes": 0}
+    return mixer
+
+
+def _sharded_grads(cfg, rules: ShardingRules, model, remat: bool):
+    """This rank's ``(loss, grads)`` of its node's batch over the mesh of
+    ``rules``, through ``model``, the marked skeleton
+    (``dist.tp.bind(cfg, None, mesh, context="train")``).
+
+    The rank takes its rows of the node's batch (:func:`local_rows`: a
+    share of them where the train rules' ``dp`` divides the rows, all of
+    them otherwise) and names the axes that split them in
+    ``model.tp.row_axes``.  ``models.model.loss_fn`` runs the sharded
+    forward over its shards and returns the node's whole-batch loss on
+    every rank (the summed losses and counts added over the row axes in
+    rank order, not a mean of means).  The backward runs through the
+    collectives (``dist.tp``): each shard's gradient is the gradient of
+    its slice of the whole tensor, for the rank's rows.  The gradients
+    are then added over the row axes in rank order where the backward
+    left a share of the rank's rows (``dist.tp.rows_share_keys``), as the
+    reference's step sums them over its batch-sharded axes."""
+    comm = model.tp
+
+    def grad_fn(params_1, batch):
+        b = batch["tokens"].shape[1]
+        comm.row_axes = entry_axes(dp_entry(rules, b))
+        row0, rows = local_rows(rules, b)
+        mine = _map(lambda a: a[0, row0:row0 + rows], batch)
+        p = {k: x[0].detach().requires_grad_() for k, x in params_1.items()}
+        loss = M.loss_fn(cfg, p, mine, remat=remat, model=model)[0]
+        grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+        if comm.row_axes:
+            for k in rows_share_keys(model):
+                grads[k] = comm.sum_rows(grads[k], grad=False)
+        # a gradient a gather's backward sliced is a view; the update
+        # takes contiguous tensors
+        return loss.detach(), {k: g.contiguous()[None]
+                               for k, g in grads.items()}
+
+    return grad_fn
 
 
 # ---------------------------------------------------------------------------

@@ -143,20 +143,29 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 def chunked_ce_loss(h: torch.Tensor, w_out: torch.Tensor,
                     labels: torch.Tensor, chunk: int = 512,
-                    logit_softcap: float | None = None) -> torch.Tensor:
+                    logit_softcap: float | None = None, *, project=None,
+                    reduce=None) -> torch.Tensor:
     """Cross-entropy without materialising the full (B, T, V) logits:
     a loop over T-chunks, each chunk's logits in f32
     (``layers.py:95-128``).
 
     h: (B, T, D); w_out: (D, V); labels: (B, T) with -100 = ignore.
-    Returns the mean over the labelled positions."""
+    Returns the mean over the labelled positions.  On a tensor-parallel
+    rank (``repro_torch.dist.tp``) ``project`` takes a chunk of ``h`` to
+    its f32 logits in place of ``w_out``, and ``reduce`` adds the summed
+    losses and the count over the ranks that hold other rows of the
+    batch before the mean."""
     T = h.shape[1]
     chunk = min(chunk, T)
-    w = w_out.float()               # one f32 copy for every chunk
+    if project is None:
+        w = w_out.float()           # one f32 copy for every chunk
+
+        def project(hc):
+            return hc.float() @ w
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.int64, device=h.device)
     for t0 in range(0, T, chunk):
-        logits = h[:, t0:t0 + chunk].float() @ w
+        logits = project(h[:, t0:t0 + chunk])
         if logit_softcap is not None:
             logits = logit_softcap * torch.tanh(logits / logit_softcap)
         li = labels[:, t0:t0 + chunk].long()
@@ -166,4 +175,6 @@ def chunked_ce_loss(h: torch.Tensor, w_out: torch.Tensor,
         gold = logits.gather(-1, tgt[..., None])[..., 0]
         tot = tot + torch.where(valid, lse - gold, 0.0).sum()
         cnt = cnt + valid.sum()
+    if reduce is not None:
+        tot, cnt = reduce(tot, cnt)
     return tot / cnt.clamp_min(1)

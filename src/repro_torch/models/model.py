@@ -243,7 +243,7 @@ def _skeleton(cfg: ArchConfig) -> Model:
     return Model(cfg, device="meta")
 
 
-def loss_fn(cfg: ArchConfig, params, batch, *, remat=False):
+def loss_fn(cfg: ArchConfig, params, batch, *, remat=False, model=None):
     """Next-token cross-entropy of ``batch = {"tokens", "labels"}``
     (labels == -100 are ignored), plus the router aux loss and the MTP
     term, as ``model.py:121-154``: the final hidden states against the
@@ -255,27 +255,47 @@ def loss_fn(cfg: ArchConfig, params, batch, *, remat=False):
     there) in place of keeping its activations.  A vision batch's
     ``prefix_embeds`` positions get ``-100`` labels in front of
     ``labels``; an encoder model encodes ``batch["frames"]``.  Returns
-    ``(loss + aux, {"aux": aux})``, aux 0 without an MoE."""
+    ``(loss + aux, {"aux": aux})``, aux 0 without an MoE.
+
+    ``model`` is the module ``params`` is called through (a parameterless
+    skeleton of ``cfg`` by default).  A tensor-parallel rank passes the
+    marked skeleton of ``dist.tp.bind(cfg, None, mesh, context="train")``
+    and its shards: the forward then runs the sharded layers, the output
+    projection is the sharded f32 contraction chunk by chunk, and the
+    summed losses and counts are added over the axes that split the
+    batch rows (``dist.tp.Collectives.row_axes``), so the loss is the
+    node's whole-batch mean on every rank."""
     prefix = batch.get("prefix_embeds")
     kw = {"remat": remat, "prefix_embeds": prefix}
     if cfg.encoder is not None:
         kw["frames"] = batch["frames"]
+    skel = _skeleton(cfg) if model is None else model
     h, aux, h_mtp = torch.func.functional_call(
-        _skeleton(cfg), params, (batch["tokens"],), kw)
+        skel, params, (batch["tokens"],), kw)
     w_out = params["embed.table"].T if cfg.tie_embeddings \
         else params["lm_head.w"]
+    ce = {"logit_softcap": cfg.final_softcap}
+    comm = getattr(skel, "tp", None)
+    if comm is not None:
+        head = skel.embed if cfg.tie_embeddings else skel.lm_head
+        if head.tp is not None and cfg.tie_embeddings:
+            ce["project"] = head.tp.head_f32(params["embed.table"])
+        elif head.tp is not None:
+            ce["project"] = head.tp.dense_f32(params["lm_head.w"])
+        if comm.row_axes:
+            ce["reduce"] = lambda tot, cnt: (comm.sum_rows(tot),
+                                             comm.sum_rows(cnt))
     labels = batch["labels"]
     if prefix is not None:
         ignore = torch.full(labels.shape[:1] + prefix.shape[1:2], -100,
                             dtype=labels.dtype, device=labels.device)
         labels = torch.cat([ignore, labels], dim=1)
-    loss = chunked_ce_loss(h, w_out, labels, logit_softcap=cfg.final_softcap)
+    loss = chunked_ce_loss(h, w_out, labels, **ce)
     if h_mtp is not None:
         # predict token t + 2: the labels shifted one step more
         l2 = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1], -100)],
                        dim=1)
-        loss = loss + 0.3 * chunked_ce_loss(h_mtp, w_out, l2,
-                                            logit_softcap=cfg.final_softcap)
+        loss = loss + 0.3 * chunked_ce_loss(h_mtp, w_out, l2, **ce)
     return loss + aux, {"aux": aux}
 
 

@@ -157,13 +157,24 @@ class MoE(nn.Module):
                 normal_(w[e], generator)
 
     def forward(self, x):
-        """x: (B, T, D) -> (y (B, T, D) in x's dtype, f32 aux loss)."""
+        """x: (B, T, D) -> (y (B, T, D) in x's dtype, f32 aux loss).  On a
+        tensor-parallel rank whose batch rows are split
+        (``tp.comm.row_axes``) the routed experts take the node's whole
+        batch, its rows gathered before the router and the routed output
+        split back: one capacity and one aux loss for the node, as the
+        reference's step routes it; the shared experts take the rank's
+        rows."""
         cfg = self.cfg
+        rows = self.tp is not None and bool(self.tp.comm.row_axes)
+        x_own = x
+        if rows:
+            x = self.tp.comm.cat_rows(x)
         B, T, D = x.shape
         N, E, K = B * T, cfg.num_experts, cfg.top_k
         xf = x.reshape(N, D)
         router, w_gate, w_up, w_down = (
-            getattr(self, n) if self.tp is None else self.tp.whole(self, n)
+            getattr(self, n) if self.tp is None
+            else self.tp.whole(self, n, whole_batch=rows)
             for n in ("router", "w_gate", "w_up", "w_down"))
         r = route(xf, router, cfg)
         xe = xf[r.top_tok]                                     # (E, C, D)
@@ -171,6 +182,9 @@ class MoE(nn.Module):
         ye = torch.bmm(h, w_down)
         ye = ye * (r.top_scores * r.keep)[..., None].to(ye.dtype)
         y = combine(ye, combine_table(r))
+        if rows:
+            y = self.tp.comm.split_rows(y.reshape(B, T, D)).reshape(-1, D)
+            xf = x_own.reshape(-1, D)
         for s in range(cfg.num_shared):
             y = y + getattr(self, f"shared_{s}")(xf)
         # Switch-style load-balance loss
@@ -180,4 +194,4 @@ class MoE(nn.Module):
             0, idx, torch.full(idx.shape, 1.0 / (N * K),
                                dtype=torch.float32, device=x.device))
         aux = cfg.aux_loss_coef * E * torch.sum(me * ce)
-        return y.reshape(B, T, D).to(x.dtype), aux
+        return y.reshape(x_own.shape).to(x.dtype), aux

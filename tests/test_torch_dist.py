@@ -600,10 +600,3 @@ def test_launcher_ckpt_dir_leaves_latest_and_ckpt(tmp_path):
                               np.asarray(latest["params"]["embed"]["table"]
                                          [0]))
 
-
-@pytest.mark.parametrize("flag", [["--mesh-model", "2"],
-                                  ["--production-mesh", "single"]])
-def test_unported_launcher_options_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.main(["--arch", "gemma3-1b", "--reduced", "--device", "cpu",
-                *flag])
