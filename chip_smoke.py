@@ -299,15 +299,17 @@ Phases (any failure exits non-zero and prints no result line):
    ``[sweep]``: the reference's robustness grid (its constants copied
    from ``benchmarks/failure.py:48-62``): the paper MLP 32-64-10, n = 16,
    Dirichlet alpha 0.3, topologies base k=1 and k=4, one_peer_exp, exp
-   and ring, DSGD-momentum (eta 0.05, batch 32), 120 steps, as one
+   and ring, DSGD-momentum (eta 0.05, batch 32), 60 steps (the grid's
+   120 cut to half, so that the script fits its time limit), as one
    sweep synchronously and one per regime (clean, drop 0.1 and 0.3,
    delay 3, churn 0.03, Byzantine sign-flip 0.125): one grouped fused
-   launch per step per sweep asserted (120, not 600); the clean cells
+   launch per step per sweep asserted (60, not 300); the clean cells
    equal the synchronous sweep's, the synchronous and drop0.1 cells
    equal their independent runs, bit for bit; clocks equal across
    configs; the accuracy table printed beside
-   ``benchmarks/baselines/BENCH_failure.json`` (no gate: other weights,
-   and the reference calls those cross-BLAS-sensitive).  Then a
+   ``benchmarks/baselines/BENCH_failure.json``'s 120-step accuracies
+   (no gate: other weights and half the steps, and the reference calls
+   those cross-BLAS-sensitive).  Then a
    compressed sweep (int8 + EF, plain DSGD, base k=1 / exp / ring x 2
    seeds, 30 steps): one grouped quantize per step per bucket asserted,
    every cell equal to its independent run bit for bit.  The fused DSGD
@@ -317,10 +319,11 @@ Phases (any failure exits non-zero and prints no result line):
    ``[tp-serve]``: tensor-parallel serving on four gloo ranks sharing
    the card as a (data 2, model 2) mesh (``launch.mesh.make_host_mesh``):
    full-width gemma3-1b (26 layers, d 1152, vocab 262144; bf16 weights
-   drawn on the CPU from seed 0), B = 4 prompts of 1024 tokens (``[main]``'s),
-   32 greedy tokens.  Each rank draws the whole model on the CPU, keeps
-   its shard under the serve rules (``convert.shard_for_rank``: every
-   matrix's last dim on "model", so half of the weights) and moves only
+   drawn on the CPU from seed 0), B = 4 prompts of 1024 tokens
+   (``[main]``'s), 32 greedy tokens.  Each rank draws the whole model on the
+   CPU, keeps its shard under the serve rules
+   (``convert.shard_for_rank``: every matrix's last dim on "model", so
+   half of the weights) and moves only
    that to the card; its rows of the batch (2 of 4, split over "data")
    go through ``make_engine(mesh=)``, then prefill and each decode step
    alone through ``dist.steps.make_prefill`` / ``make_decode_step``,
@@ -361,6 +364,40 @@ Phases (any failure exits non-zero and prints no result line):
    experts routing the node's whole batch): step 0's loss and gradients
    within 1e-4 of ``models.model.loss_fn`` on the whole model and batch,
    and 2 steps within 1e-4 of the method's update with no mixing.
+   ``[tp-spec]``: in the same spawns, after the gemma3-1b serve checks:
+   ``make_engine(mesh=, speculate_k=4, draft_cfg=)`` with ``[spec]``'s
+   1-block draft model of gemma3-1b (bf16, seed 2, drawn on the CPU and
+   sharded under its own serve rules), 16 greedy tokens of each rank's
+   rows.  Held against the one-rank engine with the same draft in this
+   process: the tokens equal (a row may part from them only at a
+   near-tie, as in ``[tp-serve]``, and then its ``SpecStats`` are not
+   compared) and, where they are, the rows' ``SpecStats`` equal.  Per
+   rank: flash launches, equal to 26 + 8 for the prefills and 5 x 8 +
+   26 per round, the round count, ms per round (CUDA events), and the
+   gathers of one draft step and of one verify (k + 1 rows) alone.
+   ``[dryrun]``, on the host:
+   ``launch.dryrun.dry_cell`` of gemma3-1b on each of the four ranks'
+   coordinates of a dry (data 2, model 2) mesh, the meta device, at
+   ``[tp-serve]``'s decode step and ``[tp-train]``'s step: its gathers
+   and bytes (forward and backward), parameter bytes and gossip bytes
+   equal what those phases counted on every rank; and ``python -m
+   repro_torch.launch.dryrun --all --mesh single --jobs 6``, in a
+   subprocess that sees no card, at the lowest CPU priority (``nice -n
+   19``), started before ``[sweep]`` (whose launches take one core of
+   the eight) and waited for at the end: every cell of the production
+   sweep ``ok`` or ``skipped``, each printed.  ``[smoke-mp]`` and
+   ``[examples]`` run after ``[sweep]``, beside the phases of items 5
+   and 6 (which time nothing: their four subprocesses start first, the
+   four ranks' dry cells and those phases run here meanwhile).
+   ``[smoke-mp]``:
+   ``scripts/launch_multiprocess_torch.sh -p 2`` (the bring-up smoke,
+   each process on the card, an all_reduce over both): exit 0 and two
+   ``SMOKE_OK`` lines.  ``[examples]``: the three
+   ``examples/*_torch.py`` on the card at their small settings, each a
+   subprocess that must exit 0 (``quickstart_torch.py --steps 60``,
+   ``serve_batched_torch.py``: 8 gloo ranks as (4, 2), every row equal
+   to the one-rank engine's; ``train_decentralized_torch.py --preset
+   tiny --steps 20``: its loss falls).
 5. The port on the card against the port on the CPU: reduced gemma3-1b
    serving in f32 (greedy tokens equal, prefill logits within 1e-4);
    ``[moe-cpu-vs-card]``: reduced grok-1-314b and deepseek-v3-671b in
@@ -406,12 +443,17 @@ main-path shape; the last line is
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
 import gc
 import json
+import os
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -545,8 +587,10 @@ FAIL_REGIME = dict(drop_rate=0.25, delay=2, churn_rate=0.1,
                    byzantine_frac=0.3, byzantine_mode="sign_flip", seed=7)
 # the sweep path: the grid of the reference's robustness table
 # (benchmarks/failure.py:48-62, copied: the benchmark folder is not
-# imported), the paper MLP 32-64-10 at n = 16 on Dirichlet(0.3) data
-SWEEP_N, SWEEP_STEPS, SWEEP_ETA, SWEEP_BATCH = 16, 120, 0.05, 32
+# imported), the paper MLP 32-64-10 at n = 16 on Dirichlet(0.3) data;
+# depth cut from the grid's 120 steps to 60 (each sweep's steps are
+# host-bound: 80 per-copy backward passes a step)
+SWEEP_N, SWEEP_STEPS, SWEEP_ETA, SWEEP_BATCH = 16, 60, 0.05, 32
 SWEEP_TOPOS = (("base", 1), ("base", 4), ("one_peer_exp", None),
                ("exp", None), ("ring", None))
 SWEEP_REGIMES = (
@@ -3563,8 +3607,9 @@ def phase_sweep(torch, dev, card):
     base = ROOT / "benchmarks" / "baselines" / "BENCH_failure.json"
     ref_acc = json.loads(base.read_text())["metrics"] if base.exists() \
         else {}
-    print(f"[sweep] final accuracy per topology x regime, port (reference "
-          f"baseline, JAX on a CPU, other weights: not a gate)")
+    print(f"[sweep] final accuracy per topology x regime after "
+          f"{SWEEP_STEPS} steps, port (reference baseline after 120 steps, "
+          f"JAX on a CPU, other weights: not a gate)")
     print("[sweep] " + f"{'topology':<16}" + "".join(
         f"{name:>22}" for name, _ in SWEEP_REGIMES))
     for c, label in enumerate(sync.names):
@@ -4950,12 +4995,18 @@ TP_LOSS_REL, TP_PARAM_REL, TP_PARAM_MOVE, TP_F32_TOL = \
     2.0 ** -7, 2.0 ** -5, 2.0 ** -1, 1e-4
 
 
+# [tp-spec], in the gemma3-1b spawns after the serve checks: k drafts a
+# round through [spec]'s 1-block draft model (seed 2), TP_SPEC_NEW tokens
+TP_SPEC_K, TP_SPEC_SEED, TP_SPEC_NEW = 4, 2, 16
+
+
 @dataclasses.dataclass(frozen=True)
 class TPServeCase:
     arch: str
     reduced: bool
     tokens: list            # the whole batch's prompts, B lists of ints
     new: int
+    spec: bool = False      # [tp-spec] after the serve checks
 
 
 def _tp_rank(rank, device, case):
@@ -5049,14 +5100,138 @@ def _tp_rank(rank, device, case):
            "gathers": gathers, "resident": resident,
            "share": shard_bytes(cfg, dtype, mesh),
            "peak": torch.cuda.max_memory_allocated(device)}
+    del engine, res, caches, logits, lg, steps
+    if case.spec:
+        out["spec"] = _tp_spec_rank(device, cfg, dtype, mesh, model, mine,
+                                    TP_SPEC_NEW)
     # [tp-train] on the same shards: gemma3-1b's train and serve rules
     # lay the weights out alike (the train rules cut every shard)
     shards = {k: v.detach() for k, v in model.state_dict().items()}
-    del model, engine, res, caches, logits, lg, mine, steps
+    del model, mine
     gc.collect()
     torch.cuda.empty_cache()
     out["train"] = _tp_train(device, cfg, dtype, mesh, shards, full)
     return out
+
+
+def _spec_draft(cfg, dtype):
+    """``[spec]``'s 1-block draft model of ``cfg`` and its weights, drawn
+    on the CPU from TP_SPEC_SEED."""
+    from repro_torch.models import model as M
+    dcfg = dataclasses.replace(cfg, num_blocks=1)
+    return dcfg, M.init(dcfg, seed=TP_SPEC_SEED, dtype=dtype, device="cpu")
+
+
+def _tp_spec_rank(device, cfg, dtype, mesh, model, mine, new):
+    """``[tp-spec]`` on this rank: the draft model sharded and bound, one
+    speculative generation of its rows (flash launches counted from
+    zero, CUDA events around it), then one draft step and one verify
+    alone, each with its gathers counted."""
+    import torch
+
+    from repro_torch.convert import shard_for_rank
+    from repro_torch.dist.sharding import make_rules, param_partition_specs
+    from repro_torch.dist.tp import bind
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.models import model as M
+    from repro_torch.serve import make_engine
+
+    dcfg, dfull = _spec_draft(cfg, dtype)
+    dfull = dfull.state_dict()
+    draft = bind(dcfg, {k: v.to(device) for k, v in shard_for_rank(
+        dfull, param_partition_specs(dfull, make_rules(
+            mesh, arch_name=dcfg.name, context="serve")), mesh,
+        mesh.coords).items()}, mesh)
+    del dfull
+    P = mine["tokens"].shape[1]
+    engine = make_engine(cfg, batch=BATCH, prompt_len=P, max_new=new,
+                         param_dtype=dtype, cache_dtype=dtype,
+                         speculate_k=TP_SPEC_K, draft_cfg=dcfg,
+                         device=device, mesh=mesh)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    flash_attention_fwd.launches = 0
+    a.record()
+    res = engine.generate_with_state(model, mine, draft_params=draft)
+    b.record()
+    torch.cuda.synchronize(device)
+    launches = flash_attention_fwd.launches
+    gen_ms = a.elapsed_time(b)
+    alone = {}
+    with torch.inference_mode():
+        _, caches, _ = engine.prefill.fn(model, mine)
+        _, dcaches = M.prefill(dcfg, draft, mine, engine.seq, dtype)
+        tok = mine["tokens"][:, -1:]
+        for name, comm, fn in (
+                ("draft", draft.tp, lambda: M.decode_step(
+                    dcfg, draft, dcaches, tok, P)),
+                ("verify", model.tp, lambda: engine.decode.fn(
+                    model, caches, tok.repeat(1, TP_SPEC_K + 1), P))):
+            before = dict(comm.stats)
+            fn()
+            torch.cuda.synchronize(device)
+            alone[name] = {k: comm.stats[k] - before[k] for k in before}
+    out = {"tokens": res.tokens.cpu().tolist(),
+           "stats": [t.cpu().tolist() for t in res.spec],
+           "launches": launches, "gen_ms": gen_ms,
+           "iterations": int(res.spec.rounds.max()),
+           "layers": (cfg.num_layers, dcfg.num_layers), "alone": alone}
+    del engine, res, caches, dcaches, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _check_tp_spec(torch, tag, ranks, want, stats, margins, atol):
+    """``[tp-spec]``'s checks (module docstring) and lines; returns the
+    ranks' flash launches in their generations."""
+    fails = []
+    for r in ranks:
+        sp, c = r["spec"], r["coords"]
+        rows = slice(r["row0"], r["row0"] + r["rows"])
+        L, Ld = sp["layers"]
+        per_round = (TP_SPEC_K + 1) * Ld + L
+        expect = L + Ld + sp["iterations"] * per_round
+        if sp["launches"] != expect:
+            fails.append(f"rank {c}: {sp['launches']} flash launches, "
+                         f"expected {L} + {Ld} + {sp['iterations']} x "
+                         f"{per_round} = {expect}")
+        got = torch.tensor(sp["tokens"])
+        same = torch.equal(got, want[rows])
+        for b in range(r["rows"]):
+            diff = (got[b] != want[rows][b]).nonzero()
+            if not len(diff):
+                continue
+            t = int(diff[0])
+            margin = float(margins[rows][b, t])
+            if margin > 2 * atol:
+                fails.append(f"rank {c} row {r['row0'] + b}: tokens part "
+                             f"from the one-rank's at step {t}, top-2 "
+                             f"margin {margin:.4g} > 2 x {atol:.4g}")
+            print(f"{tag} rank {c} row {r['row0'] + b} parts from the "
+                  f"one-rank tokens at step {t}: a near-tie (margin "
+                  f"{margin:.4g} <= {2 * atol:.4g}); its SpecStats are not "
+                  f"compared")
+        if same and [s[rows].tolist() for s in stats] != sp["stats"]:
+            fails.append(f"rank {c}: SpecStats {sp['stats']} differ from "
+                         f"the one-rank engine's "
+                         f"{[s[rows].tolist() for s in stats]}")
+        al = sp["alone"]
+        print(f"{tag} rank {c} rows {r['row0']}...{r['row0'] + r['rows'] - 1}"
+              f": {sp['iterations']} rounds, {sp['gen_ms']:.1f} ms for the "
+              f"generation ({sp['gen_ms'] / max(sp['iterations'], 1):.1f} "
+              f"ms a round, CUDA events, both prefills included); flash "
+              f"{sp['launches']} = {L} + {Ld} + {sp['iterations']} x "
+              f"{per_round}; rounds/drafted/accepted per row "
+              f"{sp['stats']}; gathers per draft step "
+              f"{al['draft']['collectives']} ({al['draft']['bytes']} "
+              f"bytes), per verify of {TP_SPEC_K + 1} rows "
+              f"{al['verify']['collectives']} ({al['verify']['bytes']} "
+              f"bytes); tokens {'equal' if same else 'differ from'} the "
+              f"one-rank engine's")
+    if fails:
+        raise SystemExit(f"{tag} failed:\n" + "\n".join(fails))
+    return [r["spec"]["launches"] for r in ranks]
 
 
 def _tp_train(device, cfg, dtype, mesh, shards, full):
@@ -5218,10 +5393,12 @@ def _tp_train(device, cfg, dtype, mesh, shards, full):
     return out
 
 
-def _one_rank_reference(torch, dev, cfg, dtype, tokens, new):
+def _one_rank_reference(torch, dev, cfg, dtype, tokens, new, spec=False):
     """The one-rank engine on the ranks' weights (drawn on the CPU from
     seed 0): its tokens, the prefill and first decode step's logits (f32
-    copies of them), and each step's top-2 logit margin (B, new)."""
+    copies of them), each step's top-2 logit margin (B, new), and with
+    ``spec`` the tokens and ``SpecStats`` of the engine with
+    ``[tp-spec]``'s draft (else None)."""
     from repro_torch.models import model as M
     from repro_torch.serve import make_engine
 
@@ -5230,6 +5407,17 @@ def _one_rank_reference(torch, dev, cfg, dtype, tokens, new):
     engine = make_engine(cfg, batch=B, prompt_len=P, max_new=new,
                          param_dtype=dtype, cache_dtype=dtype, device=dev)
     want = engine.generate_with_state(params, {"tokens": tokens}).tokens
+    with_draft = None
+    if spec:
+        dcfg, dparams = _spec_draft(cfg, dtype)
+        res = make_engine(
+            cfg, batch=B, prompt_len=P, max_new=TP_SPEC_NEW,
+            param_dtype=dtype, cache_dtype=dtype, speculate_k=TP_SPEC_K,
+            draft_cfg=dcfg,
+            device=dev).generate_with_state(
+                params, {"tokens": tokens}, draft_params=dparams.to(dev))
+        with_draft = (res.tokens.cpu(), [t.cpu() for t in res.spec])
+        del dparams, res
     margins = []
 
     def pick(lg):
@@ -5252,7 +5440,7 @@ def _one_rank_reference(torch, dev, cfg, dtype, tokens, new):
         raise SystemExit("[tp-serve] the one-rank steps alone differ from "
                          "its engine's tokens")
     out = (want.cpu(), prefill.cpu(), step1.cpu(),
-           torch.stack(margins, 1).cpu())
+           torch.stack(margins, 1).cpu(), with_draft)
     del params, caches, engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -5260,14 +5448,17 @@ def _one_rank_reference(torch, dev, cfg, dtype, tokens, new):
 
 
 def phase_tp_serve(torch, dev, card):
-    """``[tp-serve]`` and, in the same spawns, ``[tp-train]`` (module
-    docstring): returns the gemma3-1b serving launches over the four
-    ranks by phase, and row 1's entries at a rank's shapes."""
+    """``[tp-serve]`` and, in the same spawns, ``[tp-train]`` and
+    ``[tp-spec]`` (module docstring): returns the gemma3-1b serving
+    launches over the four ranks by phase, row 1's entries at a rank's
+    shapes, and what the gemma3-1b ranks counted (per rank: its
+    coordinates, gathers and bytes per decode step, parameter bytes, and
+    its last train step's record) for ``[dryrun]``."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.launch.distributed import spawn_local
 
-    launches = {}
+    launches, counted = {}, None
     for arch, reduced, prompt, new, tol in TP_CASES:
         tag = f"[tp-serve] {arch}{' reduced' if reduced else ''}"
         cfg = get_config(arch)
@@ -5277,13 +5468,14 @@ def phase_tp_serve(torch, dev, card):
         tokens = torch.randint(0, cfg.vocab_size, (BATCH, prompt),
                                generator=gen, device=dev)
         t0 = time.perf_counter()
-        want, pre, step1, margins = _one_rank_reference(
-            torch, dev, cfg, dtype, tokens, new)
+        spec = not reduced
+        want, pre, step1, margins, with_draft = _one_rank_reference(
+            torch, dev, cfg, dtype, tokens, new, spec)
         one_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         ranks = spawn_local(_tp_rank, TP_RANKS, args=(TPServeCase(
-            arch, reduced, tokens.cpu().tolist(), new),), backend="gloo",
-            device="cuda", timeout=TP_TIMEOUT)
+            arch, reduced, tokens.cpu().tolist(), new, spec),),
+            backend="gloo", device="cuda", timeout=TP_TIMEOUT)
         spawn_s = time.perf_counter() - t0
         L = attention_layers(cfg)
         scale = float(pre.abs().max())
@@ -5347,6 +5539,20 @@ def phase_tp_serve(torch, dev, card):
         _check_tp_train(f"[tp-train] {arch}{' reduced' if reduced else ''}",
                         [r["train"] for r in ranks],
                         [r["coords"] for r in ranks], card)
+        if spec:
+            swant, sstats = with_draft
+            same = "the same" if torch.equal(
+                swant, want[:, :TP_SPEC_NEW]) else "other"
+            print(f"[tp-spec] {arch} {card}: the one-rank engine with the "
+                  f"draft gives {same} tokens as the plain one-rank engine;"
+                  f" rounds/drafted/accepted per row "
+                  f"{[t.tolist() for t in sstats]}")
+            launches["tp-spec"] = _check_tp_spec(
+                torch, f"[tp-spec] {arch}", ranks, swant, sstats, margins,
+                atol)
+            counted = [{"coords": r["coords"], "decode": r["gathers"],
+                        "share": r["share"], "train": r["train"]}
+                       for r in ranks]
         if reduced:
             if same != len(ranks):
                 raise SystemExit(f"{tag}: f32 tokens differ from the "
@@ -5373,7 +5579,206 @@ def phase_tp_serve(torch, dev, card):
                 k_valid=k_valid, window=window, softcap=None))
     del flush
     flash_attention_fwd.launches = 0
-    return launches, entries
+    return launches, entries, counted
+
+
+DRYRUN_OUT = ROOT / "build" / "chip_smoke_dryrun"
+
+
+def start_dry_sweep():
+    """Start ``[dryrun]``'s production sweep (module docstring): a
+    subprocess that sees no card, at the lowest CPU priority, so that it
+    takes the cycles the phases beside it leave; :func:`phase_tools`
+    waits for it and checks its cells."""
+    if DRYRUN_OUT.exists():
+        for f in DRYRUN_OUT.iterdir():
+            f.unlink()
+    return _start({"[dryrun] sweep": (
+        ["nice", "-n", "19", sys.executable, "-m",
+         "repro_torch.launch.dryrun", "--all", "--mesh", "single",
+         "--jobs", "6", "--out", str(DRYRUN_OUT)],
+        dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+             CUDA_VISIBLE_DEVICES=""))})
+
+
+def phase_tools(card, counted, dry, meanwhile=None):
+    """``[dryrun]``, ``[smoke-mp]`` and ``[examples]`` (module docstring)
+    side by side: the four card subprocesses start beside ``dry`` (the
+    production sweep's, from :func:`start_dry_sweep`), the four ranks'
+    dry cells (against what the ranks counted, ``counted`` from
+    :func:`phase_tp_serve`) and then ``meanwhile`` run here; each
+    subprocess is waited for and checked."""
+    src = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def here():
+        _dry_rank_cells(card, counted)
+        if meanwhile is not None:
+            meanwhile()
+
+    _run_side_by_side(card, {
+        "[smoke-mp]": (["scripts/launch_multiprocess_torch.sh", "-p", "2"],
+                       src),
+        "[examples] quickstart_torch.py": (
+            [sys.executable, "examples/quickstart_torch.py", "--steps",
+             "60"], src),
+        "[examples] serve_batched_torch.py": (
+            [sys.executable, "examples/serve_batched_torch.py"], src),
+        "[examples] train_decentralized_torch.py": (
+            [sys.executable, "examples/train_decentralized_torch.py",
+             "--preset", "tiny", "--steps", "20"], src)},
+        here, started=dry)
+    _check_sweep(DRYRUN_OUT)
+
+
+def _start(runs):
+    """Start every ``runs[tag] = (cmd, env)`` subprocess from the
+    checkout's root, each in a process group of its own, its output to a
+    file (nothing reads a pipe while they run); returns ``{tag: (process,
+    file, start time)}``.  Each group is killed when this process exits,
+    if it is still running then."""
+    started = {}
+    for tag, (cmd, env) in runs.items():
+        log = tempfile.TemporaryFile("w+")
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        atexit.register(_kill_group, proc)
+        started[tag] = (proc, log, time.perf_counter())
+    return started
+
+
+def _kill_group(proc) -> None:
+    """Kill ``proc``'s process group (its children too) unless it has
+    ended, and reap it."""
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+
+
+def _run_side_by_side(card, runs, meanwhile=None, timeout=600.0,
+                      started=None):
+    """Start every ``runs[tag] = (cmd, env)`` subprocess (:func:`_start`)
+    beside those already ``started``, call ``meanwhile``, wait for each
+    (its seconds from its own start taken when it exits), and raise
+    unless each exited 0; prints the tail of each one's output."""
+    t0 = time.perf_counter()
+    procs = dict(started or {})
+    procs.update(_start(runs))
+    ended = {}
+
+    def watch(tag, p, t):
+        p.wait()
+        ended[tag] = time.perf_counter() - t
+
+    for tag, (p, _, t) in procs.items():    # exit times while meanwhile runs
+        threading.Thread(target=watch, args=(tag, p, t), daemon=True).start()
+    try:
+        if meanwhile is not None:
+            meanwhile()
+        while len(ended) < len(procs):
+            if time.perf_counter() - t0 > timeout:
+                raise SystemExit(f"{sorted(set(procs) - set(ended))} still "
+                                 f"running after {timeout} s")
+            time.sleep(0.2)
+        done = {}
+        for tag, (p, log, _) in procs.items():
+            log.seek(0)
+            done[tag] = (p.returncode, log.read())
+    finally:
+        for p, log, _ in procs.values():
+            _kill_group(p)
+            log.close()
+    for tag, (rc, o) in done.items():
+        lines = [ln for ln in o.splitlines() if ln.strip()]
+        if rc:
+            raise SystemExit(f"{tag} exited {rc}:\n" + "\n".join(lines[-40:]))
+        if tag == "[smoke-mp]":
+            ok = sorted(ln for ln in lines if ln.startswith("SMOKE_OK"))
+            if len(ok) != 2 or not all("device=cuda" in ln
+                                       and "global_sum=2" in ln
+                                       for ln in ok):
+                raise SystemExit(f"[smoke-mp] expected two SMOKE_OK lines "
+                                 f"on the card, got {ok}")
+            lines = ok + lines[-1:]
+        elif tag.startswith("[examples]"):
+            lines = lines[-3:]
+        else:
+            lines = []
+        for ln in lines:
+            print(f"{tag} {ln}")
+        print(f"{tag} {card}: exit 0 after {ended[tag]:.1f} s")
+
+
+def _check_sweep(out: Path) -> None:
+    """Every cell of the production sweep under ``out`` ``ok`` or
+    ``skipped``; each printed."""
+    statuses = {}
+    for f in sorted(out.glob("*.json")):
+        res = json.loads(f.read_text())
+        statuses[f.stem] = res["status"]
+        print(f"[dryrun] {f.stem}: {res['status']}"
+              + (f", {res['memory']['total']} bytes a rank (fits "
+                 f"{res['fits']}), {res['flops_per_rank']:.4g} FLOPs a "
+                 f"rank, {res['gathers']} gathers, {res['run_s']} s"
+                 if res["status"] == "ok" else ""))
+    bad = [k for k, v in statuses.items() if v not in ("ok", "skipped")]
+    if len(statuses) != 40 or bad:
+        raise SystemExit(f"[dryrun] the sweep has {len(statuses)} cells of "
+                         f"40; not ok: {bad}")
+    print(f"[dryrun] the sweep: {sum(v == 'ok' for v in statuses.values())}"
+          f" ok, {sum(v == 'skipped' for v in statuses.values())} skipped")
+
+
+def _dry_rank_cells(card, counted):
+    """The dry cells of gemma3-1b on each of the four ranks' coordinates
+    against what the ranks counted (:func:`phase_tools`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import dry_cell
+    from repro_torch.launch.mesh import Mesh, dry_mesh
+
+    cfg = get_config("gemma3-1b")
+    mesh = Mesh({"data": TP_RANKS // TP_MODEL, "model": TP_MODEL})
+    rows, seq, remat = TP_TRAIN["gemma3-1b"]
+    fails = []
+    t0 = time.perf_counter()
+    for rank, r in enumerate(counted):
+        m = dry_mesh(mesh, rank)
+        dec = dry_cell(cfg, "decode", m, batch=BATCH, seq=PROMPT + TP_NEW)
+        tr = dry_cell(cfg, "train", m, batch=rows * mesh.shape["data"],
+                      seq=seq, remat=remat)
+        live = r["train"]["steps"][-1]
+        got = {"coords": m.coords,
+               "decode": {"collectives": dec["gathers"],
+                          "bytes": dec["gather_bytes"]},
+               "share": dec["memory"]["params"],
+               "train": (tr["gathers"], tr["gather_bytes"],
+                         tr["bwd_gathers"], tr["bwd_bytes"],
+                         tr["gossip_bytes"], tr["memory"]["params"])}
+        want = {"coords": r["coords"], "decode": r["decode"],
+                "share": r["share"],
+                "train": (live["gathers"], live["gather_bytes"],
+                          live["bwd_gathers"], live["bwd_bytes"],
+                          live["sent"], r["train"]["param_bytes"])}
+        print(f"[dryrun] gemma3-1b rank {m.coords} (meta device): decode "
+              f"step {dec['gathers']} gathers / {dec['gather_bytes']} "
+              f"bytes, parameters {dec['memory']['params']} bytes; train "
+              f"step {tr['gathers']} gathers / {tr['gather_bytes']} bytes "
+              f"({tr['gathers'] - tr['bwd_gathers']} forward of "
+              f"{tr['gather_bytes'] - tr['bwd_bytes']}, {tr['bwd_gathers']}"
+              f" backward of {tr['bwd_bytes']}), gossip "
+              f"{tr['gossip_bytes']} bytes, {tr['flops_per_rank']:.4g} "
+              f"FLOPs a rank (compute {tr['compute_s'] * 1e3:.3f} ms at "
+              f"989 TFLOP/s); measured on {card}: decode {r['decode']}, "
+              f"train {want['train']}")
+        if got != want:
+            fails.append(f"rank {m.coords}: dry {got} != measured {want}")
+    print(f"[dryrun] the four ranks' cells {time.perf_counter() - t0:.1f} "
+          f"s")
+    if fails:
+        raise SystemExit("[dryrun] failed:\n" + "\n".join(fails))
 
 
 def _check_tp_train(tag, results, coords, card):
@@ -5739,6 +6144,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this check runs on "
                          "the card")
+    # a SIGTERM ends the run as a failure does: the subprocesses started
+    # here are killed on the way out (_start)
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
     if not (ROOT / "src" / "repro_torch").is_dir():
         raise SystemExit(f"chip_smoke: src/repro_torch not found beside "
                          f"{Path(__file__).name}; run it from a checkout")
@@ -5837,11 +6245,15 @@ def main() -> None:
     lap("[dist-overlap]")
     phase_ckpt(torch, dev, card, seq, overlapped)
     lap("[ckpt]")
-    tp_launches, tp_entries = phase_tp_serve(torch, dev, card)
+    tp_launches, tp_entries, counted = phase_tp_serve(torch, dev, card)
+    spec_launches = tp_launches.pop("tp-spec")
+    print(f"[tp-spec] flash launches per rank in its generation: "
+          f"{spec_launches} ({sum(spec_launches)} on the four)")
     launches.update(tp_launches)
     entries += tp_entries
-    lap("[tp-serve] [tp-train]")
+    lap("[tp-serve] [tp-train] [tp-spec]")
     launches.update(phase_failure(torch, dev, card))
+    dry = start_dry_sweep()         # on the host, to the end (phase_tools)
     sweep_launches, sweep_kernels = phase_sweep(torch, dev, card)
     launches.update(sweep_launches)
     entries += sweep_kernels
@@ -5870,19 +6282,36 @@ def main() -> None:
     if idle:        # the stacked, (64, 32) and Tq > S entries: on no path
         raise SystemExit(f"kernels of a main path launched no time there: "
                          f"{idle}")
-    phase_cpu_vs_card(torch, dev)
-    phase_moe_cpu_vs_card(torch, dev)
-    phase_moe_cpu_vs_card(torch, dev, archs=(SSM_ARCH, HYBRID_ARCH),
-                          tag="[ssm-cpu-vs-card]")
-    phase_moe_cpu_vs_card(torch, dev, archs=(VLM_ARCH, ENCDEC_ARCH),
-                          tag="[encdec-cpu-vs-card]")
-    phase_train_cpu_vs_card(torch, dev)
-    phase_compress_cpu_vs_card(torch, dev)
-    phase_continuous_cpu_vs_card(torch, dev)
-    phase_spec_cpu_vs_card(torch, dev)
-    phase_failure_cpu_vs_card(torch, dev)
-    phase_consensus(torch, dev)
-    lap("the cpu-vs-card phases and [consensus]")
+
+    def checks():
+        """Items 5 and 6 of the module's docstring: they time nothing,
+        so they run beside the tools' subprocesses, on two CPU threads
+        (eight, among the ~20 processes of the tools on eight cores,
+        wait on one another at every parallel region: ~25x slower)."""
+        threads = torch.get_num_threads()
+        torch.set_num_threads(2)
+        try:
+            _checks()
+        finally:
+            torch.set_num_threads(threads)
+
+    def _checks():
+        phase_cpu_vs_card(torch, dev)
+        phase_moe_cpu_vs_card(torch, dev)
+        phase_moe_cpu_vs_card(torch, dev, archs=(SSM_ARCH, HYBRID_ARCH),
+                              tag="[ssm-cpu-vs-card]")
+        phase_moe_cpu_vs_card(torch, dev, archs=(VLM_ARCH, ENCDEC_ARCH),
+                              tag="[encdec-cpu-vs-card]")
+        phase_train_cpu_vs_card(torch, dev)
+        phase_compress_cpu_vs_card(torch, dev)
+        phase_continuous_cpu_vs_card(torch, dev)
+        phase_spec_cpu_vs_card(torch, dev)
+        phase_failure_cpu_vs_card(torch, dev)
+        phase_consensus(torch, dev)
+
+    phase_tools(card, counted, dry, checks)
+    lap("[dryrun] [smoke-mp] [examples] beside the cpu-vs-card phases and "
+        "[consensus]")
     print(card)
     print(json.dumps({"kernels": [e for _, e in entries]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""``chip_smoke.py``'s ``[build]`` and ``[tp-serve]`` + ``[tp-train]``
-phases alone, on one card (the tensor-parallel paths without the rest of
-the script's ~15 minutes):
+"""``chip_smoke.py``'s ``[build]``, ``[tp-serve]`` + ``[tp-train]`` +
+``[tp-spec]``, ``[dryrun]``, ``[smoke-mp]`` and ``[examples]`` phases
+alone, on one card (the tensor-parallel paths and the tools without the
+rest of the script's ~15 minutes):
 
     python3 scripts/tp_phases.py
 """
@@ -27,9 +28,14 @@ def main():
     C.phase_build(torch)
     print(f"[seconds] [build] {time.perf_counter() - t0:.1f}", flush=True)
     t0 = time.perf_counter()
-    C.phase_tp_serve(torch, dev, card)
-    print(f"[seconds] [tp-serve] [tp-train] {time.perf_counter() - t0:.1f}",
-          flush=True)
+    launches, _, counted = C.phase_tp_serve(torch, dev, card)
+    print(f"[tp-spec] flash launches per rank: {launches['tp-spec']}")
+    print(f"[seconds] [tp-serve] [tp-train] [tp-spec] "
+          f"{time.perf_counter() - t0:.1f}", flush=True)
+    t0 = time.perf_counter()
+    C.phase_tools(card, counted, C.start_dry_sweep())
+    print(f"[seconds] [dryrun] [smoke-mp] [examples] "
+          f"{time.perf_counter() - t0:.1f}", flush=True)
 
 
 if __name__ == "__main__":

@@ -32,9 +32,11 @@ over its node axis.  A rank of the tensor-parallel trainer holds its
 node's row and its slice of each weight dim instead
 (:func:`mesh_placement`): it writes that slice with the global index it
 covers, as the reference stores a device's shard of a mesh.  A leaf of shape ``()`` is written whole by every
-process; the loader keeps one copy.  :func:`load_pytree` restores either
-the whole ``(n, ...)`` leaves or one rank's ``(1, ...)`` slice, reading
-only the shards that cover the rows it returns.
+process; the loader keeps one copy.  :func:`load_pytree` restores the
+whole ``(n, ...)`` leaves, one rank's ``(1, ...)`` slice, or (given a
+:func:`mesh_placement`) a rank's shards on any mesh, whatever mesh wrote
+the checkpoint, reading only the shards that cover the region it
+returns.
 
 **Commit.**  Every process calls ``save`` in the same order, so the
 staging directory ``.tmp-<name>-<token>-<seq>`` is named alike on all of
@@ -293,6 +295,7 @@ def mesh_placement(specs: dict, mesh, node_axis: str | None, *,
     node = mesh.coords[node_axis] if node_axis else 0
 
     def place(key, local, blocks_axis):
+        """``(global shape, index)`` of this rank's ``local`` tensor."""
         shape, index = [], []
         lead = 0
         if nodes:
@@ -316,6 +319,7 @@ def mesh_placement(specs: dict, mesh, node_axis: str | None, *,
             index.append([pos * d, (pos + 1) * d])
         return tuple(shape), index
 
+    place.nodes = nodes
     return place
 
 
@@ -622,7 +626,8 @@ def _read_region(ckpt_dir: str, rec: dict, files: dict,
 
 
 def load_pytree(template, directory: str, name: str = "ckpt", *,
-                node_axis: bool = False, rank: int | None = None):
+                node_axis: bool = False, rank: int | None = None,
+                placement=None):
     """Restore into the structure of ``template`` (nested dicts of flat
     dicts of tensors, and ints; the leaves give shape, dtype and device,
     and a checkpoint leaf of another dtype is cast to the template's).
@@ -630,14 +635,25 @@ def load_pytree(template, directory: str, name: str = "ckpt", *,
     ``rank=None``: the template's tensors are whole leaves (``node_axis``:
     they lead with a node axis, so a pattern block stacks after it).
     ``rank=r``: they are rank r's ``(1, ...)`` slices of leaves stacked
-    over the nodes, and only the shards covering row r are read.  A
-    checkpoint from the reference restores either way, as does one from
-    the port's distributed trainer."""
+    over the nodes, and only the shards covering row r are read.
+    ``placement`` (:func:`mesh_placement` of the restoring rank's specs,
+    mesh and node axis): they are that rank's shards, each the region
+    ``placement`` gives it (a node's row and its slice of each sharded
+    dim; ``node_axis`` is the placement's ``nodes``), read from whatever
+    shards cover it, so a checkpoint written on one mesh restores onto
+    another (as the reference's ``load_pytree(shardings=)``,
+    ``repro/checkpoint/io.py:288-334``), bit for bit.  A checkpoint from
+    the reference restores each way, as does one from the port's
+    distributed trainer."""
+    if placement is not None and rank is not None:
+        raise ValueError("pass rank= or placement=, not both")
     ckpt_dir = os.path.join(directory, name)
     manifest = _load_manifests(ckpt_dir)
     values = dict(_walk(template))
     if rank is not None:
         node_axis = True
+    if placement is not None:
+        node_axis = placement.nodes
     files: dict = {}
     out = {}
     try:
@@ -663,7 +679,10 @@ def load_pytree(template, directory: str, name: str = "ckpt", *,
             local = list(x0.shape)
             if axis is not None:
                 local.insert(axis, len(xs))
-            if rank is None:
+            if placement is not None:
+                shape, region = placement(leaf.paths[0][-1], local, axis)
+                ok = tuple(shape) == want
+            elif rank is None:
                 ok = tuple(local) == want
                 region = [[0, d] for d in local]
             else:
@@ -671,8 +690,10 @@ def load_pytree(template, directory: str, name: str = "ckpt", *,
                       and tuple(local[1:]) == want[1:] and rank < want[0])
                 region = [[rank, rank + 1]] + [[0, d] for d in local[1:]]
             if not ok:
+                where = (f"region {region}" if placement is not None
+                         else f"rank {rank}")
                 raise ValueError(f"{leaf.key}: template {tuple(local)} "
-                                 f"(rank {rank}) does not fit the "
+                                 f"({where}) does not fit the "
                                  f"checkpoint's {want}")
             t = _from_stored(_read_region(ckpt_dir, rec, files, region),
                              rec["dtype"]).to(x0.dtype)

@@ -101,6 +101,34 @@ class ArchConfig:
     def num_layers(self) -> int:
         return len(self.prologue) + self.num_blocks * len(self.pattern)
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if every layer's attention cost is O(T * window) or O(T)
+        (SSM) — i.e. the arch may run the long_500k shape."""
+        specs = list(self.prologue) + list(self.pattern)
+        return all(s.kind == "mamba" or s.window is not None for s in specs)
+
+    def long_context_variant(self, clamp: int = 32768) -> "ArchConfig | None":
+        """Config eligible for long_500k (assignment rules):
+          * SSM/hybrid: run as-is (O(1)/O(L) decode state).
+          * dense archs with native sliding-window layers (gemma2/gemma3):
+            the minority global layers are clamped to a ``clamp``-wide
+            window — the documented sub-quadratic variant (DESIGN.md).
+          * pure full-attention archs: None (skip)."""
+        if self.family in ("ssm", "hybrid"):
+            return self
+        specs = list(self.prologue) + list(self.pattern)
+        if not any(s.window is not None for s in specs if s.kind == "attn"):
+            return None
+
+        def cl(s: LayerSpec) -> LayerSpec:
+            if s.kind == "attn" and s.window is None:
+                return replace(s, window=clamp)
+            return s
+        return replace(self,
+                       prologue=tuple(cl(s) for s in self.prologue),
+                       pattern=tuple(cl(s) for s in self.pattern))
+
     def reduced(self, *, num_blocks: int | None = None) -> "ArchConfig":
         """Smoke-test variant: same family/pattern, tiny dims
         (<= 2 pattern blocks, d_model <= 512, <= 4 experts)."""

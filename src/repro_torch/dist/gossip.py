@@ -64,6 +64,11 @@ exchange of the round and returns at once, and ``mixer.complete(handle)``
 waits for them and combines, bucket by bucket, into what ``mixer(tree,
 r)`` returns, bit for bit, with the same messages.  Until it completes,
 a handle holds all its buckets' buffers.
+
+Over a dry mesh's stand-in group (``launch.mesh.DryGroup``, the dry run
+on the meta device) the same mixer runs on a dry wire: each message is
+counted in ``stats`` as the live wire counts it, nothing is sent, and
+what would be received is an empty tensor of its shape.
 """
 from __future__ import annotations
 
@@ -82,6 +87,7 @@ from repro_torch.core.ppermute_plan import SchedulePlan
 from repro_torch.kernels import ops
 from repro_torch.kernels.multi_tensor import BUCKET_BYTES, plan_buckets
 from repro_torch.kernels.ref import _f32_weights, sr_key
+from repro_torch.launch.mesh import DryGroup
 
 
 @dataclass(frozen=True)
@@ -222,6 +228,27 @@ class _Wire:
         return self.complete(self.issue(tensors, slot))
 
 
+class _DryWire(_Wire):
+    """The wire of a dry mesh's stand-in group: meta tensors only, each
+    message counted in ``stats`` as :class:`_Wire` counts it, nothing
+    sent; the received tensors are empty tensors of their shape."""
+
+    def __init__(self):
+        self.stats = {"messages": 0, "bytes": 0}
+
+    def issue(self, tensors: list, slot: _Slot) -> _Pending:
+        if any(t.device.type != "meta" for t in tensors):
+            raise ValueError("a dry group's mixer takes meta tensors only")
+        if slot.send_to is not None:
+            self.stats["messages"] += len(tensors)
+            self.stats["bytes"] += sum(t.numel() * t.element_size()
+                                       for t in tensors)
+        return _Pending([torch.empty_like(t) for t in tensors], [], [], [])
+
+    def complete(self, pending: _Pending) -> list:
+        return pending.recvs
+
+
 def make_gossip_mixer(group, plan: SchedulePlan, *, flatten: bool = False,
                       compression=None):
     """Build this rank's ``mixer(tree, r) -> tree`` applying round
@@ -236,28 +263,30 @@ def make_gossip_mixer(group, plan: SchedulePlan, *, flatten: bool = False,
     ``mixer(tree, r, ef, t) -> (tree, ef)``: ``ef`` the EF21 residuals
     mirroring ``tree`` (None without error feedback), updated in place,
     and ``t`` the step counter keying the stochastic rounding.  The
-    mixer's ``stats`` counts the messages and bytes this rank sent."""
+    mixer's ``stats`` counts the messages and bytes this rank sent.
+    ``group`` may be a dry mesh's ``DryGroup`` (module docstring)."""
     ccfg = resolve_compression(compression)
     if ccfg is not None and flatten:
         raise ValueError(
             "flatten_gossip + compression is unsupported: the whole-tree "
             "flat buffer would chunk across leaf boundaries, breaking "
             "payload-bit parity with the per-leaf simulation layout")
-    world = dist.get_world_size(group)
+    dry = isinstance(group, DryGroup)
+    world = group.size if dry else dist.get_world_size(group)
     if world != plan.n:
         raise ValueError(f"plan built for n={plan.n} nodes but the group "
                          f"has {world} ranks")
     if len(plan.rounds) == 0:
         raise ValueError("empty schedule plan")
-    me = dist.get_rank(group)
-    if group is None or group is dist.group.WORLD:
+    me = group.rank if dry else dist.get_rank(group)
+    if dry or group is None or group is dist.group.WORLD:
         def to_global(r):
             return r
     else:
         def to_global(r):
             return dist.get_global_rank(group, r)
     rounds = _rank_rounds(plan, me, to_global)
-    wire = _Wire(group)
+    wire = _DryWire() if dry else _Wire(group)
     cap = BUCKET_BYTES
 
     def parts(tree: dict) -> list:

@@ -70,6 +70,13 @@ memory (``dist.gossip.HostStaging``) and back.  ``Collectives.stats``
 counts the gathers and the bytes this rank received, and
 ``Collectives.backward_stats`` the share of them a backward pass made
 (a checkpointed block's recomputed forward counts as forward).
+
+On a dry mesh (``launch.mesh.dry_mesh``: a rank's coordinates, stand-ins
+for its groups) :func:`bind` uses :class:`DryCollectives`, which give
+each gather's pieces as empty tensors of its shape and count the gathers
+and bytes as the live class does, and send nothing: with the shards on
+the meta device, a step's collectives are counted without a card or a
+group (``launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -103,6 +110,13 @@ class Collectives:
         self._staging = HostStaging()
         self._in_backward = False
 
+    def _count(self, n: int, nbytes: int) -> None:
+        """One gather over ``n`` ranks of ``nbytes`` a rank."""
+        for stats in (self.stats, self.backward_stats) \
+                if self._in_backward else (self.stats,):
+            stats["collectives"] += 1
+            stats["bytes"] += (n - 1) * nbytes
+
     def gather(self, t: torch.Tensor, axis: str) -> list:
         """Every rank's ``t`` along ``axis``, in coordinate order (this
         rank's own is ``t`` itself)."""
@@ -124,10 +138,7 @@ class Collectives:
         else:
             outs = [torch.empty_like(flat) for _ in range(n)]
             dist.all_gather(outs, flat, group=group)
-        for stats in (self.stats, self.backward_stats) \
-                if self._in_backward else (self.stats,):
-            stats["collectives"] += 1
-            stats["bytes"] += (n - 1) * flat.numel()
+        self._count(n, flat.numel())
         return [t if i == me else o.view(t.dtype).reshape(t.shape)
                 for i, o in enumerate(outs)]
 
@@ -191,6 +202,25 @@ class Collectives:
         for axis in self.row_axes:
             t = self.sum(t, axis) if grad else self.ordered_sum(t, axis)
         return t
+
+
+class DryCollectives(Collectives):
+    """:class:`Collectives` on a dry mesh: a gather of a meta tensor
+    returns this rank's ``t`` and an empty tensor of its shape for each
+    other rank, counted in ``stats`` and ``backward_stats`` as the live
+    gather counts; nothing is sent.  A tensor with storage raises: its
+    gather would be uninitialised memory."""
+
+    def gather(self, t: torch.Tensor, axis: str) -> list:
+        if t.device.type != "meta":
+            raise ValueError(f"a dry mesh gathers meta tensors only, got "
+                             f"one on {t.device}")
+        n = self.mesh.shape[axis]
+        if n == 1:
+            return [t]
+        self._count(n, t.numel() * t.element_size())
+        me = self.mesh.coords[axis]
+        return [t if i == me else torch.empty_like(t) for i in range(n)]
 
 
 class _Backward:
@@ -445,7 +475,7 @@ def bind(cfg, shards: dict | None, mesh, *, context: str = "serve"
             owner, _, leaf = key.rpartition(".")
             setattr(model.get_submodule(owner), leaf,
                     nn.Parameter(t, requires_grad=context == "train"))
-    comm = Collectives(mesh)
+    comm = (DryCollectives if mesh.dry else Collectives)(mesh)
     for name, mod in model.named_modules():
         local = {leaf: specs[f"{name}.{leaf}" if name else leaf]
                  for leaf, _ in mod.named_parameters(recurse=False)}

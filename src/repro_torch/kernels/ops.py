@@ -2,6 +2,12 @@
 
 A CUDA tensor goes to the hand-written kernel, which launches or raises;
 a CPU tensor goes to the kernel's plain PyTorch version in :mod:`.ref`.
+The attention entry points (:func:`sdpa`, :func:`sdpa_decode`), the
+gossip combine (:func:`gossip_mix_many`) and the fused DSGD step
+(:func:`fused_dsgd_steps`) also take ``meta`` tensors, for the dry run
+(``launch.dryrun``): they return empty outputs of the right shapes and
+dtypes and compute nothing (attention with a backward of the same
+kind), a shape function, not a third version.
 There is no configuration object and no fallback between the two: the
 reference's ``KernelConfig(auto)`` and Pallas' ``interpret`` flag have no
 counterpart here.  Launches are counted on the kernel wrappers
@@ -125,6 +131,11 @@ def gossip_mix_many(slot_lists, weights, out_dtype=None):
             out_dtype = [out_dtype] * len(lists)
         return [ref.gossip_mix_ref(bufs, weights, out_dtype=d)
                 for bufs, d in zip(lists, out_dtype, strict=True)]
+    if dev.type == "meta":
+        if out_dtype is None or isinstance(out_dtype, torch.dtype):
+            out_dtype = [out_dtype] * len(lists)
+        return [torch.empty_like(bufs[0], dtype=d or bufs[0].dtype)
+                for bufs, d in zip(lists, out_dtype, strict=True)]
     raise NotImplementedError(f"no gossip-mix kernel for device {dev}")
 
 
@@ -218,6 +229,9 @@ def fused_dsgd_steps(xs, us, gs, beta, eta, pre_scale=1.0):
         pairs = [fused_dsgd_step(x, u, g, beta, eta, pre_scale)
                  for x, u, g in zip(xs, us, gs)]
         return [x for x, _ in pairs], [u for _, u in pairs]
+    if dev.type == "meta":
+        return ([torch.empty_like(x) for x in xs],
+                [torch.empty_like(u) for u in us])
     raise NotImplementedError(f"no fused DSGD kernel for device {dev}")
 
 
@@ -312,6 +326,29 @@ class _FlashSdpa(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None, None
 
 
+class _MetaSdpa(torch.autograd.Function):
+    """Attention's shape on the ``meta`` device: an empty ``(B, Tq, H,
+    hd_v)`` output in q's dtype, and empty gradients of q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.like = (q, k, v)
+        return q.new_empty(q.shape[:-1] + v.shape[-1:])
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return tuple(torch.empty_like(t) for t in ctx.like)
+
+
+def _meta_attention(q, k, v):
+    if q.shape[2] % k.shape[2] or k.device.type != "meta" \
+            or v.device.type != "meta":
+        raise ValueError(f"attention on meta takes meta q, k, v with H % KV "
+                         f"== 0, got {tuple(q.shape)}, {tuple(k.shape)} on "
+                         f"{k.device}")
+    return _MetaSdpa.apply(q, k, v)
+
+
 def sdpa(q, k, v, *, causal: bool = True, window=None, softcap=None,
          scale=None, q_pos0=None, k_valid_len=None):
     """Grouped-query attention in the model stack's layout — the entry
@@ -335,6 +372,8 @@ def sdpa(q, k, v, *, causal: bool = True, window=None, softcap=None,
         return ref.grouped_sdpa_ref(q, k, v, causal=causal, window=window,
                                     softcap=softcap, scale=scale,
                                     q_pos0=q_pos0, k_valid_len=k_valid_len)
+    if q.device.type == "meta":
+        return _meta_attention(q, k, v)
     raise NotImplementedError(f"no attention kernel for device {q.device}")
 
 
@@ -363,6 +402,8 @@ def sdpa_decode(q, k, v, *, q_start, k_valid_len, causal: bool = True,
         return flash_attention_fwd(q, k, v, **kw)
     if q.device.type == "cpu":
         return ref.grouped_sdpa_decode_ref(q, k, v, **kw)
+    if q.device.type == "meta":
+        return _meta_attention(q, k, v)
     raise NotImplementedError(f"no attention kernel for device {q.device}")
 
 

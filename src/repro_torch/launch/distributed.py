@@ -26,14 +26,23 @@ The backend is explicit:
 
 :func:`spawn_local` starts N local ranks (``torch.multiprocessing`` with
 the ``spawn`` start method) and returns each rank's result to the caller;
-it stands in for the reference's ``--devices N`` and
-``scripts/launch_multiprocess.sh``.
+it stands in for the reference's ``--devices N``.
+
+``python -m repro_torch.launch.distributed --smoke`` is the per-process
+bring-up smoke that ``scripts/launch_multiprocess_torch.sh`` starts in
+each of P processes through the env contract above (the reference's
+``scripts/launch_multiprocess.sh``): each process joins the group, sums
+a tensor on its own device (``cuda`` unless ``--device cpu``) and prints
+one ``SMOKE_OK proc=i/P ...`` line; ``--global-collective`` adds an
+``all_reduce`` over every process, which gloo runs on the CPU too (the
+reference's JAX CPU backend cannot).
 """
 from __future__ import annotations
 
 import argparse
 import os
 import queue as queue_mod
+import sys
 import tempfile
 import time
 import traceback
@@ -236,3 +245,84 @@ def spawn_local(fn, nproc: int, *, args=(), backend: str = "gloo",
             f"{len(failed)} of {nproc} ranks failed:\n" + "\n".join(
                 f"--- rank {r}: {msg}" for r, msg in sorted(failed.items())))
     return [done[r] for r in range(nproc)]
+
+
+# ---------------------------------------------------------------------------
+# smoke entry point (what scripts/launch_multiprocess_torch.sh runs per
+# process)
+# ---------------------------------------------------------------------------
+
+def runtime_info() -> dict:
+    """Process and device topology as this process sees it: one rank per
+    process, one device per rank (after :func:`initialize`, or a lone
+    process without it)."""
+    up = dist.is_initialized()
+    count = dist.get_world_size() if up else 1
+    return {"process_index": dist.get_rank() if up else 0,
+            "process_count": count, "local_device_count": 1,
+            "global_device_count": count}
+
+
+def _smoke(expect_processes: int | None, global_collective: bool,
+           dev: torch.device, backend: str) -> None:
+    info = runtime_info()
+    if expect_processes is not None \
+            and info["process_count"] != expect_processes:
+        raise SystemExit(f"expected {expect_processes} processes, runtime "
+                         f"reports {info['process_count']}")
+    # per-process compute on this rank's own device
+    x = torch.arange(4, dtype=torch.float32, device=dev)
+    total = float(x.sum())
+    assert total == 6.0, total
+    line = (f"SMOKE_OK proc={info['process_index']}/"
+            f"{info['process_count']} device={dev} "
+            f"local={info['local_device_count']} "
+            f"global={info['global_device_count']} local_sum={total:.0f}")
+    if global_collective and info["process_count"] > 1:
+        # gloo reduces host memory: a card's tensor goes through the host
+        y = torch.ones(1, dtype=torch.float32, device=dev)
+        y = y.cpu() if backend == "gloo" else y
+        dist.all_reduce(y)
+        if float(y) != info["process_count"]:
+            raise SystemExit(f"all_reduce gave {float(y)}, expected "
+                             f"{info['process_count']}")
+        line += f" global_sum={float(y):.0f}"
+    # one write, so the processes' lines do not interleave on a shared
+    # pipe
+    sys.stdout.flush()
+    os.write(sys.stdout.fileno(), (line + "\n").encode())
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(
+        description="multi-process bring-up smoke (per-process worker)")
+    add_distributed_args(ap)
+    ap.add_argument("--smoke", action="store_true",
+                    help="run the bring-up smoke and exit")
+    ap.add_argument("--expect-processes", type=int, default=None,
+                    help="fail unless the runtime reports exactly this "
+                         "many processes")
+    ap.add_argument("--global-collective", action="store_true",
+                    help="also run an all_reduce over every process")
+    ap.add_argument("--backend", default="gloo", choices=BACKENDS)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    cfg = config_from_args(args)
+    try:
+        if cfg.num_processes > 1:
+            dev = initialize(cfg, args.backend, args.device)
+        else:
+            dev = rank_device(args.backend, args.device, 0, 1)
+    except (RuntimeError, ValueError) as e:
+        raise SystemExit(f"error: {e}") from None
+    try:
+        _smoke(args.expect_processes, args.global_collective, dev,
+               args.backend)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

@@ -11,6 +11,10 @@ named axes, rank r at the row-major coordinates of the shape, as
 coordinates and holds one process group per axis: the ranks that share
 every other coordinate.  A shape-only mesh (:func:`make_production_mesh`)
 has neither; the sharding rules read only ``shape`` and ``axis_names``.
+A dry mesh (:func:`dry_mesh`) has a rank's coordinates and, for groups,
+:class:`DryGroup` stand-ins: the dry run (``launch.dryrun``) runs that
+rank's step on it, its collectives and gossip counted and not sent
+(``dist.tp.DryCollectives``, ``dist.gossip``'s dry wire).
 
 Functions, not module-level constants: importing this module creates no
 process group.
@@ -26,14 +30,25 @@ import torch.distributed as dist
 
 
 @dataclass(frozen=True)
+class DryGroup:
+    """A process group's stand-in on a dry mesh: its size and this
+    rank's place in it.  Nothing is sent over it; what uses it counts
+    what a live group would carry."""
+    size: int
+    rank: int
+
+
+@dataclass(frozen=True)
 class Mesh:
     """``shape`` maps each axis name to its size, in ``axis_names``
     order.  ``coords`` (this rank's coordinate per axis) and ``groups``
     (one process group per axis whose size exceeds 1) are None on a
-    shape-only mesh."""
+    shape-only mesh.  ``dry``: the groups are :class:`DryGroup` stand-ins
+    (:func:`dry_mesh`)."""
     shape: dict
     coords: dict | None = None
     groups: dict | None = field(default=None, repr=False)
+    dry: bool = False
 
     @property
     def axis_names(self) -> tuple:
@@ -48,6 +63,9 @@ class Mesh:
         of size 1: it needs no collective)."""
         if not self.live:
             raise ValueError("a shape-only mesh has no process groups")
+        if self.groups is None:
+            raise ValueError("this mesh was given coordinates and no "
+                             "process groups")
         return self.groups.get(axis)
 
 
@@ -103,6 +121,16 @@ def make_host_mesh(*, model: int = 1) -> Mesh:
     return make_mesh((world // model, model), ("data", "model"))
 
 
+def dry_mesh(mesh: Mesh, rank: int = 0) -> Mesh:
+    """``mesh``'s shape with rank ``rank``'s coordinates and a
+    :class:`DryGroup` per axis whose size exceeds 1: what the dry run
+    steps one rank on."""
+    coords = rank_coords(mesh, rank)
+    return Mesh(dict(mesh.shape), coords,
+                {a: DryGroup(n, coords[a]) for a, n in mesh.shape.items()
+                 if n > 1}, dry=True)
+
+
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """The production mesh's shape, (16, 16) or (2, 16, 16), without
     ranks: what the sharding rules and a dry run read."""
@@ -116,3 +144,4 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
 PEAK_FLOPS_BF16 = 989e12        # FLOP/s
 HBM_BW = 3.35e12                # B/s
 NVLINK_BW_PER_LINK = 25e9       # B/s per NVLink 4 link per direction
+HBM_BYTES = 80e9                # the H100 SXM's 80 GB of HBM3

@@ -46,14 +46,17 @@ reference's launcher builds its mesh (``launch/serve.py:142-144``):
 
     python -m repro_torch.launch.serve --arch gemma3-1b --batch 4 \
         --prompt-len 1024 --gen 32 --nproc 4 --mesh-model 2 \
-        [--backend gloo] [--speculate-k 4 --draft-layers 2]
+        [--backend gloo] [--speculate-k 4 --draft-layers 2 |
+         --speculate-k 4 --draft-config gemma3-1b]
 
 Each rank draws the whole model on the CPU from ``--seed`` (so on the CPU
 the weights, and the greedy tokens, are ``--nproc 1``'s), keeps its shard
 under the serve rules (``convert.shard_for_rank``), moves it to its
 device and serves its rows of the batch through ``make_engine(mesh=)``;
 the launcher prints the tokens of every row, rank 0's timings and its
-gathers.  ``--continuous`` and ``--draft-config`` take no mesh.
+gathers.  A ``--draft-config`` model is drawn the same way (from
+``--seed`` + 1) and sharded under the same serve rules.  ``--continuous``
+takes no mesh, as the reference's continuous engine takes none.
 
 Every shape (prompt padding, the bucket list, the trace's prompt range)
 comes from :func:`plan_shapes`.  Runs on the card unless ``--device cpu``
@@ -148,9 +151,9 @@ def main(argv=None) -> None:
                          "continuous engine speculates self-speculatively "
                          "(--draft-layers)")
     if args.nproc > 1 or args.mesh_model > 1:
-        if args.continuous or args.draft_config:
+        if args.continuous:
             raise SystemExit("--nproc serves the fixed-batch engine; "
-                             "--continuous and --draft-config take no mesh")
+                             "--continuous takes no mesh")
         if args.mesh_model < 1 or args.nproc % args.mesh_model:
             raise SystemExit(f"--mesh-model {args.mesh_model} does not "
                              f"divide --nproc {args.nproc}")
@@ -277,6 +280,18 @@ def _serve_rank(rank, device, args):
     specs = param_partition_specs(full, rules)
     model = bind(cfg, {k: v.to(device) for k, v in shard_for_rank(
         full, specs, mesh, mesh.coords).items()}, mesh)
+    draft_cfg = draft = None
+    if args.draft_config:
+        draft_cfg = get_config(args.draft_config)
+        if args.reduced:
+            draft_cfg = draft_cfg.reduced()
+        dfull = M.init(draft_cfg, seed=args.seed + 1, dtype=dtype,
+                       device="cpu").state_dict()
+        draft = bind(draft_cfg, {k: v.to(device) for k, v in shard_for_rank(
+            dfull, param_partition_specs(dfull, make_rules(
+                mesh, arch_name=draft_cfg.name, context="serve")), mesh,
+            mesh.coords).items()}, mesh)
+        del dfull
     _, padded_len = plan_shapes(args.prompt_len)
     B = args.batch
     gen = torch.Generator(device=device)
@@ -291,13 +306,15 @@ def _serve_rank(rank, device, args):
         eos_id=args.eos_id if args.eos_id >= 0 else None,
         prefix_len=STUB_LEN if "prefix_embeds" in batch else 0,
         param_dtype=dtype, cache_dtype=dtype, speculate_k=args.speculate_k,
-        draft_layers=args.draft_layers or None, device=device, mesh=mesh)
+        draft_layers=args.draft_layers or None, draft_cfg=draft_cfg,
+        device=device, mesh=mesh)
     mine = shard_for_rank(batch, batch_partition_specs(
         batch, rules, node_stacked=False), mesh, mesh.coords)
 
     def timed():
         t0 = time.perf_counter()
-        res = engine.generate_with_state(model, mine, seed=args.seed)
+        res = engine.generate_with_state(model, mine, seed=args.seed,
+                                         draft_params=draft)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         return res, time.perf_counter() - t0

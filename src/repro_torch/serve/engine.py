@@ -50,8 +50,12 @@ draws what it draws on one rank.  After each token (a speculative round's
 emitted tokens) the ranks that hold the same rows compare what they
 picked, over each mesh axis that does not split the batch, and the engine
 raises if they differ.  Self-speculation runs unchanged through the
-sharded layers; a ``draft_cfg`` model over a mesh raises
-``NotImplementedError``.
+sharded layers.  A ``draft_cfg`` model is bound to this rank's shards
+under the same serve rules (``dist.tp.bind``), and its prefill, cache
+and decode steps run through its sharded layers, as the reference's
+``dpre`` and ``dcsh`` (``engine.py:443-453``); ``generate`` then takes
+the draft's shard dict (or its bound model) as ``draft_params``.  The
+draft's rules must give this rank the target's rows.
 
 ``prefix_len`` counts the positions a vision model's ``prefix_embeds``
 take in front of the prompt (``engine.py:194-244``): generation starts at
@@ -184,6 +188,9 @@ class GenerationBundle:
         if self.mesh is not None:
             from repro_torch.dist.steps import bound_model
             params = bound_model(self.cfg, self.mesh, params)
+            if self.draft_cfg is not None and draft_params is not None:
+                draft_params = bound_model(self.draft_cfg, self.mesh,
+                                           draft_params)
         for p in (params, draft_params):
             if p is not None and p.embed.table.dtype != self.param_dtype:
                 raise TypeError(f"engine built for {self.param_dtype} "
@@ -411,7 +418,8 @@ def make_engine(cfg, *, batch: int, prompt_len: int, max_new: int,
 
     ``mesh`` (a live mesh, ``launch.mesh``) serves on this rank of it
     (see the module docstring); ``batch`` is then the whole batch, of
-    which the engine takes this rank's rows."""
+    which the engine takes this rank's rows, and a ``draft_cfg`` model
+    is served over the same mesh."""
     if batch < 1 or prompt_len < 1 or max_new < 1 or prefix_len < 0:
         raise ValueError(f"batch, prompt_len and max_new must be >= 1 and "
                          f"prefix_len >= 0, got {batch}, {prompt_len}, "
@@ -444,10 +452,7 @@ def make_engine(cfg, *, batch: int, prompt_len: int, max_new: int,
         draft_layers = draft_cfg = None
     sharded = {"rows": batch}
     if mesh is not None:
-        if draft_cfg is not None:
-            raise NotImplementedError(
-                "speculation through a draft_cfg model over a mesh is not "
-                "ported to repro_torch yet; see ROADMAP.md")
+        from repro_torch.dist.sharding import make_rules
         from repro_torch.dist.steps import (local_rows, make_decode_step,
                                             make_prefill)
         seq = prompt_len + prefix_len + max_new + speculate_k
@@ -462,6 +467,13 @@ def make_engine(cfg, *, batch: int, prompt_len: int, max_new: int,
             replica_axes=tuple(a for a in mesh.axis_names
                                if mesh.shape[a] > 1
                                and not (split and a in rules.dp)))
+        if draft_cfg is not None:
+            drows = local_rows(make_rules(mesh, arch_name=draft_cfg.name,
+                                          context="serve"), batch)
+            if drows != (row0, rows):
+                raise ValueError(
+                    f"the draft {draft_cfg.name}'s serve rules give this "
+                    f"rank rows {drows}, the target's {(row0, rows)}")
     return GenerationBundle(cfg=cfg, batch=batch, prompt_len=prompt_len,
                             max_new=max_new, sampling=sampling,
                             eos_id=eos_id, param_dtype=param_dtype,

@@ -55,7 +55,9 @@ def test_importing_every_module_leaves_jax_and_repro_out():
             "repro_torch.dist.gossip", "repro_torch.dist.steps",
             "repro_torch.kernels.gossip_mix",
             "repro_torch.launch.distributed",
-            "repro_torch.launch.train"} <= set(_modules())
+            "repro_torch.launch.train", "repro_torch.launch.dryrun",
+            "repro_torch.launch.shapes", "repro_torch.analysis.flops",
+            "repro_torch.optim.sgd"} <= set(_modules())
 
 
 def test_sources_import_no_jax_and_no_repro():

@@ -21,10 +21,12 @@ Checks: prefill and two decode steps' logits of each rank's rows within
 (f32 sums in another order; the reference's own sharded serving test
 fails under jax 0.9, ROADMAP queue 3); the greedy tokens of
 ``make_engine(mesh=)`` equal the port's one-rank engine's (and, for
-gemma3-1b, self-speculative k = 2 too); the shards put back together
+gemma3-1b, self-speculative k = 2 too, and k = 2 through a 1-block
+draft model, its ``SpecStats`` as well); the shards put back together
 equal the full dict bit for bit; one decode step gathers once per
 sharded ``Dense`` and once for the embedding and once for the tied head.
 """
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -43,6 +45,7 @@ from repro_torch.dist.sharding import (local_shape, make_rules,
                                        param_partition_specs)
 from repro_torch.launch.distributed import spawn_local
 from repro_torch.launch.mesh import Mesh
+from repro_torch.models import model as M
 from repro_torch.models.layers import Dense
 from repro_torch.serve import make_engine
 
@@ -69,14 +72,25 @@ def _inputs(arch):
     return batch, tokens[:, P:]
 
 
+def _draft():
+    """A 1-block draft model of reduced gemma3-1b (as ``[spec]``'s of the
+    full width), its weights the port's draw from seed 5."""
+    dcfg = dataclasses.replace(pair("gemma3-1b")[1], num_blocks=1)
+    return dcfg, M.init(dcfg, seed=5, dtype=torch.float32, device="cpu")
+
+
 @pytest.fixture(scope="module")
 def served():
     cases = []
     for arch in ARCHS:
         full = {k: v.numpy() for k, v in pair(arch)[3].state_dict().items()}
         batch, forced = _inputs(arch)
+        draft = None
+        if arch == "gemma3-1b":
+            draft = {k: v.numpy()
+                     for k, v in _draft()[1].state_dict().items()}
         cases.append((arch, full, batch, forced, NEW,
-                      SPEC_K if arch == "gemma3-1b" else 0))
+                      SPEC_K if arch == "gemma3-1b" else 0, draft))
     ranks = spawn_local(torch_tp_ranks.serve_cases, 4,
                         args=(cases, MESH.shape["model"]), backend="gloo",
                         device="cpu", timeout=240)
@@ -122,7 +136,7 @@ def test_sharded_tokens_equal_one_rank_engine(served, arch):
     batch, _ = _inputs(arch)
     npfx = 16 if "prefix_embeds" in batch else 0
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
-    for k in served[arch][0]["tokens"]:
+    for k in (0, SPEC_K) if arch == "gemma3-1b" else (0,):
         one = make_engine(cfg, batch=B, prompt_len=P, max_new=NEW,
                           prefix_len=npfx, param_dtype=torch.float32,
                           cache_dtype=torch.float32, speculate_k=k,
@@ -134,7 +148,7 @@ def test_sharded_tokens_equal_one_rank_engine(served, arch):
                 got, want[r["row0"]:r["row0"] + r["rows"]],
                 err_msg=f"k={k} {r['coords']}")
     assert set(served[arch][0]["tokens"]) == (
-        {0, SPEC_K} if arch == "gemma3-1b" else {0})
+        {0, SPEC_K, "draft"} if arch == "gemma3-1b" else {0})
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -166,12 +180,55 @@ def test_one_gather_per_sharded_dense(served):
         assert r["gathers"]["bytes"] > 0
 
 
-def test_unported_engine_options_raise():
-    from repro_torch.configs import get_config
-    cfg = get_config("gemma3-1b").reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_engine(cfg, batch=2, prompt_len=8, max_new=2, speculate_k=2,
-                    draft_cfg=cfg, device="cpu", mesh=MESH)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_dry_run_gathers_equal_live_ranks(served, arch):
+    """``launch.dryrun.dry_cell`` of one decode step on each rank's
+    coordinates of a dry (2, 2) mesh, the meta device: the gathers and
+    bytes the live gloo ranks counted."""
+    from repro_torch.launch.dryrun import dry_cell
+    from repro_torch.launch.mesh import dry_mesh
+    cfg = pair(arch)[1]
+    batch, forced = _inputs(arch)
+    npfx = 16 if "prefix_embeds" in batch else 0
+    frames = batch["frames"].shape[1] if "frames" in batch else 1024
+    for rank, r in enumerate(served[arch]):
+        mesh = dry_mesh(MESH, rank)
+        assert mesh.coords == r["coords"]
+        got = dry_cell(cfg, "decode", mesh, batch=B,
+                       seq=npfx + P + STEPS + 1, frames=frames,
+                       param_dtype=torch.float32,
+                       cache_dtype=torch.float32)
+        assert (got["gathers"], got["gather_bytes"]) == (
+            r["gathers"]["collectives"], r["gathers"]["bytes"]), r["coords"]
+        assert (got["row0"], got["rows"]) == (r["row0"], r["rows"])
+
+
+def test_unported_engine_options_raise(served):
+    """A draft model over the mesh (``make_engine(mesh=, draft_cfg=)``,
+    once refused) gives the one-rank engine's greedy tokens and
+    ``SpecStats`` with the same draft, on each rank's rows; the
+    continuous engine still takes no mesh, as the reference's."""
+    from repro_torch.launch.serve import main as serve_main
+    cfg, tparams = pair("gemma3-1b")[1], pair("gemma3-1b")[3]
+    dcfg, dparams = _draft()
+    batch, _ = _inputs("gemma3-1b")
+    one = make_engine(cfg, batch=B, prompt_len=P, max_new=NEW,
+                      param_dtype=torch.float32, cache_dtype=torch.float32,
+                      speculate_k=SPEC_K, draft_cfg=dcfg, device="cpu")
+    want = one.generate_with_state(
+        tparams, {"tokens": torch.from_numpy(batch["tokens"])},
+        draft_params=dparams)
+    assert int(want.spec.rounds.sum()) > 0
+    for r in served["gemma3-1b"]:
+        rows = slice(r["row0"], r["row0"] + r["rows"])
+        np.testing.assert_array_equal(r["tokens"]["draft"],
+                                      want.tokens.numpy()[rows],
+                                      err_msg=str(r["coords"]))
+        for got, ref in zip(r["draft_stats"], want.spec):
+            np.testing.assert_array_equal(got, ref.numpy()[rows])
+    with pytest.raises(SystemExit, match="--continuous takes no mesh"):
+        serve_main(["--arch", "gemma3-1b", "--reduced", "--device", "cpu",
+                    "--continuous", "--nproc", "4"])
 
 
 def _launcher(*extra):
@@ -193,3 +250,13 @@ def test_launcher_mesh_tokens_equal_one_rank():
     tp, out = _launcher("--nproc", "4", "--mesh-model", "2")
     assert tp == one
     assert "mesh (data 2, model 2)" in out
+
+
+def test_launcher_draft_config_mesh_tokens_equal_one_rank():
+    """``--draft-config`` with ``--nproc 4 --mesh-model 2``: the rows'
+    tokens equal ``--nproc 1``'s with the same draft."""
+    spec = ["--speculate-k", "2", "--draft-config", "gemma3-1b"]
+    one, out = _launcher("--nproc", "1", *spec)
+    assert "speculative: k=2" in out
+    tp, _ = _launcher("--nproc", "4", "--mesh-model", "2", *spec)
+    assert tp == one

@@ -37,7 +37,10 @@ train rules from the reference's reduced weights
   shard trees within 1e-6, residuals bit for bit;
 * the launcher's ``train_rank`` over (data 2, model 2) with
   checkpoints: the reference's ``load_pytree`` reads "latest" and the
-  node-mean "ckpt" bit for bit.
+  node-mean "ckpt" bit for bit; the port's ``load_pytree(placement=)``
+  restores "latest" onto (data 2, model 2), (data 2, model 1) and one
+  rank, here in the parent, and a copy the ranks saved on (data 2,
+  model 1) onto (data 2, model 2), each bit for bit.
 
 The launcher: ``--nproc 4 --mesh-model 2`` (and with ``--mesh-data 2``)
 prints ``--nproc 2``'s per-node losses within 1e-5; ``--production-mesh
@@ -374,6 +377,107 @@ def test_checkpoints_over_the_mesh_load_in_the_reference(ranks):
             assert np.array_equal(v[i], nodes[i][k].numpy()), (i, k)
         want = (nodes[0][k].numpy() + nodes[1][k].numpy()) / np.float32(N)
         assert np.array_equal(mean[k], want), k
+
+
+def _dry(arch, layout, rank, rows, seq, **kw):
+    from repro_torch.launch.dryrun import dry_cell
+    from repro_torch.launch.mesh import dry_mesh
+    mesh = dry_mesh(_mesh(layout), rank)
+    return mesh, dry_cell(pair(arch)[1], "train", mesh, batch=rows,
+                          seq=seq, param_dtype=torch.float32, **kw)
+
+
+@pytest.mark.parametrize("case", list(GRAD_CASES) + ["gemma-methods"])
+def test_dry_run_gathers_equal_live_ranks(ranks, case):
+    """``launch.dryrun.dry_cell`` of one train step's gradients on each
+    rank's coordinates of a dry mesh (the meta device): the gathers and
+    bytes, forward and backward, the live gloo ranks counted (the
+    methods case: per step of its dsgdm run), and the gossip bytes its
+    mixer sent a step."""
+    if case == "gemma-methods":
+        arch, layout, nodes, rows, seq, kw = \
+            "gemma3-1b", MESH, N, B, SEQ, {}
+        live = [dict(r[("dsgdm", False)], coords=r["coords"])
+                for r in ranks["methods"]]
+        steps = STEPS
+    else:
+        arch, layout, nodes, rows, seq, kw, _ = GRAD_CASES[case]
+        live, steps = ranks[case], 1
+        kw = {"embed_hint": True} if kw else {}
+    for rank, r in enumerate(live):
+        mesh, got = _dry(arch, layout, rank, nodes * rows, seq,
+                         remat=False, **kw)
+        assert mesh.coords == r["coords"]
+        bwd = r["backward"]
+        assert (steps * got["gathers"], steps * got["gather_bytes"]) == (
+            r["gathers"]["collectives"], r["gathers"]["bytes"]), r["coords"]
+        assert (steps * got["bwd_gathers"], steps * got["bwd_bytes"]) == (
+            bwd["collectives"], bwd["bytes"]), r["coords"]
+        if case == "gemma-methods":
+            assert steps * got["gossip_bytes"] == r["sent"]["bytes"]
+
+
+def _restored(ranks, directory, layout, coords, node_axis="data",
+              nodes=True, name="latest"):
+    """``name`` under ``directory`` restored onto the rank at ``coords``
+    of ``layout`` (``load_pytree(placement=)``): its params, its
+    momentum and the step."""
+    from repro_torch.checkpoint import load_pytree
+    from repro_torch.checkpoint.io import mesh_placement
+    from repro_torch.dist.sharding import local_shape
+
+    mesh = Mesh(dict(zip(layout[1], layout[0])), coords=coords)
+    specs = _specs("gemma3-1b", layout)
+    full = _full("gemma3-1b")
+    lead = (1,) if nodes else ()
+    row = {k: torch.zeros(lead + local_shape(v.shape, specs[k], mesh))
+           for k, v in full.items()}
+    tree = {"params": row, "opt": {"u": dict(row)}, "step": 0} if nodes \
+        else row
+    return load_pytree(tree, directory, name, placement=mesh_placement(
+        specs, mesh, node_axis, nodes=nodes))
+
+
+@pytest.mark.parametrize("case", ["2x2", "2x1", "one-rank", "2x1-to-2x2"])
+def test_mesh_checkpoint_restores_onto_any_mesh(ranks, case):
+    """``load_pytree(placement=)`` of the (data 2, model 2) run's
+    "latest": onto (2, 2) each rank's shards, onto (2, 1) each node's
+    row, onto one rank the whole leaves (and the node-mean "ckpt"
+    whole); and the copy saved on (2, 1) by the ranks onto (2, 2): each
+    bit for bit the trained tensors."""
+    per_rank = ranks["ckpt"]
+    d = ranks["ckpt_dir"]
+    nodes = _node_whole("gemma3-1b", MESH, per_rank, lambda r: r["shards"])
+    if case in ("2x2", "2x1-to-2x2"):
+        src = d if case == "2x2" else f"{d}/narrow"
+        if case != "2x2":
+            assert [r["narrow_step"] for r in per_rank] == \
+                [CKPT_STEPS - 1, None, CKPT_STEPS - 1, None]
+        for r in per_rank:
+            got = _restored(ranks, src, MESH, r["coords"])
+            assert got["step"] == CKPT_STEPS - 1
+            assert got["params"].keys() == r["shards"].keys()
+            for k, v in r["shards"].items():
+                assert np.array_equal(got["params"][k][0].numpy(), v), k
+    elif case == "2x1":
+        for i in range(N):
+            got = _restored(ranks, d, ((2, 1), ("data", "model")),
+                            {"data": i, "model": 0})
+            for k, v in nodes[i].items():
+                assert torch.equal(got["params"][k][0], v), (i, k)
+    else:
+        from repro_torch.checkpoint import load_pytree
+        whole = {k: torch.zeros((N,) + v.shape)
+                 for k, v in _full("gemma3-1b").items()}
+        got = load_pytree({"params": whole, "opt": {"u": dict(whole)},
+                           "step": 0}, d, "latest", node_axis=True)
+        mean = _restored(ranks, d, ((1, 1), ("data", "model")),
+                         {"data": 0, "model": 0}, node_axis=None,
+                         nodes=False, name="ckpt")
+        for k in whole:
+            want = torch.stack([nodes[i][k] for i in range(N)])
+            assert torch.equal(got["params"][k], want), k
+            assert torch.equal(mean[k], (want[0] + want[1]) / N), k
 
 
 # ---------------------------------------------------------------------------

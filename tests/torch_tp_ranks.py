@@ -5,6 +5,8 @@ each rank imports its module afresh, so it lives in a module of its own
 that imports no JAX.  It returns numpy arrays, so the parent can hold
 them against the reference.
 """
+import dataclasses
+
 import torch
 
 from repro_torch.configs import get_config
@@ -19,18 +21,22 @@ from repro_torch.serve import make_engine
 
 
 def serve_cases(rank, device, cases, model_axis):
-    """Each case ``(arch, params, batch, forced, new, speculate_k)`` on a
+    """Each case ``(arch, params, batch, forced, new, speculate_k,
+    draft)`` on a
     ``(world // model_axis, model_axis)`` mesh: ``params`` the full flat
     dict (numpy, f32) of the reduced arch, ``batch`` the whole serve batch
     (numpy), ``forced`` (B, steps) tokens the decode steps take one at a
     time after the prompt.  Returns, per case, this rank's rows, its
     shards, the prefill and decode logits of its rows, the gathers of
     one decode step, and the greedy tokens of ``make_engine(mesh=)``
-    (plain, and with ``speculate_k`` self-speculative when it is set)."""
+    (plain, and with ``speculate_k`` self-speculative when it is set;
+    with ``draft``, the full flat dict of a 1-block draft model of the
+    arch, also through that draft model, keyed ``"draft"``, beside its
+    ``SpecStats``)."""
     torch.set_num_threads(1)
     mesh = make_host_mesh(model=model_axis)
     out = []
-    for arch, params, batch, forced, new, spec_k in cases:
+    for arch, params, batch, forced, new, spec_k, draft in cases:
         cfg = get_config(arch).reduced()
         rules = make_rules(mesh, arch_name=arch, context="serve")
         full = {k: torch.from_numpy(v) for k, v in params.items()}
@@ -65,11 +71,26 @@ def serve_cases(rank, device, cases, model_axis):
                               cache_dtype=torch.float32, speculate_k=k,
                               device="cpu", mesh=mesh)
             engines[k] = eng.generate_with_state(model, mine).tokens.numpy()
+        stats = None
+        if draft is not None:
+            dcfg = dataclasses.replace(cfg, num_blocks=1)
+            dfull = {k: torch.from_numpy(v) for k, v in draft.items()}
+            dshards = shard_for_rank(dfull, param_partition_specs(
+                dfull, make_rules(mesh, arch_name=dcfg.name,
+                                  context="serve")), mesh, mesh.coords)
+            eng = make_engine(cfg, batch=B, prompt_len=P, max_new=new,
+                              param_dtype=torch.float32,
+                              cache_dtype=torch.float32, speculate_k=spec_k,
+                              draft_cfg=dcfg, device="cpu", mesh=mesh)
+            res = eng.generate_with_state(model, mine, draft_params=dshards)
+            engines["draft"] = res.tokens.numpy()
+            stats = [t.numpy() for t in res.spec]
         out.append({
             "coords": mesh.coords, "row0": row0, "rows": rows,
             "dp": rules.dp, "decode_mode": dec.decode_mode,
             "shards": {k: v.numpy() for k, v in shards.items()},
             "prefill": logits.numpy(),
             "enc": None if enc is None else enc.numpy(),
-            "decode": steps, "gathers": gathers, "tokens": engines})
+            "decode": steps, "gathers": gathers, "tokens": engines,
+            "draft_stats": stats})
     return out

@@ -34,6 +34,43 @@ def _node_batch(batches, step, node):
             for k, v in batches[step].items()}
 
 
+def _save_narrow(cfg, mesh, ckpt_dir):
+    """"latest" of a (data 2, model 2) run restored onto (data 2, model
+    1) by the model-coordinate-0 ranks and saved again there (under
+    ``<ckpt_dir>/narrow``); returns the restored step (None on the other
+    ranks)."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import AsyncCheckpointer, load_pytree
+    from repro_torch.checkpoint.io import mesh_placement
+    from repro_torch.launch.mesh import Mesh, rank_coords
+    from repro_torch.models import model as M
+
+    narrow = Mesh({"data": 2, "model": 1},
+                  coords={"data": mesh.coords["data"], "model": 0})
+    whole = M.param_specs(cfg, torch.float32)
+    specs = param_partition_specs(whole, make_rules(
+        narrow, arch_name=cfg.name, context="train"))
+    firsts = [r for r in range(dist.get_world_size())
+              if rank_coords(mesh, r)["model"] == 0]
+    group = dist.new_group(firsts)      # every rank makes it
+    if mesh.coords["model"]:
+        return None
+    row = {k: torch.zeros((1,) + tuple(v.shape)) for k, v in whole.items()}
+    place = mesh_placement(specs, narrow, "data")
+    tree = load_pytree({"params": row, "opt": {"u": dict(row)}, "step": 0},
+                       ckpt_dir, "latest", placement=place)
+    ckpt = AsyncCheckpointer(os.path.join(ckpt_dir, "narrow"), group=group,
+                             placement=place)
+    try:
+        ckpt.save(tree, name="latest").result()
+    finally:
+        ckpt.close()
+    return tree["step"]
+
+
 def _train(bundle, params, batches, steps):
     opt = bundle.method.init(params)
     losses, shards = [], []
@@ -61,7 +98,10 @@ def train_cases(rank, device, cases):
       ``step_kw`` too) on step 0's batch (the node's loss, this rank's
       gradients) and one step after it;
     * ``"ckpt"``: the launcher's ``train_rank`` with ``opts`` (a mesh,
-      checkpoints): this rank's final shards and its saves;
+      checkpoints): this rank's final shards and its saves; then the
+      ranks of model coordinate 0 restore "latest" onto (data 2, model
+      1), each its node's whole row (``load_pytree(placement=)``), and
+      save that under ``<ckpt_dir>/narrow`` as the ranks of that mesh;
     * ``"compress"``: one round of the compressed mixer over
       ``mesh.group("data")`` on this rank's shards of ``params`` (a
       node-stacked dict of the nodes' full trees) and of ``ef``, with
@@ -81,6 +121,8 @@ def train_cases(rank, device, cases):
             res.update(node=got.bundle.node, shards=_numpy(
                 {k: v[0] for k, v in got.params.items()}),
                 saves=[s["name"] for s in got.checkpoints])
+            res["narrow_step"] = _save_narrow(cfg, mesh,
+                                              case["opts"].ckpt_dir)
             out.append(res)
             continue
         if case["kind"] == "compress":
@@ -136,7 +178,9 @@ def train_cases(rank, device, cases):
             params = _shards(cfg, case["params"], bundle.rules, mesh)
             res[(method, overlap)] = dict(zip(("losses", "shards"), _train(
                 bundle, params, case["batches"], case["steps"])),
-                sent=dict(bundle.mixer.stats))
+                sent=dict(bundle.mixer.stats),
+                gathers=dict(bundle.model.tp.stats),
+                backward=dict(bundle.model.tp.backward_stats))
             res["node"] = bundle.node
             if mesh.coords["model"]:
                 continue
