@@ -32,6 +32,9 @@ What the port must do on its own to give the reference's answers:
   and continuous serving routes its free slots' dummy tokens and
   right-padded prefill rows with the rest.  The port follows the
   reference in all three (ROADMAP.md, queue 3).
+
+The gather, the expert products and the gate scaling are the span
+``"moe.experts"`` of :mod:`repro_torch.trace`, with its device time.
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import trace
 from repro_torch.configs.common import MoEConfig
 
 from .layers import MLP, normal_
@@ -177,10 +181,11 @@ class MoE(nn.Module):
             else self.tp.whole(self, n, whole_batch=rows)
             for n in ("router", "w_gate", "w_up", "w_down"))
         r = route(xf, router, cfg)
-        xe = xf[r.top_tok]                                     # (E, C, D)
-        h = _act(torch.bmm(xe, w_gate), self.act) * torch.bmm(xe, w_up)
-        ye = torch.bmm(h, w_down)
-        ye = ye * (r.top_scores * r.keep)[..., None].to(ye.dtype)
+        with trace.span("moe.experts", device=xf.is_cuda):
+            xe = xf[r.top_tok]                                 # (E, C, D)
+            h = _act(torch.bmm(xe, w_gate), self.act) * torch.bmm(xe, w_up)
+            ye = torch.bmm(h, w_down)
+            ye = ye * (r.top_scores * r.keep)[..., None].to(ye.dtype)
         y = combine(ye, combine_table(r))
         if rows:
             y = self.tp.comm.split_rows(y.reshape(B, T, D)).reshape(-1, D)

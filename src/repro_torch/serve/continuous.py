@@ -39,7 +39,11 @@ group size) and one decode executable; the port runs eagerly under
 per (bucket, group size) seen, plus ``decode``), so ``run``'s statistics
 have the reference's keys and, greedy, its values.  Each dispatch is
 bracketed by :func:`repro_torch.trace.mark` (its dispatch name, then
-``"end"``), so a caller can time it on the card.
+``"end"``), so a caller can time it on the card; each loop iteration,
+prefill, decode dispatch, decode's argument copies and decode launch is
+a :func:`repro_torch.trace.span` (``"step"``, ``"prefill"``,
+``"decode"``, ``"decode.prep"``, ``"decode.launch"``), so the host's time
+between dispatches and inside them can be told from the card's.
 """
 from __future__ import annotations
 
@@ -158,28 +162,30 @@ class ContinuousEngine:
     def _prefill(self, params, group, bl: int, seed: int) -> list[int]:
         """Prefill each ``(request, slot, pages)`` of ``group`` (one
         bucket ``bl``) into its pages; returns the first tokens."""
-        cfg, dev, ps = self.cfg, self.device, self.layout.page_size
-        npg = bl // ps
-        out = []
-        for r, _, pages in group:
-            toks = torch.zeros((1, bl), dtype=torch.int64, device=dev)
-            toks[0, :r.prompt_len] = torch.tensor(r.tokens, device=dev)
-            caches = M.init_cache(cfg, 1, bl, self.cache_dtype, dev)
-            h, caches, _ = M.backbone(cfg, params, toks, caches=caches,
-                                      cache_index=0)
-            # the prompt's last real row, not the padded row bl - 1
-            logits = M.logits_of(cfg, params, h[:, r.prompt_len - 1])
-            gens = ([stream_generator(seed, r.rid, r.prompt_len,
-                                      TOKEN_STREAM, dev)]
-                    if self.sampling.needs_rng else None)
-            out.append(sample_token(logits.float(), self.sampling, gens))
-            pidx = torch.tensor(pages[:npg], device=dev)
-            for pool, dense in zip(layer_caches(self.pools),
-                                   layer_caches(caches)):
-                for name in pool:
-                    pool[name][pidx] = dense[name][0].reshape(
-                        (npg, ps) + dense[name].shape[2:])
-        return torch.cat(out).tolist()
+        with trace.span("prefill", [r.rid for r, _, _ in group],
+                        allocs=self.device.type == "cuda"):
+            cfg, dev, ps = self.cfg, self.device, self.layout.page_size
+            npg = bl // ps
+            out = []
+            for r, _, pages in group:
+                toks = torch.zeros((1, bl), dtype=torch.int64, device=dev)
+                toks[0, :r.prompt_len] = torch.tensor(r.tokens, device=dev)
+                caches = M.init_cache(cfg, 1, bl, self.cache_dtype, dev)
+                h, caches, _ = M.backbone(cfg, params, toks, caches=caches,
+                                          cache_index=0)
+                # the prompt's last real row, not the padded row bl - 1
+                logits = M.logits_of(cfg, params, h[:, r.prompt_len - 1])
+                gens = ([stream_generator(seed, r.rid, r.prompt_len,
+                                          TOKEN_STREAM, dev)]
+                        if self.sampling.needs_rng else None)
+                out.append(sample_token(logits.float(), self.sampling, gens))
+                pidx = torch.tensor(pages[:npg], device=dev)
+                for pool, dense in zip(layer_caches(self.pools),
+                                       layer_caches(caches)):
+                    for name in pool:
+                        pool[name][pidx] = dense[name][0].reshape(
+                            (npg, ps) + dense[name].shape[2:])
+            return torch.cat(out).tolist()
 
     def _generators(self, rids, positions, stream: int, seed: int):
         if not self.sampling.needs_rng:
@@ -191,12 +197,14 @@ class ContinuousEngine:
     def _decode(self, params, table, tok, pos, hpos, rids, seed: int):
         """One lockstep decode over all slots (``pos`` on the device,
         ``hpos`` the same on the host): the next tokens (B,)."""
-        logits, _ = M.decode_step(self.cfg, params, self.pools, tok[:, None],
-                                  pos, decode_mode="paged",
-                                  block_table=table)
-        gens = self._generators(rids, [p + 1 for p in hpos], TOKEN_STREAM,
-                                seed)
-        return sample_token(logits[:, -1].float(), self.sampling, gens)
+        with trace.span("decode.launch", rids,
+                        allocs=self.device.type == "cuda"):
+            logits, _ = M.decode_step(self.cfg, params, self.pools,
+                                      tok[:, None], pos, decode_mode="paged",
+                                      block_table=table)
+            gens = self._generators(rids, [p + 1 for p in hpos],
+                                    TOKEN_STREAM, seed)
+            return sample_token(logits[:, -1].float(), self.sampling, gens)
 
     def _spec_round(self, params, table, tok, pos, hpos, rids, seed: int):
         """One draft-k-verify-once round over all slots: ``(emitted
@@ -280,74 +288,81 @@ class ContinuousEngine:
                 if step >= max_steps:
                     raise RuntimeError(f"trace did not drain in {max_steps} "
                                        f"steps")
-                # admission: free slots take arrived requests, grouped
-                # into one prefill call per shared bucket
-                free = [i for i, s in enumerate(slots) if s.rid is None]
-                while free and queue and queue[0].arrival <= step \
-                        and self.page_pool.available >= maxp:
-                    group = []           # [(request, slot, pages)]
-                    bl = None
-                    while queue and queue[0].arrival <= step \
-                            and len(group) < min(len(free),
-                                                 self.prefill_batch) \
+                with trace.span("step", step):
+                    # admission: free slots take arrived requests, grouped
+                    # into one prefill call per shared bucket
+                    free = [i for i, s in enumerate(slots) if s.rid is None]
+                    while free and queue and queue[0].arrival <= step \
                             and self.page_pool.available >= maxp:
-                        b = bucket_for(queue[0].prompt_len, self.buckets)
-                        if bl is None:
-                            bl = b
-                        elif b != bl:    # the next head needs another bucket
-                            break
-                        group.append((queue.popleft(), free.pop(0),
-                                      self.page_pool.alloc(maxp)))
-                    nb = len(group)
-                    self._prefill_seen.add((bl, nb))
-                    self._dispatch(f"prefill_{bl}" if nb == 1
-                                   else f"prefill_{bl}x{nb}")
-                    first = self._prefill(params, group, bl, seed)
-                    trace.mark("end")
-                    for (r, i, pages), t0 in zip(group, first):
-                        s = slots[i]
-                        table[i] = pages
-                        s.rid, s.pos, s.generated = r.rid, r.prompt_len, 1
-                        s.pages, s.admitted_step = pages, step
-                        toks[r.rid] = [t0]
-                        last_tok[i] = t0
-                        if self.max_new == 1 or t0 == self.eos_id:
-                            retire(s, step)
-                # one lockstep decode over all slots
-                active = [s.rid is not None for s in slots]
-                if any(active):
-                    busy_acc += sum(active)
-                    self._decode_seen = True
-                    self._dispatch("decode")
-                    hpos = [s.pos for s in slots]
-                    args = (params, torch.from_numpy(table).to(dev),
-                            torch.from_numpy(last_tok).to(dev),
-                            torch.tensor(hpos, device=dev), hpos,
-                            [s.rid for s in slots], seed)
-                    if self.speculate_k:
-                        emit, cnt = self._spec_round(*args)
-                        emit, cnt = emit.tolist(), cnt.tolist()
-                    else:
-                        emit = [[t] for t in self._decode(*args).tolist()]
-                        cnt = [1] * self.slots
-                    trace.mark("end")
-                    for i, s in enumerate(slots):
-                        if s.rid is None:
-                            continue
-                        out = emit[i][:cnt[i]]
-                        if self.speculate_k:
-                            spec_rounds += 1
-                            spec_accepted += cnt[i] - 1
-                        if self.eos_id is not None and self.eos_id in out:
-                            out = out[:out.index(self.eos_id) + 1]
-                        out = out[:self.max_new - s.generated]
-                        toks[s.rid].extend(out)
-                        s.pos += len(out)
-                        s.generated += len(out)
-                        last_tok[i] = out[-1]
-                        if out[-1] == self.eos_id \
-                                or s.generated >= self.max_new:
-                            retire(s, step)
+                        group = []           # [(request, slot, pages)]
+                        bl = None
+                        while queue and queue[0].arrival <= step \
+                                and len(group) < min(len(free),
+                                                     self.prefill_batch) \
+                                and self.page_pool.available >= maxp:
+                            b = bucket_for(queue[0].prompt_len,
+                                           self.buckets)
+                            if bl is None:
+                                bl = b
+                            elif b != bl:    # the head needs another bucket
+                                break
+                            group.append((queue.popleft(), free.pop(0),
+                                          self.page_pool.alloc(maxp)))
+                        nb = len(group)
+                        self._prefill_seen.add((bl, nb))
+                        self._dispatch(f"prefill_{bl}" if nb == 1
+                                       else f"prefill_{bl}x{nb}")
+                        first = self._prefill(params, group, bl, seed)
+                        trace.mark("end")
+                        for (r, i, pages), t0 in zip(group, first):
+                            s = slots[i]
+                            table[i] = pages
+                            s.rid, s.pos, s.generated = r.rid, r.prompt_len, 1
+                            s.pages, s.admitted_step = pages, step
+                            toks[r.rid] = [t0]
+                            last_tok[i] = t0
+                            if self.max_new == 1 or t0 == self.eos_id:
+                                retire(s, step)
+                    # one lockstep decode over all slots
+                    active = [s.rid is not None for s in slots]
+                    if any(active):
+                        busy_acc += sum(active)
+                        self._decode_seen = True
+                        self._dispatch("decode")
+                        with trace.span("decode", step):
+                            with trace.span("decode.prep", step):
+                                hpos = [s.pos for s in slots]
+                                args = (params,
+                                        torch.from_numpy(table).to(dev),
+                                        torch.from_numpy(last_tok).to(dev),
+                                        torch.tensor(hpos, device=dev), hpos,
+                                        [s.rid for s in slots], seed)
+                            if self.speculate_k:
+                                emit, cnt = self._spec_round(*args)
+                                emit, cnt = emit.tolist(), cnt.tolist()
+                            else:
+                                emit = [[t] for t in
+                                        self._decode(*args).tolist()]
+                                cnt = [1] * self.slots
+                        trace.mark("end")
+                        for i, s in enumerate(slots):
+                            if s.rid is None:
+                                continue
+                            out = emit[i][:cnt[i]]
+                            if self.speculate_k:
+                                spec_rounds += 1
+                                spec_accepted += cnt[i] - 1
+                            if self.eos_id is not None \
+                                    and self.eos_id in out:
+                                out = out[:out.index(self.eos_id) + 1]
+                            out = out[:self.max_new - s.generated]
+                            toks[s.rid].extend(out)
+                            s.pos += len(out)
+                            s.generated += len(out)
+                            last_tok[i] = out[-1]
+                            if out[-1] == self.eos_id \
+                                    or s.generated >= self.max_new:
+                                retire(s, step)
                 step += 1
 
         waits = np.array([r.wait_steps for r in results.values()])
